@@ -1,0 +1,611 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch/CUDA port of ITERA-LLM on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It drives the port (`src/repro_torch`; nothing of jax or of the JAX package)
+through four phases, and exits non-zero, printing no result, if any fails:
+
+1. build: compile every CUDA kernel from `src/repro_torch/kernels/csrc`
+   (one nvcc per source, all started together);
+2. kernels: each kernel against its plain PyTorch version at the serving
+   path's shapes -- the integer kernels bit-equal, paged attention within
+   1e-5 -- timed beside its plain version, a PyTorch library yardstick
+   and the least time the card could take (its bound);
+3. engine: opus-mt at full width, compressed by the port with a mixed plan
+   (ITERA W4A8 at rank fraction 0.5 for every attention and MLP linear,
+   W8A8 quantization for the lm head), serving 16 ragged requests with an
+   fp32 KV pool and again with int8 KV; every kernel's launch counter,
+   zeroed just before, must be > 0 after;
+4. parity: the compressed weights, copied to the CPU, serve 4 short
+   requests there (the kernels' plain versions) and on the card; the
+   greedy tokens must be identical.
+
+The last three lines are one JSON object with every kernel's numbers, the
+card's name and power limit as nvidia-smi gives them, and
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet peaks (dense), at the 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+# paged attention is fp32 attention; its bound takes the fp32 rate outside
+# the tensor cores (the kernel's float64 arithmetic is a cost above it)
+FP32_FLOPS_PER_S = 67e12
+
+TOL_ATTN = 1e-5          # attention: fp32 inputs, sums in another order
+REPS = 20
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def check(failures: list, ok: bool, what: str) -> None:
+    if not ok:
+        failures.append(what)
+        print(f"  FAIL {what}")
+
+
+def end_phase(name: str, failures: list) -> None:
+    if failures:
+        raise PhaseFailed(f"phase {name}: {len(failures)} check(s) failed: "
+                          + "; ".join(failures[:5]))
+    print(f"[{name}] ok")
+
+
+def bound(nbytes: float, ops: float, ops_rate: float):
+    """(least ms, what bounds it) for moving `nbytes` through device memory
+    and doing `ops` operations at `ops_rate` per second."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class Timer:
+    """Mean device time of a call, from CUDA events around each launch.
+
+    The 50 MB L2 cache is flushed before each launch (the serving path
+    streams other layers' weights between two calls of one kernel). The
+    card is first held busy (`torch.cuda._sleep`) while the host queues
+    every launch, so the events time the device alone and not the
+    wrappers' Python, which would otherwise leave the card idle between
+    them; if the queueing outlasts the hold, it is redone with a longer
+    one."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.hold_cycles = 50_000_000
+
+    def __call__(self, fn, reps: int = REPS) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        while True:
+            torch.cuda._sleep(self.hold_cycles)
+            held = torch.cuda.Event()
+            held.record()
+            marks = []
+            for _ in range(reps):
+                self.flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                marks.append((start, end))
+            starved = held.query()
+            torch.cuda.synchronize()
+            if not starved:
+                return sum(s.elapsed_time(e) for s, e in marks) / reps
+            self.hold_cycles *= 4
+
+
+# ------------------------------------------------------------- phase 2 --
+
+def int_mm(torch, a, b):
+    """torch._int_mm on int8 operands; cuBLAS needs more than 16 rows, so
+    fewer are zero-padded to 32 (the extra rows are dropped)."""
+    m = a.shape[0]
+    if m <= 16:
+        a = torch.nn.functional.pad(a, (0, 0, 0, 32 - m))
+    return torch._int_mm(a, b)[:m]
+
+
+def library_ms(timer, fn):
+    """Time of a PyTorch library yardstick, or None with the reason when
+    PyTorch refuses the shapes (the yardstick is never part of the port)."""
+    try:
+        return timer(fn)
+    except RuntimeError as e:
+        print(f"    library call refused: {str(e).splitlines()[0]}")
+        return None
+
+
+def check_quant_matmul(torch, timer, failures):
+    from repro_torch.core.quant import QuantizedTensor, pack_int4, unpack_int4
+    from repro_torch.kernels.ops import qmm_hbm_bytes
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows, worst = [], 0.0
+    print("  quant_matmul: M K N packed | kernel_ms plain_ms library_ms "
+          "bound_ms (bound by)")
+    for packed in (False, True):
+        for m in (8, 256, 2048):
+            for k, n in ((512, 512), (512, 2048), (512, 32000)):
+                qm = 7 if packed else 127
+                xq = torch.randint(-127, 128, (m, k), generator=g,
+                                   device="cuda", dtype=torch.int8)
+                sx = torch.rand((m, 1), generator=g, device="cuda") + 0.01
+                w = torch.randint(-qm, qm + 1, (k, n), generator=g,
+                                  device="cuda", dtype=torch.int8)
+                wq = pack_int4(w) if packed else w
+                sw = torch.rand((1, n), generator=g, device="cuda") * 0.01
+                y = quant_matmul(xq, sx, wq, sw, w_packed=packed)
+                ref = quant_matmul_plain(xq, sx, wq, sw, w_packed=packed)
+                torch.cuda.synchronize()
+                err = float((y - ref).abs().max())
+                worst = max(worst, err)
+                check(failures, torch.equal(y, ref),
+                      f"quant_matmul M={m} K={k} N={n} packed={packed} "
+                      f"differs from plain (max abs {err})")
+                wc = unpack_int4(wq) if packed else wq
+                t_k = timer(lambda: quant_matmul(xq, sx, wq, sw,
+                                                 w_packed=packed))
+                t_p = timer(lambda: quant_matmul_plain(xq, sx, wq, sw,
+                                                       w_packed=packed))
+                t_l = library_ms(timer, lambda: int_mm(torch, xq, wc).float()
+                                 * sx * sw)
+                nbytes = qmm_hbm_bytes(m, QuantizedTensor(
+                    wq, sw, 4 if packed else 8, 0, packed=packed))
+                b_ms, b_by = bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+                print(f"    {m:5d} {k:4d} {n:5d} {packed!s:5} | {t_k:.4f} "
+                      f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
+                      f"{b_ms:.4f} ({b_by})")
+                rows.append(dict(m=m, k=k, n=n, packed=packed, ms=t_k,
+                                 plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                 bound_by=b_by))
+    # the serving path's call: the W8 lm head, one row per batch slot
+    main = next(r for r in rows if (r["m"], r["n"], r["packed"]) ==
+                (8, 32000, False))
+    return {**main, "max_abs_err": worst}
+
+
+def check_lowrank_qmm(torch, timer, failures):
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import (QuantizedTensor, pack_int4, qmax,
+                                        unpack_int4)
+    from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
+                                                 lowrank_qmm_plain)
+    from repro_torch.kernels.ops import lrmm_hbm_bytes, quantize_acts
+    from repro_torch.kernels.ref import requant_rows
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows, worst = [], 0.0
+    print("  lowrank_qmm: M K R N act_wl | kernel_ms plain_ms library_ms "
+          "bound_ms (bound by)")
+    for act_wl in (8, 4):
+        for m in (8, 2048):
+            for k, r, n in ((512, 256, 512), (512, 256, 2048),
+                            (2048, 256, 512)):
+                x = torch.randn((m, k), generator=g, device="cuda")
+                xq, sx = quantize_acts(x, qmax(act_wl))
+                w1 = pack_int4(torch.randint(-7, 8, (k, r), generator=g,
+                                             device="cuda",
+                                             dtype=torch.int8))
+                w2 = pack_int4(torch.randint(-7, 8, (r, n), generator=g,
+                                             device="cuda",
+                                             dtype=torch.int8))
+                s1 = torch.rand((1, r), generator=g, device="cuda") * 0.1
+                s2 = torch.rand((r, 1), generator=g, device="cuda") * 0.1
+                args = (xq, sx, w1, s1, w2, s2)
+                kw = dict(w1_packed=True, w2_packed=True,
+                          act_qmax=qmax(act_wl))
+                if m == 8:
+                    # the cascade property: no (M, R) buffer, only Y
+                    lowrank_qmm(*args, **kw)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    y = lowrank_qmm(*args, **kw)
+                    torch.cuda.synchronize()
+                    grown = torch.cuda.max_memory_allocated() - base
+                    check(failures, grown <= -(-m * n * 4 // 512) * 512,
+                          f"lowrank_qmm allocated {grown} bytes beyond "
+                          f"Y ({m * n * 4})")
+                y = lowrank_qmm(*args, **kw)
+                ref = lowrank_qmm_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((y - ref).abs().max())
+                worst = max(worst, err)
+                check(failures, torch.equal(y, ref),
+                      f"lowrank_qmm M={m} K={k} R={r} N={n} A{act_wl} "
+                      f"differs from plain (max abs {err})")
+                w1c, w2c = unpack_int4(w1), unpack_int4(w2)
+
+                def chain():
+                    t = int_mm(torch, xq, w1c).float() * sx * s1 * \
+                        s2.reshape(1, -1)
+                    tq, st = requant_rows(t, qmax(act_wl))
+                    return int_mm(torch, tq, w2c).float() * st
+
+                t_k = timer(lambda: lowrank_qmm(*args, **kw))
+                t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
+                t_l = library_ms(timer, chain)
+                nbytes = lrmm_hbm_bytes(m, LowRankQ(
+                    QuantizedTensor(w1, s1, 4, 0, packed=True),
+                    QuantizedTensor(w2, s2, 4, 1, packed=True)))
+                b_ms, b_by = bound(nbytes, 2 * m * r * (k + n),
+                                   INT8_OPS_PER_S)
+                print(f"    {m:5d} {k:4d} {r:3d} {n:4d} A{act_wl} | "
+                      f"{t_k:.4f} {t_p:.4f} "
+                      f"{t_l if t_l is None else round(t_l, 4)} "
+                      f"{b_ms:.4f} ({b_by})")
+                rows.append(dict(m=m, k=k, r=r, n=n, act_wl=act_wl, ms=t_k,
+                                 plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                 bound_by=b_by))
+    # the serving path's most frequent call: a decode step's mlp/up
+    main = next(r for r in rows if (r["m"], r["k"], r["n"], r["act_wl"]) ==
+                (8, 512, 2048, 8))
+    return {**main, "max_abs_err": worst}
+
+
+def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
+    """A span batch over a pool with random history: ragged contexts, one
+    idle row; decode (w == 1) or prefill chunks up to w tokens."""
+    if w == 1:
+        ctx = [40, 511, 0, 130, 300, 75, 220, 480]
+        ql = [1, 1, 0, 1, 1, 1, 1, 1]
+    else:
+        ctx = [0, 256, 0, 17, 256, 500, 128, 0]
+        ql = [w, 200, 0, 37, w, 1, 128, 90]
+    mb = max(-(-(c + q) // bs) for c, q in zip(ctx, ql))
+    table = torch.zeros((b, mb), dtype=torch.int32)
+    nxt = 1
+    for r in range(b):
+        need = -(-(ctx[r] + ql[r]) // bs)
+        table[r, :need] = torch.arange(nxt, nxt + need)
+        nxt += need
+    shape = (nxt, bs, h, dh)
+    if kv_bits == 8:
+        pool = {"k": torch.randint(-127, 128, shape, generator=g,
+                                   device="cuda", dtype=torch.int8),
+                "v": torch.randint(-127, 128, shape, generator=g,
+                                   device="cuda", dtype=torch.int8),
+                # scales of |k|, |v| up to ~3, as the serving path's K/V
+                "ks": torch.rand((*shape[:-1], 1), generator=g,
+                                 device="cuda") * 0.02 + 0.005,
+                "vs": torch.rand((*shape[:-1], 1), generator=g,
+                                 device="cuda") * 0.02 + 0.005}
+    else:
+        pool = {"k": torch.randn(shape, generator=g, device="cuda"),
+                "v": torch.randn(shape, generator=g, device="cuda")}
+    q = torch.randn((b, w, h, dh), generator=g, device="cuda")
+    return (q, pool, table.cuda(), torch.tensor(ctx, dtype=torch.int32,
+                                                device="cuda"),
+            torch.tensor(ql, dtype=torch.int32, device="cuda"), ctx, ql)
+
+
+def check_paged_attention(torch, timer, failures):
+    from repro_torch.kernels.paged_attention import (attention_flops,
+                                                     paged_attention,
+                                                     span_attend_gather,
+                                                     stream_hbm_bytes)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows, worst = [], 0.0
+    print("  paged_attention: W kv_bits | kernel_ms plain_ms library_ms "
+          "bound_ms (bound by) max_abs_err")
+    for kv_bits in (16, 8):
+        for w in (1, 256):
+            q, pool, table, ctx_t, ql_t, ctx, ql = _span_batch(torch, g, w,
+                                                               kv_bits)
+            o = paged_attention(q, pool, table, ctx_t, ql_t)
+            ref = span_attend_gather(q, pool, table, ctx_t)
+            torch.cuda.synchronize()
+            err = 0.0
+            for r, n in enumerate(ql):
+                err = max(err, float((o[r, :n] - ref[r, :n]).abs().max())
+                          if n else 0.0)
+                check(failures, not o[r, n:].any(),
+                      f"paged_attention W={w} kv{kv_bits}: row {r} not zero "
+                      f"past q_len {n}")
+            worst = max(worst, err)
+            check(failures, err <= TOL_ATTN,
+                  f"paged_attention W={w} kv{kv_bits}: max abs {err} > "
+                  f"{TOL_ATTN}")
+            # yardstick: SDPA over the gathered (dequantized) K/V view
+            b, _, h, dh = q.shape
+            bs = pool["k"].shape[1]
+            s = table.shape[1] * bs
+            bt = table.long()
+
+            def view(key):
+                x = pool[key][bt].reshape(b, s, h, dh).float()
+                if "ks" in pool:
+                    x = x * pool[key[0] + "s"][bt].reshape(b, s, h, 1)
+                return x.transpose(1, 2).contiguous()
+
+            kk, vv = view("k"), view("v")
+            qq = q.transpose(1, 2).contiguous()
+            pos = ctx_t.long()[:, None] + torch.arange(w, device="cuda")
+            mask = (torch.arange(s, device="cuda")[None, None, :]
+                    <= pos[:, :, None])[:, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            t_k = timer(lambda: paged_attention(q, pool, table, ctx_t, ql_t))
+            t_p = timer(lambda: span_attend_gather(q, pool, table, ctx_t))
+            t_l = library_ms(timer, lambda: sdpa(qq, kk, vv, attn_mask=mask))
+            nbytes = stream_hbm_bytes(ctx, ql, bs, h, dh,
+                                      kv_bits=8 if kv_bits == 8 else 32,
+                                      n_q_heads=h)
+            b_ms, b_by = bound(nbytes, attention_flops(ctx, ql, h, dh),
+                               FP32_FLOPS_PER_S)
+            print(f"    {w:3d} kv{kv_bits} | {t_k:.4f} {t_p:.4f} "
+                  f"{t_l if t_l is None else round(t_l, 4)} {b_ms:.4f} "
+                  f"({b_by}) {err:.2e}")
+            rows.append(dict(w=w, kv_bits=kv_bits, ms=t_k, plain_ms=t_p,
+                             library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+    # the serving path's most frequent call: a decode step, fp32 pool
+    main = next(r for r in rows if (r["w"], r["kv_bits"]) == (1, 16))
+    return {**main, "max_abs_err": worst}
+
+
+# ------------------------------------------------------- phases 3 and 4 --
+
+def mixed_plan(params):
+    from repro_torch.api.plan import CompressionPlan, LayerPlan
+
+    base = CompressionPlan.uniform(params, method="itera", weight_wl=4,
+                                   rank_fraction=0.5,
+                                   exclude=r"(embed|norm|ln|lm_head)")
+    return base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
+                                                        8),),
+                        label="itera_W4A8_r0.5+lm_head_W8A8")
+
+
+def workload(vocab: int, seed: int = 0):
+    """16 requests of 32-512 prompt tokens; four share a 64-token prefix
+    (four full 16-token blocks for the prefix cache)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, 64).astype(np.int32)
+    reqs = []
+    for i in range(16):
+        n = int(rng.integers(32, 513))
+        toks = rng.integers(1, vocab, n).astype(np.int32)
+        if i % 4 == 1:
+            toks = np.concatenate([prefix, toks[:max(n - 64, 1)]])
+        reqs.append(toks)
+    return reqs
+
+
+def profile_serve(torch, eng, reqs, sp):
+    """The kv16 serve once more under torch.profiler: the card's busy share
+    of the wall time and its time by kernel. Informational, nothing is
+    checked; a profiler that cannot trace the card is reported and
+    skipped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.serve(reqs, sp)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only (kernels, copies, memsets): the host ops
+        # that launched them carry the same time again
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0]
+    except Exception as e:      # the profiler is optional here
+        print(f"[profile] not available: {type(e).__name__}: {e}")
+        return
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] kv16 serve: wall {wall_ms:.1f} ms, card busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy / wall_ms):.1f}%")
+    for ms, n, key in rows[:10]:
+        print(f"  {ms:9.3f} ms {n:7d} x  {key[:90]}")
+
+
+def last_logits(torch, eng, toks):
+    """Logits after `toks`, from one prefill step on a fresh pool."""
+    from repro_torch.models.transformer import unified_step
+    from repro_torch.runtime.kvblocks import init_paged_cache
+
+    n, bs = len(toks), eng.block_size
+    mb = -(-n // bs)
+    pool = init_paged_cache(eng.cfg, mb + 1, bs, eng.device)
+    dev = eng.device
+    table = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        logits, _ = unified_step(
+            eng._step_params, pool, table,
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev),
+            torch.tensor(toks, dtype=torch.int32, device=dev)[None], eng.cfg)
+    return logits[0, -1].float().cpu()
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {SRC}; run "
+              "from the root of a checkout", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        params_to)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+
+    t_start = time.perf_counter()
+    print(f"device: {torch.cuda.get_device_name(0)}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 1. build ----------------------------------------------------
+    t0 = time.perf_counter()
+    secs = build.build()
+    print(f"[build] {len(secs)} libraries built in "
+          f"{time.perf_counter() - t0:.1f} s (per source: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    for name in build.SOURCES:
+        for line in build.log_path(name).read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # ---- 2. kernels vs their plain versions ----------------------------
+    timer = Timer(torch)
+    failures: list = []
+    kern = {"quant_matmul": check_quant_matmul(torch, timer, failures),
+            "lowrank_qmm": check_lowrank_qmm(torch, timer, failures),
+            "paged_attention": check_paged_attention(torch, timer, failures)}
+    end_phase("kernels", failures)
+    del timer
+
+    # ---- 3. the engine at full width -----------------------------------
+    failures = []
+    cfg = get_config("opus-mt")
+    params = init_params(cfg, seed=0, device="cuda")
+    plan = mixed_plan(params)
+    print(f"[engine] {plan.summary()}")
+    t0 = time.perf_counter()
+    eng = InferenceEngine.build(cfg, plan, params=params, device="cuda",
+                                max_batch=8, block_size=16)
+    torch.cuda.synchronize()
+    del params
+    print(f"[engine] compressed in {time.perf_counter() - t0:.1f} s: "
+          f"{eng.report.summary()}; weights {eng.weight_bytes() / 2**20:.1f} "
+          f"MiB on the card")
+    eng8 = InferenceEngine(dataclasses.replace(cfg, kv_cache_bits=8),
+                           eng.params, device=eng.device, plan=eng.plan,
+                           max_batch=8, block_size=16)
+    reqs = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=32)
+    eng.serve(reqs[:2], SamplingParams(max_tokens=2))        # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()                  # the main path's run starts
+    results = {}
+    for kv, e in (("kv16", eng), ("int8 KV", eng8)):
+        before = dict(build.LAUNCHES)
+        res = e.serve(reqs, sp)
+        torch.cuda.synchronize()
+        counts = {k: build.LAUNCHES[k] - before.get(k, 0)
+                  for k in build.SOURCES}
+        results[kv] = res
+        print(f"[engine] {kv}: {len(reqs)} requests, prompts "
+              f"{min(res.prompt_lens)}-{max(res.prompt_lens)} tokens, "
+              f"{res.total_tokens} tokens in {res.seconds:.3f} s = "
+              f"{res.tokens_per_second:.1f} tok/s; TTFT p50 "
+              f"{res.ttft_p50 * 1e3:.1f} ms, TPOT p50 "
+              f"{res.tpot_p50 * 1e3:.2f} ms; {res.steps} steps "
+              f"({res.mixed_steps} mixed); prefix cache "
+              f"{res.cache_hit_blocks}/{res.cache_lookup_blocks} blocks, "
+              f"{res.cache_cow_blocks} COW; launches {counts}")
+        out = np.stack(res.outputs)
+        check(failures, out.shape == (len(reqs), 32),
+              f"{kv}: outputs {out.shape}")
+        check(failures, bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"{kv}: token ids out of range")
+        check(failures, res.cache_hit_blocks > 0,
+              f"{kv}: the prefix cache found no shared block")
+    launches = dict(build.LAUNCHES)         # ... and ends here
+    print(f"[engine] launches on the main path: {launches}")
+    for name in build.SOURCES:
+        check(failures, launches.get(name, 0) > 0,
+              f"kernel {name} was not launched on the main path")
+    end_phase("engine", failures)
+    profile_serve(torch, eng, reqs, sp)
+
+    # ---- 4. card vs CPU --------------------------------------------------
+    failures = []
+    cpu_params = params_to(eng.params, "cpu")
+    rng = np.random.default_rng(1)
+    short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in (16, 29, 47, 64)]
+    for kv in (16, 8):
+        c = dataclasses.replace(cfg, kv_cache_bits=kv)
+        gpu = InferenceEngine(c, eng.params, device=eng.device, plan=eng.plan)
+        cpu = InferenceEngine(c, cpu_params, device=torch.device("cpu"),
+                              plan=eng.plan)
+        sp8 = SamplingParams(max_tokens=8)
+        rg, rc = gpu.serve(short, sp8), cpu.serve(short, sp8)
+        for i, (a, b) in enumerate(zip(rg.outputs, rc.outputs)):
+            if np.array_equal(a, b):
+                continue
+            s = int(np.argmax(a != b))
+            seq = np.concatenate([short[i], a[:s]])
+            lg, lc = last_logits(torch, gpu, seq), last_logits(torch, cpu,
+                                                                seq)
+            top = torch.topk(lc, 2)
+            print(f"  kv{kv} request {i} differs at step {s}: card {a[s]} "
+                  f"cpu {b[s]}; CPU top-2 {top.indices.tolist()} margin "
+                  f"{float(top.values[0] - top.values[1]):.3e}; card logit "
+                  f"gap {float(lg[a[s]] - lg[b[s]]):.3e}")
+            check(failures, False, f"kv{kv} request {i}: card and CPU "
+                  f"tokens differ")
+        print(f"[parity] kv{kv}: {len(short)} requests x 8 tokens, card == "
+              f"CPU: {not failures}")
+    end_phase("parity", failures)
+
+    # ---- result ----------------------------------------------------------
+    srcs = {"quant_matmul": ("quant_matmul.cu", "quant_matmul.py:74"),
+            "lowrank_qmm": ("lowrank_qmm.cu", "lowrank_qmm.py:93"),
+            "paged_attention": ("paged_attention.cu",
+                                "paged_attention.py:129")}
+    line = {"kernels": [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{srcs[name][0]}",
+        "replaces": f"src/repro/kernels/{srcs[name][1]}",
+        "launches": launches[name],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        for name, k in kern.items()]}
+    print(f"kernels checked: {', '.join(kern)} "
+          f"({time.perf_counter() - t_start:.0f} s in all)")
+    print(json.dumps(line))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseFailed as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        sys.exit(1)

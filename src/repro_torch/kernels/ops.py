@@ -1,0 +1,128 @@
+"""Linear entry points over the kernels (port of `repro.kernels.ops`).
+
+`qmm` and `lrmm` quantize the activations per row (clamp from the plan's
+act_wl carried on the weight node), pad to what the CUDA kernels take,
+and call the kernel wrappers, which launch the CUDA kernel on CUDA tensors
+and run the plain version on CPU tensors.
+
+Padding: the CUDA kernels read activations 16 bytes at a time and weights
+4 columns at a time, so K pads to a multiple of 16 and N (and R) to a
+multiple of 4, in the packed domain where a factor is packed (zero bytes
+are zero codes, so padding is exact). The TPU's 128/256 padding and its
+packed-axis demotion are not needed: the CUDA kernels take any packed
+axis of even width.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.itera import LowRankQ
+from repro_torch.core.quant import QuantizedTensor, qmax, symmetric_scale
+from repro_torch.kernels.lowrank_qmm import lowrank_qmm
+from repro_torch.kernels.quant_matmul import quant_matmul
+
+
+def quantize_acts(x: torch.Tensor, qm: int = 127):
+    """Per-row symmetric activation quantization into an int8 carrier,
+    clamped to ±qm = ±qmax(act_wl)."""
+    sx = symmetric_scale(x.abs().amax(dim=-1, keepdim=True), qm)
+    xq = torch.clamp(torch.round(x / sx), -qm, qm).to(torch.int8)
+    return xq, sx
+
+
+def _pad(x: torch.Tensor, rows: int, cols: int, value=0) -> torch.Tensor:
+    """Zero- (or `value`-) pad a 2-D tensor up to (rows, cols)."""
+    pr, pc = rows - x.shape[0], cols - x.shape[1]
+    if pr == 0 and pc == 0:
+        return x
+    return F.pad(x, (0, pc, 0, pr), value=value)
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def qmm(x: torch.Tensor, w: QuantizedTensor, *, out_dtype=None
+        ) -> torch.Tensor:
+    """y = dequant(quant(x)) @ dequant(w): the WxAy dense linear.
+    x (..., K) float; w QuantizedTensor (K, N) with per-column scales."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    k, n = w.shape
+    xq, sx = quantize_acts(x.reshape(-1, k), qmax(w.act_wl))
+    y = quant_matmul(*_qmm_args(xq, sx, w.values, w.scale.reshape(1, n),
+                                w.packed), w_packed=w.packed)[:, :n]
+    return y.to(out_dtype).reshape(*lead, n)
+
+
+def lrmm(x: torch.Tensor, lr: LowRankQ, *, out_dtype=None,
+         fused: bool = True) -> torch.Tensor:
+    """y = ((quant(x) @ W1') @ W2'): the ITERA low-rank linear.
+
+    fused=True: the cascade kernel (T stays on chip). fused=False: the
+    single-engine schedule, two quant_matmul launches with T in device
+    memory between them (the engine comparison of the paper). Both give
+    the same bits."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    k, r = lr.w1.shape
+    _, n = lr.w2.shape
+    qm = qmax(lr.act_wl)
+    xq, sx = quantize_acts(x.reshape(-1, k), qm)
+    s1 = lr.w1.scale.reshape(1, r)
+    s2 = lr.w2.scale.reshape(r, 1)
+    w1v, w2v = lr.w1.values, lr.w2.values
+    w1p, w2p = lr.w1.packed, lr.w2.packed
+    if not fused:
+        t = quant_matmul(*_qmm_args(xq, sx, w1v, s1, w1p),
+                         w_packed=w1p)[:, :r]
+        tq, st = quantize_acts(t * s2.reshape(1, -1), qm)
+        ones = torch.ones((1, n), dtype=torch.float32, device=x.device)
+        y = quant_matmul(*_qmm_args(tq, st, w2v, ones, w2p),
+                         w_packed=w2p)[:, :n]
+        return y.to(out_dtype).reshape(*lead, n)
+    if _on_cuda(x):
+        kp, rp, np_ = _up(k, 16), _up(r, 4), _up(n, 4)
+        xq = _pad(xq, xq.shape[0], kp).contiguous()
+        w1v = _pad(w1v, kp, rp // 2 if w1p else rp).contiguous()
+        s1 = _pad(s1, 1, rp, 1.0).contiguous()
+        w2v = _pad(w2v, rp, np_ // 2 if w2p else np_).contiguous()
+        s2 = _pad(s2, rp, 1, 1.0).contiguous()
+    y = lowrank_qmm(xq, sx, w1v, s1, w2v, s2, w1_packed=w1p, w2_packed=w2p,
+                    act_qmax=qm)[:, :n]
+    return y.to(out_dtype).reshape(*lead, n)
+
+
+def _qmm_args(xq, sx, wv, sw, packed):
+    """quant_matmul's arguments, padded for the CUDA kernel on CUDA."""
+    if _on_cuda(xq):
+        n = wv.shape[1] * 2 if packed else wv.shape[1]
+        kp, np_ = _up(xq.shape[1], 16), _up(n, 4)
+        xq = _pad(xq, xq.shape[0], kp).contiguous()
+        wv = _pad(wv, kp, np_ // 2 if packed else np_).contiguous()
+        sw = _pad(sw, 1, np_, 1.0).contiguous()
+    return xq, sx, wv, sw
+
+
+def qmm_hbm_bytes(m: int, w: QuantizedTensor) -> int:
+    """Least device bytes one qmm launch moves for an (m, K) input: the
+    int8 activations and their scales, the resident weight bytes (halved
+    when packed) and scales, and the fp32 output, each once."""
+    k, n = w.shape
+    return (m * k + m * 4 + w.values.numel() + w.scale.numel() * 4
+            + m * n * 4)
+
+
+def lrmm_hbm_bytes(m: int, lr: LowRankQ) -> int:
+    """Least device bytes one fused lrmm launch moves: activations, both
+    resident factors and their scales, and the output, each once; the
+    (m, R) intermediate never leaves the chip."""
+    k, _ = lr.w1.shape
+    _, n = lr.w2.shape
+    return (m * k + m * 4 + lr.w1.values.numel() + lr.w2.values.numel()
+            + (lr.w1.scale.numel() + lr.w2.scale.numel()) * 4 + m * n * 4)

@@ -1,0 +1,147 @@
+"""Paged attention over the blocked KV pool: wrapper of
+`csrc/paged_attention.cu` and its plain version (port of
+`repro.kernels.paged_attention` and of the gather oracle
+`repro.models.attention._span_attend_gather`).
+
+On a CUDA tensor `paged_attention` launches the kernel (or raises); on a
+CPU tensor it runs the plain version, which gathers each row's whole
+block-table view and takes one masked softmax over it.
+
+Both take their arithmetic in float64 from the fp32 (or dequantized int8)
+inputs and round once to fp32. They sum in different orders, and the
+card's float64 `exp` is not correctly rounded, so their float64 results
+differ in the last bits; rounding once to fp32 makes an fp32 difference
+rare, not impossible. That matters because the attention output is
+requantized at the next linear, where a last-bit difference between the
+card and the CPU flips an int8 code and, through the layers, may flip a
+greedy token. The reference computes in fp32, within 1e-5 of this. The
+function itself is fp32 attention: float64 is the port's choice, for
+parity, and costs the kernel time above its fp32 bound.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.quant_matmul import _check
+
+NEG = -2.3819763e38  # large negative for masking in f32 (the reference's)
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SIGNATURES = {
+    "paged_attention_launch": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _D, _D, _P)),
+}
+
+
+def softcap(x, cap: float):
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+def span_attend_gather(q, pool, block_table, ctx_lens, logit_softcap=0.0):
+    """The plain version: gather the FULL logical pool view
+    block_table -> (B, MB*bs, Hk, Dh) (dequantized whole when the pool is
+    int8) and take one masked softmax over it. Query (r, i) sees slots at
+    positions <= ctx_lens[r] + i. Rows past q_lens hold garbage the
+    caller discards."""
+    b, w, h, dh = q.shape
+    _, bs, hk, _ = pool["k"].shape
+    mb = block_table.shape[1]
+    bt = block_table.long()
+
+    def view(key):
+        x = pool[key][bt].reshape(b, mb * bs, hk, -1).to(q.dtype)
+        if "ks" in pool:
+            x = x * pool[key[0] + "s"][bt].reshape(b, mb * bs, hk, 1).to(
+                q.dtype)
+        return x.to(torch.float64)
+
+    ck, cv = view("k"), view("v")
+    pos = ctx_lens.long()[:, None] + torch.arange(w, device=q.device)[None]
+    valid = (torch.arange(mb * bs, device=q.device)[None, None, :]
+             <= pos[:, :, None])                                 # (B, W, S)
+    qg = q.to(torch.float64).reshape(b, w, hk, h // hk, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck) * (dh ** -0.5)
+    s = softcap(s, logit_softcap)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv)
+    return o.reshape(b, w, h, dh).to(q.dtype)
+
+
+def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
+                    logit_softcap: float = 0.0) -> torch.Tensor:
+    """Span queries against ONE layer's blocked pool, reading only valid
+    blocks.
+
+    q (B, W, H, Dh) f32 (post-RoPE); pool {"k", "v"[, "ks", "vs"]} with
+    leaves (NB, bs, Hk, *), already holding this step's span K/V;
+    block_table (B, MB) int32; ctx_lens, q_lens (B,) int32. Returns
+    (B, W, H, Dh) f32: attention at span positions [:q_lens[r]] of every
+    row; the kernel writes zeros past them and for idle rows."""
+    if q.device.type == "cpu":
+        return span_attend_gather(q, pool, block_table, ctx_lens,
+                                  logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
+    b, w, h, dh = q.shape
+    nb_, bs, hk, _ = pool["k"].shape
+    mb = block_table.shape[1]
+    quant = "ks" in pool
+    if dh not in (32, 64, 128) or h % hk:
+        raise ValueError(f"paged_attention kernel needs Dh in (32, 64, 128) "
+                         f"and H % Hk == 0, got Dh={dh} H={h} Hk={hk}")
+    dev = q.device
+    # the kernel reads fp32 K/V 16 bytes and int8 codes 4 bytes at a time
+    kv_dtype, kv_align = (torch.int8, 4) if quant else (torch.float32, 16)
+    _check(q, "q", torch.float32, (b, w, h, dh), dev)
+    _check(pool["k"], "k", kv_dtype, (nb_, bs, hk, dh), dev, kv_align)
+    _check(pool["v"], "v", kv_dtype, (nb_, bs, hk, dh), dev, kv_align)
+    if quant:
+        _check(pool["ks"], "ks", torch.float32, (nb_, bs, hk, 1), dev)
+        _check(pool["vs"], "vs", torch.float32, (nb_, bs, hk, 1), dev)
+    _check(block_table, "block_table", torch.int32, (b, mb), dev)
+    _check(ctx_lens, "ctx_lens", torch.int32, (b,), dev)
+    _check(q_lens, "q_lens", torch.int32, (b,), dev)
+    out = torch.empty_like(q)
+    lib = build.load("paged_attention", _SIGNATURES)
+    err = lib.paged_attention_launch(
+        q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(),
+        pool["ks"].data_ptr() if quant else None,
+        pool["vs"].data_ptr() if quant else None,
+        block_table.data_ptr(), ctx_lens.data_ptr(), q_lens.data_ptr(),
+        out.data_ptr(), b, w, h, hk, dh, bs, mb, int(quant),
+        float(dh) ** -0.5, float(logit_softcap), build.stream_handle(dev))
+    build.check(err, "paged_attention")
+    build.LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def stream_hbm_bytes(ctx_lens, q_lens, block_size: int, hk: int, dh: int,
+                     *, kv_bits: int = 32, n_q_heads: int | None = None
+                     ) -> int:
+    """Least device bytes one launch must move: every valid K/V block of
+    every active row read once (ceil((ctx + q) / bs) blocks; codes plus
+    fp32 scale planes for int8 KV), and the fp32 query and output rows of
+    the valid span positions read and written once."""
+    h = n_q_heads or hk
+    per_tok = 2 * hk * (dh + 4) if kv_bits == 8 else 2 * hk * dh * 4
+    total = 0
+    for ctx, ql in zip(ctx_lens, q_lens):
+        ctx, ql = int(ctx), int(ql)
+        if ql > 0:
+            total += -(-(ctx + ql) // block_size) * block_size * per_tok
+            total += 2 * ql * h * dh * 4
+    return int(total)
+
+
+def attention_flops(ctx_lens, q_lens, h: int, dh: int) -> int:
+    """Flops the causal span attention needs: 2·Dh for q·k and 2·Dh for
+    p·v per (query, visible key) pair, summed over the valid queries."""
+    total = 0
+    for ctx, ql in zip(ctx_lens, q_lens):
+        for i in range(int(ql)):
+            total += (int(ctx) + i + 1) * 4 * dh * h
+    return total

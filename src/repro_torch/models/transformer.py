@@ -1,0 +1,150 @@
+"""Decoder-only LM, serving half (port of `repro.models.transformer`).
+
+Parameters are a plain dict of tensors with the reference's tree layout
+and path names ("layers/attn/wq", "lm_head", ...): per-layer weights are
+stacked along a leading L axis, as the reference's scan-stacked leaves,
+so compression plans and checkpoints address the same paths in both
+packages. The forward pass loops over layers in Python.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.itera import LowRankQ
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_linear, apply_norm, dtype_of,
+                                       mlp_apply, sinusoidal_emb, softcap)
+from repro_torch.runtime.kvblocks import check_paged_support
+
+
+# ------------------------------------------------------------------ init --
+def init_params(cfg, *, seed: int = 0, device="cpu"):
+    """Random dense-layout parameters from a torch generator on `device`
+    (the same shapes and scales as the reference; not jax's numbers)."""
+    if cfg.layout != "dense":
+        raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
+    dtype = dtype_of(cfg.dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    d, L = cfg.d_model, cfg.num_layers
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def normal(*shape, std):
+        return torch.randn(shape, generator=g, dtype=dtype,
+                           device=device) * std
+
+    def norm(*lead):
+        if cfg.norm == "layernorm":
+            return {"gamma": torch.ones((*lead, d), dtype=dtype, device=device),
+                    "beta": torch.zeros((*lead, d), dtype=dtype,
+                                        device=device)}
+        return {"gamma": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+    mlp = {"up": normal(L, d, cfg.d_ff, std=d ** -0.5),
+           "down": normal(L, cfg.d_ff, d, std=cfg.d_ff ** -0.5)}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        mlp["gate"] = normal(L, d, cfg.d_ff, std=d ** -0.5)
+    p = {"embed": normal(cfg.vocab_size, d, std=0.02),
+         "final_norm": norm(),
+         "layers": {
+             "ln1": norm(L),
+             "attn": {"wq": normal(L, d, h * hd, std=d ** -0.5),
+                      "wk": normal(L, d, hk * hd, std=d ** -0.5),
+                      "wv": normal(L, d, hk * hd, std=d ** -0.5),
+                      "wo": normal(L, h * hd, d, std=(h * hd) ** -0.5)},
+             "ln2": norm(L),
+             "mlp": mlp}}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal(d, cfg.vocab_size, std=d ** -0.5)
+    return p
+
+
+def _index(node, i: int):
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    if isinstance(node, LowRankQ):
+        return LowRankQ(_index(node.w1, i), _index(node.w2, i))
+    if isinstance(node, QuantizedTensor):
+        return dataclasses.replace(node, values=node.values[i],
+                                   scale=node.scale[i])
+    return node[i]
+
+
+def split_layers(params, num_layers: int):
+    """`params` with its stacked "layers" tree split into a list of
+    per-layer trees (views, no copies): what the engine hands the step
+    so the per-layer slicing is done once."""
+    return {**params, "layers": [_index(params["layers"], i)
+                                 for i in range(num_layers)]}
+
+
+# --------------------------------------------------------------- forward --
+def embed(params, tokens, cfg, pos0):
+    """tokens (B, S) int; pos0 (B,) int tensor: the absolute position of
+    tokens[:, 0] in each row."""
+    dtype = dtype_of(cfg.dtype)
+    h = params["embed"][tokens.long()]
+    h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=h.device)
+    if cfg.pos_emb == "sinusoidal":
+        pos = pos0.long()[:, None] + torch.arange(tokens.shape[1],
+                                                  device=h.device)
+        h = h + sinusoidal_emb(pos, cfg.d_model, dtype)
+    return h
+
+
+def lm_head_weight(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_for(params, h, cfg):
+    out = apply_linear(h, lm_head_weight(params, cfg), out_dtype=torch.float32)
+    return softcap(out, cfg.final_softcap)
+
+
+def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg):
+    """ONE token-budget serving step over the blocked KV pool: row r
+    advances by a span of q_lens[r] tokens (a prefill chunk, one decode
+    token, or nothing). inputs (B, W) int tokens; block_tables (B, MB)
+    int32; ctx_lens, q_lens (B,) int32; pool from
+    `runtime.kvblocks.init_paged_cache`, updated in place. Returns
+    (logits (B, 1, V) f32 at each row's last valid span position, pool).
+    Idle rows compute garbage the caller discards."""
+    check_paged_support(cfg)
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        layers = split_layers(params, cfg.num_layers)["layers"]
+    h = embed(params, inputs, cfg, ctx_lens)
+    for i, lp in enumerate(layers):
+        pl = {k: v[i] for k, v in pool.items()}
+        hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+        a, _ = attn.span_attention_paged(lp["attn"], hn, pl, block_tables,
+                                         ctx_lens, q_lens, cfg)
+        h = h + a
+        hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+        h = h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+    h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
+    last = torch.clamp(q_lens.long() - 1, min=0)
+    h1 = h[torch.arange(h.shape[0], device=h.device), last][:, None]
+    return logits_for(params, h1, cfg), pool
+
+
+def serve_step(params, pool, block_tables, step_buf, prev, cfg):
+    """One greedy serving dispatch: `unified_step` plus the argmax.
+
+    step_buf (B, W + 3) int32: span tokens (B, W), then the scheduling
+    columns (ctx_lens, q_lens, use_prev). Decode rows take their first
+    token from `prev`, the previous step's device-resident tokens, so
+    token values never round-trip through the host. Returns (toks (B, 1)
+    int32, pool). The argmax keeps the first maximum."""
+    tokens = step_buf[:, :-3]
+    ctx_lens = step_buf[:, -3].contiguous()
+    q_lens = step_buf[:, -2].contiguous()
+    use_prev = step_buf[:, -1].bool()
+    first = torch.where(use_prev, prev[:, 0], tokens[:, 0])
+    tokens = torch.cat([first[:, None], tokens[:, 1:]], dim=1)
+    logits, pool = unified_step(params, pool, block_tables, ctx_lens, q_lens,
+                                tokens, cfg)
+    toks = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    return toks, pool

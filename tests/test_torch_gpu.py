@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports nothing of jax, so it also runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(`--noconftest` skips the repository's conftest, which imports jax.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import itera
+from repro_torch.core import quant
+from repro_torch.kernels import build
+from repro_torch.kernels import lowrank_qmm as lr
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import quant_matmul as qm
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    return torch.device("cuda")
+
+
+def _codes(rng, shape, wl):
+    m = quant.qmax(wl)
+    return torch.from_numpy(rng.integers(-m, m + 1, size=shape).astype(np.int8))
+
+
+def _uniform(rng, shape, lo, hi):
+    return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 2048), (100, 96, 36),
+                                   (3, 16, 4)])
+def test_quant_matmul_kernel_equals_plain(cuda, packed, m, k, n):
+    rng = np.random.default_rng(m + n)
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w = _codes(rng, (k, n), 4 if packed else 8).to(cuda)
+    wq = quant.pack_int4(w) if packed else w
+    sw = _uniform(rng, (1, n), 0.01, 1).to(cuda)
+    before = build.LAUNCHES["quant_matmul"]
+    y = qm.quant_matmul(xq, sx, wq, sw, w_packed=packed)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["quant_matmul"] == before + 1
+    assert torch.equal(y, qm.quant_matmul_plain(xq, sx, wq, sw,
+                                                w_packed=packed))
+
+
+@pytest.mark.parametrize("act_wl", [4, 8])
+@pytest.mark.parametrize("m,k,r,n", [(8, 512, 256, 2048),
+                                     (300, 2048, 256, 512),
+                                     (5, 80, 12, 36)])
+def test_lowrank_qmm_kernel_equals_plain(cuda, act_wl, m, k, r, n):
+    """The fused cascade through `ops.lrmm` (which pads odd widths) is
+    bit-equal to the plain cascade; its only allocation is Y."""
+    rng = np.random.default_rng(m + act_wl)
+    node = itera.LowRankQ(
+        quant.QuantizedTensor(_codes(rng, (k, r), 4),
+                              _uniform(rng, (1, r), 0.01, 0.1), 4, 0,
+                              act_wl=act_wl),
+        quant.QuantizedTensor(_codes(rng, (r, n), 4),
+                              _uniform(rng, (r, 1), 0.01, 0.1), 4, 1,
+                              act_wl=act_wl))
+    node = itera.LowRankQ(quant.pack_weights(node.w1),
+                          quant.pack_weights(node.w2)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(cuda)
+    y = ops.lrmm(x, node)
+    torch.cuda.synchronize()
+    qmx = quant.qmax(act_wl)
+    xq, sx = ops.quantize_acts(x, qmx)
+    ref = lr.lowrank_qmm_plain(
+        xq, sx, node.w1.values, node.w1.scale, node.w2.values,
+        node.w2.scale, w1_packed=node.w1.packed, w2_packed=node.w2.packed,
+        act_qmax=qmx)
+    assert torch.equal(y, ref)
+    assert torch.equal(ops.lrmm(x, node, fused=False), ref)
+
+
+def test_lowrank_qmm_allocates_only_y(cuda):
+    rng = np.random.default_rng(0)
+    m, k, r, n = 8, 512, 256, 2048
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w1 = quant.pack_int4(_codes(rng, (k, r), 4)).to(cuda)
+    w2 = quant.pack_int4(_codes(rng, (r, n), 4)).to(cuda)
+    s1 = _uniform(rng, (1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (r, 1), 0.01, 0.1).to(cuda)
+    lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, w1_packed=True, w2_packed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, w1_packed=True,
+                       w2_packed=True)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(cuda) - base
+    assert grown == -(-y.numel() * 4 // 512) * 512
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("w", [1, 40])
+def test_paged_attention_kernel_equals_plain(cuda, kv_bits, w):
+    """Decode (W = 1) and prefill spans, ragged contexts, one idle row,
+    G = 2 query heads per kv head; the kernel writes zeros past q_lens."""
+    rng = np.random.default_rng(kv_bits + w)
+    bs, hk, hd = 16, 2, 64
+    ctx = np.array([37, 0, 5, 100], np.int32)
+    ql = np.array([w, 0, w, 1], np.int32)
+    mb = -(-int((ctx + ql).max()) // bs)
+    table = np.zeros((len(ctx), mb), np.int32)
+    nxt = 1
+    for r in range(len(ctx)):
+        need = -(-int(ctx[r] + ql[r]) // bs)
+        table[r, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+    shape = (nxt, bs, hk, hd)
+    if kv_bits == 8:
+        # scales of |k|, |v| up to ~3, as the serving path's K/V have
+        pool = {"k": _codes(rng, shape, 8), "v": _codes(rng, shape, 8),
+                "ks": _uniform(rng, (*shape[:-1], 1), 0.005, 0.025),
+                "vs": _uniform(rng, (*shape[:-1], 1), 0.005, 0.025)}
+    else:
+        pool = {"k": torch.randn(shape), "v": torch.randn(shape)}
+    pool = {key: v.to(cuda) for key, v in pool.items()}
+    q = torch.from_numpy(rng.standard_normal(
+        (len(ctx), w, 2 * hk, hd)).astype(np.float32)).to(cuda)
+    tab, ctx_t, ql_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx, ql))
+    o = pa.paged_attention(q, pool, tab, ctx_t, ql_t)
+    torch.cuda.synchronize()
+    ref = pa.span_attend_gather(q, pool, tab, ctx_t)
+    for r in range(len(ctx)):
+        torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
+                                   atol=1e-5)
+        assert not o[r, ql[r]:].any()        # idle and pad rows are zero

@@ -1,0 +1,238 @@
+"""The port's kernel modules against the JAX reference.
+
+On the CPU every wrapper runs its kernel's plain version; those are held
+to the reference bit for bit (integer paths) or within 1e-5 (attention,
+whose softmax sums in another order). `test_torch_gpu.py` holds each CUDA
+kernel to its plain version on the card.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.core import itera as jitera
+from repro.core import quant as jquant
+from repro.kernels import ops as jops
+from repro.kernels import paged_attention as jpa
+from repro.models import attention as jattn
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.core import itera as titera
+from repro_torch.core import quant as tquant
+from repro_torch.kernels import build
+from repro_torch.kernels import lowrank_qmm as tlr
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.models import attention as tattn
+
+
+def _codes(rng, shape, wl):
+    m = tquant.qmax(wl)
+    return rng.integers(-m, m + 1, size=shape).astype(np.int8)
+
+
+def _qt_pair(values, scale, wl, axis, act_wl, packed):
+    """The same QuantizedTensor in both packages (packed along the last
+    axis when asked)."""
+    j = jquant.QuantizedTensor(jnp.asarray(values), jnp.asarray(scale), wl,
+                               axis, act_wl=act_wl)
+    t = tquant.QuantizedTensor(torch.from_numpy(values.copy()),
+                               torch.from_numpy(scale.copy()), wl, axis,
+                               act_wl=act_wl)
+    if packed:
+        j = dataclasses.replace(j, values=jquant.pack_int4(j.values),
+                                packed=True)
+        t = dataclasses.replace(t, values=tquant.pack_int4(t.values),
+                                packed=True)
+    return j, t
+
+
+CASES = [(4, 4, False), (4, 4, True), (4, 8, False), (4, 8, True),
+         (6, 4, False), (6, 8, False), (8, 4, False), (8, 8, False)]
+
+
+@pytest.mark.parametrize("wl,act_wl,packed", CASES)
+def test_qmm_plain_equals_reference(wl, act_wl, packed):
+    rng = np.random.default_rng(wl * 100 + act_wl)
+    x = rng.standard_normal((3, 8, 96)).astype(np.float32)
+    x[1, 2] = 0.0                           # a zero row keeps scale 1
+    w = rng.standard_normal((96, 256)).astype(np.float32)
+    jw = jquant.quantize(jnp.asarray(w), wl, axis=0)
+    jw, tw = _qt_pair(np.asarray(jw.values), np.asarray(jw.scale), wl, 0,
+                      act_wl, packed)
+    yj = jops.qmm(jnp.asarray(x), jw, use_kernel=False)
+    yt = tops.qmm(torch.from_numpy(x), tw)
+    assert tuple(yt.shape) == (3, 8, 256)
+    np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("wl,act_wl,packed", CASES)
+def test_lrmm_plain_equals_reference(wl, act_wl, packed, fused):
+    """Both schedules of the port (the fused cascade and two quant_matmul
+    launches with T in device memory) give the reference cascade's bits;
+    W1 packs along R, W2 along N."""
+    rng = np.random.default_rng(wl * 1000 + act_wl * 10 + fused)
+    k, r, n = 64, 256, 512
+    x = rng.standard_normal((40, k)).astype(np.float32)
+    s1 = rng.uniform(0.01, 0.1, (1, r)).astype(np.float32)
+    s2 = rng.uniform(0.01, 0.1, (r, 1)).astype(np.float32)
+    j1, t1 = _qt_pair(_codes(rng, (k, r), wl), s1, wl, 0, act_wl, packed)
+    j2, t2 = _qt_pair(_codes(rng, (r, n), wl), s2, wl, 1, act_wl, packed)
+    yj = jops.lrmm(jnp.asarray(x), jitera.LowRankQ(j1, j2), use_kernel=False)
+    yt = tops.lrmm(torch.from_numpy(x), titera.LowRankQ(t1, t2), fused=fused)
+    np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+
+
+def _pool(rng, kv_bits, shape):
+    """One layer's pool with random history: fp32 K/V, or int8 codes with
+    fp32 scale planes."""
+    if kv_bits == 8:
+        sshape = (*shape[:-1], 1)
+        return {"k": _codes(rng, shape, 8), "v": _codes(rng, shape, 8),
+                "ks": rng.uniform(0.01, 0.1, sshape).astype(np.float32),
+                "vs": rng.uniform(0.01, 0.1, sshape).astype(np.float32)}
+    return {"k": rng.standard_normal(shape).astype(np.float32),
+            "v": rng.standard_normal(shape).astype(np.float32)}
+
+
+def _block_table(ctx, ql, mb, bs):
+    """Rows' tables over consecutive fresh blocks, padded with block 0."""
+    table = np.zeros((len(ctx), mb), np.int32)
+    nxt = 1
+    for r, (c, q) in enumerate(zip(ctx, ql)):
+        need = -(-(c + q) // bs)
+        table[r, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+    return table
+
+
+def _attn_state(kv_bits, seed=0, b=3, w=4, bs=4):
+    """A smoke-config layer: W8 q/k/v projections (bit-exact in both
+    packages, so the scattered K/V agree exactly), a dense wo, a pool
+    with random history, and a span batch: a prefill chunk mid-prompt, an
+    idle row and a decode row."""
+    rng = np.random.default_rng(seed)
+    cfg_j = dataclasses.replace(j_get_config("opus-mt", smoke=True),
+                                kv_cache_bits=kv_bits, num_layers=1)
+    cfg_t = dataclasses.replace(t_get_config("opus-mt", smoke=True),
+                                kv_cache_bits=kv_bits, num_layers=1)
+    d, hk, hd = cfg_t.d_model, cfg_t.num_kv_heads, cfg_t.head_dim
+    ctx, ql = np.array([5, 0, 9], np.int32), np.array([3, 0, 1], np.int32)
+    mb = 4
+    nb = 1 + b * mb
+    table = _block_table(ctx, ql, mb, bs)
+    pj, pt = {}, {}
+    for name in ("wq", "wk", "wv"):
+        wf = rng.standard_normal((d, d)).astype(np.float32) * d ** -0.5
+        jq = jquant.quantize(jnp.asarray(wf), 8, axis=0)
+        pj[name], pt[name] = _qt_pair(np.asarray(jq.values),
+                                      np.asarray(jq.scale), 8, 0, 8, False)
+    wo = rng.standard_normal((d, d)).astype(np.float32) * d ** -0.5
+    pj["wo"], pt["wo"] = jnp.asarray(wo), torch.from_numpy(wo)
+    pool = _pool(rng, kv_bits, (nb, bs, hk, hd))
+    x = rng.standard_normal((b, w, d)).astype(np.float32)
+    return cfg_j, cfg_t, pj, pt, pool, table, ctx, ql, x
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_span_attention_paged_matches_reference(kv_bits):
+    """Scatter then attend: the pool after the scatter is the reference's
+    exactly (int8 codes and scales included), and the attention output
+    on every valid span position is within 1e-5 (fp32, another
+    reduction order)."""
+    cfg_j, cfg_t, pj, pt, pool, table, ctx, ql, x = _attn_state(kv_bits)
+    yj, pool_j = jattn.span_attention_paged(
+        pj, jnp.asarray(x), {k: jnp.asarray(v) for k, v in pool.items()},
+        jnp.asarray(table), jnp.asarray(ctx), jnp.asarray(ql), cfg_j,
+        impl="ref")
+    pool_t = {k: torch.from_numpy(v.copy()) for k, v in pool.items()}
+    yt, pool_t = tattn.span_attention_paged(
+        pt, torch.from_numpy(x), pool_t, torch.from_numpy(table),
+        torch.from_numpy(ctx), torch.from_numpy(ql), cfg_t)
+    for key in pool:
+        # block 0 is the trash block: pad slots write it in no fixed order
+        np.testing.assert_array_equal(pool_t[key].numpy()[1:],
+                                      np.asarray(pool_j[key])[1:], key)
+    for r in range(x.shape[0]):
+        np.testing.assert_allclose(yt.numpy()[r, :ql[r]],
+                                   np.asarray(yj)[r, :ql[r]], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("softcap", [0.0, 5.0])
+def test_paged_attention_plain_matches_pallas_interpret(kv_bits, softcap):
+    """The port's plain paged attention against the reference Pallas
+    kernel run in interpret mode, on the valid span positions."""
+    _, _, _, _, pool, table, ctx, ql, _ = _attn_state(kv_bits, seed=1)
+    rng = np.random.default_rng(2)
+    b, w = table.shape[0], 4
+    _, bs, hk, hd = pool["k"].shape
+    q = rng.standard_normal((b, w, 2 * hk, hd)).astype(np.float32)  # G = 2
+    oj = jpa.paged_attention(
+        jnp.asarray(q), {k: jnp.asarray(v) for k, v in pool.items()},
+        jnp.asarray(table), jnp.asarray(ctx), jnp.asarray(ql),
+        logit_softcap=softcap, interpret=True)
+    ot = tpa.paged_attention(
+        torch.from_numpy(q), {k: torch.from_numpy(v) for k, v in
+                              pool.items()},
+        torch.from_numpy(table), torch.from_numpy(ctx),
+        torch.from_numpy(ql), logit_softcap=softcap)
+    for r in range(b):
+        np.testing.assert_allclose(ot.numpy()[r, :ql[r]],
+                                   np.asarray(oj)[r, :ql[r]], rtol=0,
+                                   atol=1e-5)
+
+
+def test_byte_and_op_models():
+    ctx, ql = [5, 0, 9], [3, 0, 1]
+    # rows 0 and 2 read 2 and 3 blocks of 4 slots; the idle row nothing
+    per_tok = 2 * 2 * 16 * 4
+    io = 2 * (3 + 1) * 4 * 16 * 4
+    assert tpa.stream_hbm_bytes(ctx, ql, 4, 2, 16, n_q_heads=4) == \
+        (2 + 3) * 4 * per_tok + io
+    # query i of row r sees ctx + i + 1 keys
+    assert tpa.attention_flops(ctx, ql, 4, 16) == \
+        (6 + 7 + 8 + 10) * 4 * 16 * 4
+    w = tquant.QuantizedTensor(torch.zeros(512, 16, dtype=torch.int8),
+                               torch.ones(1, 32), 4, 0, packed=True)
+    assert tops.qmm_hbm_bytes(8, w) == 8 * 512 + 8 * 4 + 512 * 16 + 32 * 4 \
+        + 8 * 32 * 4
+    lr = titera.LowRankQ(w, tquant.QuantizedTensor(
+        torch.zeros(32, 64, dtype=torch.int8), torch.ones(32, 1), 8, 1))
+    # the (8, 32) intermediate never reaches device memory
+    assert tops.lrmm_hbm_bytes(8, lr) == 8 * 512 + 8 * 4 + 512 * 16 + 32 * 64 \
+        + (32 + 32) * 4 + 8 * 64 * 4
+
+
+def test_lowrank_tile_choice():
+    def smem(bm, r):            # lowrank_qmm.cu's smem_bytes
+        rp = -(-r // 256) * 256
+        return bm * rp * 4 + bm * (rp + 16) + bm * 4 + bm * 272 + 128 * 272
+
+    assert tlr.choose_tiles(8, 256, 2048, 132, smem) == (16, 16)
+    assert tlr.choose_tiles(2048, 256, 512, 132, smem) == (64, 4)
+    bm, split = tlr.choose_tiles(300, 1024, 512, 132, smem)
+    assert bm == 32 and smem(bm, 1024) <= tlr.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        tlr.choose_tiles(64, 4096, 512, 132, smem)
+
+
+def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
+    """A CPU tensor runs the plain version and counts no launch; any other
+    device is refused, never silently computed elsewhere."""
+    build.reset_launches()
+    rng = np.random.default_rng(0)
+    xq = torch.from_numpy(_codes(rng, (4, 32), 8))
+    sx = torch.ones(4, 1)
+    wq = torch.from_numpy(_codes(rng, (32, 8), 8))
+    y = tqm.quant_matmul(xq, sx, wq, torch.ones(1, 8))
+    assert torch.equal(y, tqm.quant_matmul_plain(xq, sx, wq, torch.ones(1, 8)))
+    assert sum(build.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tqm.quant_matmul(xq.to("meta"), sx.to("meta"), wq.to("meta"),
+                         torch.ones(1, 8, device="meta"))
