@@ -12,8 +12,9 @@ through four phases, and exits non-zero, printing no result, if any fails:
    (one nvcc per source, all started together);
 2. kernels: each kernel against its plain PyTorch version at the serving
    path's shapes -- the integer kernels bit-equal, paged attention within
-   1e-5 -- timed beside its plain version, a PyTorch library yardstick
-   and the least time the card could take (its bound);
+   1e-5, also with key splits that end mid-block -- timed beside its
+   plain version, a PyTorch library yardstick and the least time the card
+   could take (its bound);
 3. engine: opus-mt at full width, compressed by the port with a mixed plan
    (ITERA W4A8 at rank fraction 0.5 for every attention and MLP linear,
    W8A8 quantization for the lm head), serving 16 ragged requests with an
@@ -260,10 +261,20 @@ def check_lowrank_qmm(torch, timer, failures):
                 rows.append(dict(m=m, k=k, r=r, n=n, act_wl=act_wl, ms=t_k,
                                  plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                                  bound_by=b_by))
-    # the serving path's most frequent call: a decode step's mlp/up
+    # the serving path's most frequent call: a decode step's attention
+    # projection (wq/wk/wv/wo, K 512 -> N 512), 48 of its 72 launches
     main = next(r for r in rows if (r["m"], r["k"], r["n"], r["act_wl"]) ==
-                (8, 512, 2048, 8))
+                (8, 512, 512, 8))
     return {**main, "max_abs_err": worst}
+
+
+def lowrank_launch_shapes(cfg) -> dict:
+    """Launches of lowrank_qmm per decode step by (K, N), from the model's
+    geometry: every layer's wq/wk/wv/wo (d_model -> d_model), mlp/up
+    (d_model -> d_ff) and mlp/down (d_ff -> d_model) are ITERA linears
+    under the mixed plan."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
+    return {(d, d): 4 * n, (d, f): n, (f, d): n}
 
 
 def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
@@ -326,6 +337,19 @@ def check_paged_attention(torch, timer, failures):
                 check(failures, not o[r, n:].any(),
                       f"paged_attention W={w} kv{kv_bits}: row {r} not zero "
                       f"past q_len {n}")
+            # key splits that end mid-block (40 keys of 16-slot blocks) and
+            # more splits than a short row has blocks
+            for kps in (40, 16):
+                o2 = paged_attention(q, pool, table, ctx_t, ql_t,
+                                     keys_per_split=kps)
+                torch.cuda.synchronize()
+                for r, n in enumerate(ql):
+                    e2 = (float((o2[r, :n] - ref[r, :n]).abs().max())
+                          if n else 0.0)
+                    err = max(err, e2)
+                    check(failures, not o2[r, n:].any(),
+                          f"paged_attention W={w} kv{kv_bits} split {kps}: "
+                          f"row {r} not zero past q_len {n}")
             worst = max(worst, err)
             check(failures, err <= TOL_ATTN,
                   f"paged_attention W={w} kv{kv_bits}: max abs {err} > "
@@ -539,6 +563,9 @@ def main() -> int:
               f"{kv}: the prefix cache found no shared block")
     launches = dict(build.LAUNCHES)         # ... and ends here
     print(f"[engine] launches on the main path: {launches}")
+    print("[engine] lowrank_qmm launches per decode step by shape: "
+          + ", ".join(f"K{k}->N{n} x{c}"
+                      for (k, n), c in lowrank_launch_shapes(cfg).items()))
     for name in build.SOURCES:
         check(failures, launches.get(name, 0) > 0,
               f"kernel {name} was not launched on the main path")

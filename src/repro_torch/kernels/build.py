@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -26,8 +27,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "quant_matmul": ("quant_matmul.cu", "common.cuh"),
-    "lowrank_qmm": ("lowrank_qmm.cu", "common.cuh"),
-    "paged_attention": ("paged_attention.cu",),
+    "lowrank_qmm": ("lowrank_qmm.cu", "common.cuh", "async_copy.cuh"),
+    "paged_attention": ("paged_attention.cu", "async_copy.cuh"),
 }
 # no --use_fast_math: the integer kernels need IEEE division and rintf.
 # --fmad=false keeps a*b+c as two roundings, as the plain versions'
@@ -35,6 +36,8 @@ SOURCES = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -123,3 +126,11 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

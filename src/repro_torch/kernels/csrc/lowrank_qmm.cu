@@ -11,205 +11,530 @@
 // W1 may be packed W4 along R, W2 along N (two nibbles per byte).
 //
 // What bounds it on this card: on the serving path K, N in {512, 2048}
-// and R = 256. Decode steps have M = max_batch rows, where the kernel
-// streams the two factors (0.5 MB packed at most) for few operations:
-// bound by bytes, and by launch latency below that. Wide prefill steps
-// (M up to 2048) do ~4 int8 ops per weight byte per row and lean
-// towards the tensor-core rate.
+// and R = 256. A decode step has M = max_batch rows (8) and streams the
+// two factors (at most 0.3 MB packed) for few operations: bound by bytes
+// at well under a microsecond, so in practice by latency -- how many
+// dependent trips to memory and barriers one CTA makes, and how many SMs
+// share them. Prefill steps (M up to 2048) do about 4 int8 operations per
+// weight byte per row and lean towards the tensor-core rate.
 //
-// Design: one CTA holds BM rows x the FULL R (the row absmax needs all of
-// R), in shared memory: T as s32 (BM x R x 4 bytes, 64 KB at BM = 64, R =
-// 256) and Tq as int8. BM shrinks (64, 32, 16) so that this fits the
-// 227 KB a CTA may use. With an M-only grid a decode step (M ~ 8) would
-// launch one CTA, so the grid's second axis splits the N columns of
-// phase 2 across CTAs; each of them recomputes phase 1 for its rows. The
-// recomputation is integer and deterministic, so every CTA finds the same
-// Tq and st, and no (M, R) buffer exists anywhere. K and R go in steps of
-// 256 through shared memory, each thread issuing all its loads of a step
-// before its stores, so a decode step's serial phase 1 waits on device
-// memory a few times, not once per 64 columns. Both products are int8
-// mma.sync m16n8k32 with s32 sums (common.cuh). The boundary keeps the
-// reference's arithmetic: scales multiplied left to right, a true IEEE
-// division t / st, round half to even (rintf), so the output is bit-equal
-// to the plain version.
+// Design: a thread-block cluster of C CTAs (C <= 8, along the grid's x
+// axis) shares one row block's phase 1. CTA `rank` computes T for its own
+// RS columns of R (rank*RS ...), so no CTA streams all of W1 and none
+// recomputes another's share. The CTAs exchange what they must through
+// distributed shared memory (DSMEM), each pushing its values into its
+// peers' shared memory before a cluster barrier, so every exchange costs
+// one barrier and no CTA reads a peer's memory after the last one:
+// - the row absmax: each CTA stores its partial row max into slot `rank`
+//   of every peer; after the barrier every CTA takes the max of the C
+//   slots (exact in any order), so all derive the same st and requantize
+//   their own slice with the reference's per-element arithmetic (scales
+//   multiplied left to right, a true division, rintf);
+// - Tq: for phase 2 the cluster is a Cr x Cn grid (Cr * Cn = C), and CTA
+//   (ir, in) multiplies the Cn slices of R group ir with those R rows of
+//   W2 over its 1/Cn share of the cluster's N columns. With Cn > 1 each
+//   CTA pushes its slice into its group's CTAs (16 bytes a store);
+// - the partial sums: with Cr > 1 each CTA pushes its int32 partials of
+//   a column to the group CTA that owns that column's 1/Cr share, which
+//   adds them (exact in any order) and writes Y. Cr > 1 is what lets a
+//   decode step with N = 512 fill the card: 16 clusters of 8 CTAs, each
+//   CTA reducing 4 columns.
+// T, Tq and the partial sums never leave the chip. A CTA takes at most 128
+// registers a thread and about 100 KB of shared memory at R 256, so two
+// fit an SM and all 16 clusters of a decode launch are resident at once.
+//
+// Loads: every tile (Xq and W1 for phase 1, W2 for phase 2) streams
+// through one ring of STAGES shared-memory stages with 16-byte cp.async,
+// issued STAGES-1 steps ahead, so the copies of the next steps (phase 2's
+// W2 included, during the boundary) overlap the current step's product.
+// A decode CTA takes its phase-1 slice 512 K-rows a step (K 2048 in 4),
+// since each step costs barriers and a chain of dependent products more
+// than bytes; two warps share each of its 4 tiles, each taking every
+// other 32-deep slice, and their sums are added at the boundary.
+// Packed W4 lands as raw bytes and is unpacked from shared memory. The
+// weight tile is then transposed into the mma's "col" operand layout:
+// 4x4 byte blocks are transposed in registers (byte permutes) and stored
+// as one 16-byte word per thread into rows of stride NT + 8 words, which
+// keeps both those stores and the fragment reads free of bank conflicts
+// (the 8 column groups x 4 k-groups of a warp land on 32 distinct banks).
+// Both products are int8 mma.sync m16n8k32 with s32 sums.
+#include <cooperative_groups.h>
+
+#include "async_copy.cuh"
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// BK: depth of a K step (phase 1) and of an R step (phase 2); R pads to a
-// multiple of it. RT: the R columns one phase-1 pass accumulates.
-constexpr int THREADS = 256, BK = 256, LDS = BK + 16, RT = 128, BN = 128;
+// NC: the widest phase-2 column chunk a CTA accumulates at once.
+constexpr int THREADS = 256, WARPS = THREADS / 32, NC = 128, CLUSTER = 8,
+              STAGES = 3;
 
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
+// Depth of a phase-1 K step and at most of a phase-2 R step. A decode CTA
+// (BM 16) is bound by the latency of each step (barriers, the tile's
+// transpose, a chain of dependent products), not by its bytes, so it
+// takes its W1 slice 4096 codes deep at a time (512 at RS 32): K 2048 is
+// 4 steps. Wider tiles keep 128, which leaves room for two CTAs an SM.
+__host__ __device__ constexpr int bk_of(int bm, int rs) {
+  return bm == 16 ? (rs >= 128 ? 128 : 16384 / rs) : 128;
 }
 
-// Dynamic shared memory of one CTA: T (s32), Tq (int8, row stride Rp+16),
-// st, the activation tile and the (transposed) weight tile.
-__host__ __device__ inline size_t smem_bytes(int bm, int r) {
-  const int rp = round_up(r, BK);
-  return (size_t)bm * rp * 4 + (size_t)bm * (rp + 16) + bm * 4 +
-         (size_t)bm * LDS + (size_t)(RT > BN ? RT : BN) * LDS;
+// Byte offsets of one CTA's dynamic shared memory.
+struct Layout {
+  size_t stage, bt, t, red, tq_own, tq_grp, amax, st, total;
+};
+
+// c CTAs a cluster, cn of them along N in phase 2, nc columns a chunk.
+__host__ __device__ inline Layout layout(int bm, int rs, int c, int cn,
+                                         int nc) {
+  Layout l;
+  const int bk = bk_of(bm, rs), bk2 = bk < rs * cn ? bk : rs * cn;
+  const size_t p1 = (size_t)bm * (bk + 16) + (size_t)bk * rs;  // Xq + W1
+  const size_t p2 = (size_t)bk2 * nc;                          // W2
+  const size_t bt1 = (size_t)(bk / 4) * (rs + 8) * 4;
+  const size_t bt2 = (size_t)(bk2 / 4) * (nc + 8) * 4;
+  l.stage = p1 > p2 ? p1 : p2;
+  l.bt = STAGES * l.stage;                        // transposed weight tile
+  l.t = l.bt + (bt1 > bt2 ? bt1 : bt2);           // T (s32)
+  l.red = l.t + (size_t)bm * rs * 4;              // partials pushed here
+  l.tq_own = l.red + (c > cn ? (size_t)bm * nc * 4 : 0);  // own Tq slice
+  l.tq_grp = l.tq_own + (size_t)bm * (rs + 16);   // its R group's Tq
+  l.amax = l.tq_grp + (size_t)bm * (rs * cn + 16);
+  l.st = l.amax + (size_t)CLUSTER * bm * 4;       // every rank's row max
+  l.total = l.st + bm * 4;
+  return l;
 }
 
-template <int BMT>
-__global__ void __launch_bounds__(THREADS)
+// 4x4 byte transpose: out[c] holds byte c of in[0..3] (in[j] -> byte j).
+__device__ __forceinline__ int4 transpose4(const uint32_t (&r)[4]) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+  return make_int4(static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
+                   static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
+                   static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
+                   static_cast<int>(__byte_perm(hi01, hi23, 0x7632)));
+}
+
+// Four packed codes (the low 16 bits of x, code i in bits 4i..4i+3, as
+// core.quant.pack_int4 lays them) -> four sign-extended int8 bytes.
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  const uint32_t v = (x & 0xFu) | ((x << 4) & 0xF00u) |
+                     ((x << 8) & 0xF0000u) | ((x << 12) & 0xF000000u);
+  return v | ((v & 0x08080808u) * 0x1Eu);  // bit 3 set: high nibble 0xF
+}
+
+// Raw weight tile (kt rows of rb bytes; nt columns, two per byte when
+// packed) -> BTw[k/4][n] words holding k..k+3 of column n, row stride
+// nt + 8 words. A thread takes 4 rows x 4 columns (8 when packed: one
+// 32-bit word of each row).
+__device__ __forceinline__ void to_col_layout(uint32_t* BTw,
+                                              const int8_t* raw, int rb,
+                                              bool packed, int kt, int nt) {
+  const int nws = nt + 8;
+  if (packed) {
+    const int ng = nt / 8;
+    for (int i = threadIdx.x; i < (kt / 4) * ng; i += THREADS) {
+      const int kq = i / ng, n = (i % ng) * 8;
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            raw + (kq * 4 + j) * rb + n / 2);
+        lo[j] = spread4(w);
+        hi[j] = spread4(w >> 16);
+      }
+      *reinterpret_cast<int4*>(BTw + kq * nws + n) = transpose4(lo);
+      *reinterpret_cast<int4*>(BTw + kq * nws + n + 4) = transpose4(hi);
+    }
+    return;
+  }
+  const int ng = nt / 4;
+  for (int i = threadIdx.x; i < (kt / 4) * ng; i += THREADS) {
+    const int kq = i / ng, n = (i % ng) * 4;
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = *reinterpret_cast<const uint32_t*>(raw + (kq * 4 + j) * rb + n);
+    *reinterpret_cast<int4*>(BTw + kq * nws + n) = transpose4(r);
+  }
+}
+
+// acc += A (16 rows from A, row stride lda bytes) x BTw columns n0..n0+7,
+// over the K-values k0, k0 + 32 * kw, ... below kd of BTw from row kq0
+// (kd % 32 == 0): kw warps may share one tile's depth.
+__device__ __forceinline__ void mma_tile(int (&acc)[4], const int8_t* A,
+                                         int lda, const uint32_t* BTw,
+                                         int nws, int kq0, int n0, int kd,
+                                         int k0 = 0, int kw = 1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int kk = k0; kk < kd; kk += 32 * kw) {
+    int a[4], b[2];
+    a[0] = *reinterpret_cast<const int*>(A + g * lda + kk + 4 * t);
+    a[1] = *reinterpret_cast<const int*>(A + (g + 8) * lda + kk + 4 * t);
+    a[2] = *reinterpret_cast<const int*>(A + g * lda + kk + 16 + 4 * t);
+    a[3] = *reinterpret_cast<const int*>(A + (g + 8) * lda + kk + 16 + 4 * t);
+    const uint32_t* col = BTw + (kq0 + kk / 4 + t) * nws + n0 + g;
+    b[0] = static_cast<int>(col[0]);
+    b[1] = static_cast<int>(col[4 * nws]);
+    rt::mma_s8(acc, a, b);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// PTX split cluster barrier: arrive without waiting, wait later.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// At most 128 registers a thread, so that two CTAs share an SM: one CTA
+// per SM leaves room for only 15 clusters of 8 on an H100, and a decode
+// launch has 16. The widest tile (BM 64, RS 128) needs more.
+template <int BM, int RS>
+__global__ void __launch_bounds__(THREADS, BM == 64 && RS == 128 ? 1 : 2)
 lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
             const int8_t* __restrict__ w1, const float* __restrict__ s1,
             const int8_t* __restrict__ w2, const float* __restrict__ s2,
             float* __restrict__ y, int M, int K, int R, int N, int w1_packed,
-            int w2_packed, int qm) {
-  constexpr int WM = BMT / 16, WN = 8 / WM;       // warp grid
-  constexpr int NT1 = RT / WN / 8, NT2 = BN / WN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rp = round_up(R, BK), ldt = rp + 16;
-  int* T = reinterpret_cast<int*>(smem);
-  int8_t* Tq = reinterpret_cast<int8_t*>(T + BMT * rp);
-  float* st = reinterpret_cast<float*>(Tq + BMT * ldt);
-  int8_t* As = reinterpret_cast<int8_t*>(st + BMT);
-  int8_t* Bs = As + BMT * LDS;
+            int w2_packed, int qm, int Cn, int Ncl) {
+  // phase 1: T1 tiles of 16 x 8; with fewer tiles than warps, KW warps
+  // share a tile, each taking every KW-th 32-deep slice of a step
+  constexpr int T1 = (BM / 16) * (RS / 8);
+  constexpr int KW = T1 < WARPS ? WARPS / T1 : 1, TW = WARPS / KW;
+  constexpr int MAXT1 = (T1 + TW - 1) / TW;
+  constexpr int MAXT2 = (BM / 16) * (NC / 8) / WARPS;
+  constexpr int BK = bk_of(BM, RS), LDA = BK + 16, LDO = RS + 16;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int Cr = C / Cn, ir = rank / Cn, in = rank % Cn;
+  // peers write into this CTA's shared memory only once all have started
+  cluster_arrive();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % WM, wn = warp / WM;
-  const int m0 = blockIdx.x * BMT;
+  const int m0 = blockIdx.y * BM;
+  const int r_own = rank * RS;          // phase 1: this CTA's R columns
+  const int kd2 = RS * Cn;              // phase 2: depth, R rows r_grp...
+  const int r_grp = ir * kd2;
+  const int ldg = kd2 + 16;             // row stride of tq_grp
+  const int sw = Ncl / Cn;              // this CTA's share of N columns
+  const int n_cta = (blockIdx.x / C) * Ncl + in * sw;
+  const int nc = sw < NC ? sw : NC;     // columns per phase-2 chunk
+  const Layout L = layout(BM, RS, C, Cn, nc);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  uint32_t* BTw = reinterpret_cast<uint32_t*>(smem + L.bt);
+  int* T = reinterpret_cast<int*>(smem + L.t);
+  int* red = reinterpret_cast<int*>(smem + L.red);
+  int8_t* tq_own = reinterpret_cast<int8_t*>(smem + L.tq_own);
+  int8_t* tq_grp = reinterpret_cast<int8_t*>(smem + L.tq_grp);
+  float* amax_all = reinterpret_cast<float*>(smem + L.amax);
+  float* st = reinterpret_cast<float*>(smem + L.st);
+  const int bk2 = kd2 < BK ? kd2 : BK;  // R rows per phase-2 step
+  const int n1 = (K + BK - 1) / BK, n2k = kd2 / bk2;
+  const int n_steps = n1 + (sw / nc) * n2k;
+  const int rsb = w1_packed ? RS / 2 : RS, ncb = w2_packed ? nc / 2 : nc;
+  const int ldw1 = w1_packed ? R / 2 : R, ldw2 = w2_packed ? N / 2 : N;
 
-  // ---- phase 1: T = Xq @ W1q, RT columns of R at a time ----------------
-  for (int r0 = 0; r0 < rp; r0 += RT) {
-    int acc[NT1][4];
-#pragma unroll
-    for (int j = 0; j < NT1; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      rt::load_rows<THREADS, BMT, BK>(As, LDS, xq, K, m0, M, k0, K);
-      rt::load_weight_t<THREADS, BK, RT>(Bs, LDS, w1, K, R, w1_packed != 0,
-                                         k0, r0);
-      __syncthreads();
-      rt::warp_mma<NT1>(acc, As + wm * 16 * LDS, LDS,
-                        Bs + wn * (RT / WN) * LDS, LDS, BK);
-      __syncthreads();
-    }
-    const int row = wm * 16 + g;
-#pragma unroll
-    for (int j = 0; j < NT1; ++j) {
-      const int c = r0 + wn * (RT / WN) + j * 8 + 2 * t;
-      T[row * rp + c] = acc[j][0];
-      T[row * rp + c + 1] = acc[j][1];
-      T[(row + 8) * rp + c] = acc[j][2];
-      T[(row + 8) * rp + c + 1] = acc[j][3];
-    }
-  }
-  __syncthreads();
-
-  // ---- boundary: fold the scales, requantize each row (one warp a row) -
-  for (int row = warp; row < BMT; row += THREADS / 32) {
-    const int m = m0 + row;
-    const float sxm = m < M ? sx[m] : 1.0f;  // rows past M hold T == 0
-    float amax = 0.0f;
-    for (int c = lane; c < R; c += 32) {
-      const float v = static_cast<float>(T[row * rp + c]) * sxm * s1[c] * s2[c];
-      amax = fmaxf(amax, fabsf(v));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    // st = amax * f32(1 / qm): the reference divides by the constant qm
-    // under jit, which XLA lowers to this product (core.quant's
-    // symmetric_scale); t / st below is a true division
-    const float lim = static_cast<float>(qm);
-    const float s = amax > 0.0f ? amax * (1.0f / lim) : 1.0f;
-    for (int c = lane; c < rp; c += 32) {
-      float q = 0.0f;
-      if (c < R) {
-        const float v =
-            static_cast<float>(T[row * rp + c]) * sxm * s1[c] * s2[c];
-        q = fminf(fmaxf(rintf(v / s), -lim), lim);
+  // Issue the copies of step s into ring stage s % STAGES (one commit
+  // group per call, empty past the last step, so group counts stay even).
+  auto issue = [&](int s) {
+    if (s < n_steps) {
+      int8_t* stg = ring + (s % STAGES) * L.stage;
+      if (s < n1) {
+        const int k0 = s * BK;
+        for (int i = tid; i < BM * (BK / 16); i += THREADS) {
+          const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
+          const bool ok = m0 + r < M && k0 + c < K;
+          rt::cp_async16(stg + r * LDA + c,
+                         ok ? xq + (size_t)(m0 + r) * K + k0 + c : xq, ok);
+        }
+        int8_t* wt = stg + BM * LDA;
+        const int cpr = rsb / 16;
+        for (int i = tid; i < BK * cpr; i += THREADS) {
+          const int r = i / cpr, c = (i % cpr) * 16;
+          const int col = r_own + (w1_packed ? 2 * c : c);
+          const bool ok = k0 + r < K && col < R;
+          rt::cp_async16(wt + r * rsb + c,
+                         ok ? w1 + (size_t)(k0 + r) * ldw1 +
+                                  (w1_packed ? r_own / 2 : r_own) + c
+                            : w1,
+                         ok);
+        }
+      } else {
+        const int j = s - n1, kk = (j % n2k) * bk2;
+        const int n0 = n_cta + (j / n2k) * nc;
+        const int cpr = ncb / 16;
+        for (int i = tid; i < bk2 * cpr; i += THREADS) {
+          const int r = i / cpr, c = (i % cpr) * 16;
+          const int row = r_grp + kk + r;
+          const int col = n0 + (w2_packed ? 2 * c : c);
+          const bool ok = row < R && col < N;
+          rt::cp_async16(stg + r * ncb + c,
+                         ok ? w2 + (size_t)row * ldw2 +
+                                  (w2_packed ? n0 / 2 : n0) + c
+                            : w2,
+                         ok);
+        }
       }
-      Tq[row * ldt + c] = static_cast<int8_t>(q);
     }
-    if (lane == 0) st[row] = s;
-  }
-  __syncthreads();
+    rt::cp_async_commit();
+  };
 
-  // ---- phase 2: Y = (Tq @ W2q) * st over this CTA's column tiles --------
-  for (int n0 = blockIdx.y * BN; n0 < N; n0 += gridDim.y * BN) {
-    int acc[NT2][4];
+  int acc1[MAXT1][4], acc2[MAXT2][4];
 #pragma unroll
-    for (int j = 0; j < NT2; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-    for (int k0 = 0; k0 < rp; k0 += BK) {
-      rt::load_weight_t<THREADS, BK, BN>(Bs, LDS, w2, R, N, w2_packed != 0,
-                                         k0, n0);
+  for (int j = 0; j < MAXT1; ++j)
+    acc1[j][0] = acc1[j][1] = acc1[j][2] = acc1[j][3] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    rt::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step s landed everywhere; step s-1 is consumed
+    issue(s + STAGES - 1);
+    const int8_t* stg = ring + (s % STAGES) * L.stage;
+
+    if (s < n1) {
+      // ---- phase 1: T[:, own slice] += Xq tile @ W1 tile -------------
+      to_col_layout(BTw, stg + BM * LDA, rsb, w1_packed != 0, BK, RS);
       __syncthreads();
-      rt::warp_mma<NT2>(acc, Tq + wm * 16 * ldt + k0, ldt,
-                        Bs + wn * (BN / WN) * LDS, LDS, BK);
-      __syncthreads();
+      const int kd = min(BK, (K - s * BK + 31) / 32 * 32);
+#pragma unroll
+      for (int j = 0; j < MAXT1; ++j) {
+        const int tile = warp % TW + j * TW;
+        if (tile < T1)
+          mma_tile(acc1[j], stg + (tile / (RS / 8)) * 16 * LDA, LDA, BTw,
+                   RS + 8, 0, (tile % (RS / 8)) * 8, kd, 32 * (warp / TW),
+                   KW);
+      }
+      if (s != n1 - 1) continue;
+
+      // ---- boundary --------------------------------------------------
+      // T = the KW warps' partial sums of each tile, added in turn
+      for (int kg = 0; kg < KW; ++kg) {
+        if (warp / TW == kg) {
+#pragma unroll
+          for (int j = 0; j < MAXT1; ++j) {
+            const int tile = warp % TW + j * TW;
+            if (tile >= T1) continue;
+            int* o = T + ((tile / (RS / 8)) * 16 + g) * RS +
+                     (tile % (RS / 8)) * 8 + 2 * t;
+            const int at[4] = {0, 1, 8 * RS, 8 * RS + 1};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[at[e]] = kg == 0 ? acc1[j][e] : o[at[e]] + acc1[j][e];
+          }
+        }
+        __syncthreads();
+      }
+      // t = T * sx * s1 * s2 (left to right, as the reference) over this
+      // CTA's columns; rows past M hold T == 0. Each CTA's partial row max
+      // goes into slot `rank` of every peer (DSMEM stores).
+      cluster_wait();
+      for (int row = warp; row < BM; row += WARPS) {
+        const int m = m0 + row;
+        const float sxm = m < M ? sx[m] : 1.0f;
+        float amax = 0.0f;
+        for (int c = lane; c < RS; c += 32) {
+          const int gc = r_own + c;
+          if (gc < R)
+            amax = fmaxf(amax, fabsf(static_cast<float>(T[row * RS + c]) *
+                                     sxm * s1[gc] * s2[gc]));
+        }
+        amax = warp_max(amax);
+        if (lane < C)
+          *cluster.map_shared_rank(amax_all + rank * BM + row, lane) = amax;
+      }
+      cluster.sync();  // every CTA holds the C partial maxima of each row
+      const float lim = static_cast<float>(qm);
+      // with Cn == 1 the group is this CTA's own slice: written in place
+      int8_t* tq_dst = Cn == 1 ? tq_grp : tq_own;
+      const int ld_dst = Cn == 1 ? ldg : LDO;
+      for (int row = warp; row < BM; row += WARPS) {
+        const int m = m0 + row;
+        const float sxm = m < M ? sx[m] : 1.0f;
+        const float amax = warp_max(lane < C ? amax_all[lane * BM + row]
+                                             : 0.0f);
+        // st = amax * f32(1 / qm): the reference divides by the constant
+        // qm under jit, which XLA lowers to this product (core.quant's
+        // symmetric_scale); t / st below is a true division
+        const float sc = amax > 0.0f ? amax * (1.0f / lim) : 1.0f;
+        for (int c = lane; c < RS; c += 32) {
+          const int gc = r_own + c;
+          float q = 0.0f;
+          if (gc < R) {
+            const float v = static_cast<float>(T[row * RS + c]) * sxm *
+                            s1[gc] * s2[gc];
+            q = fminf(fmaxf(rintf(v / sc), -lim), lim);
+          }
+          tq_dst[row * ld_dst + c] = static_cast<int8_t>(q);
+        }
+        if (lane == 0) st[row] = sc;
+      }
+      if (Cn > 1) {
+        __syncthreads();  // this CTA's slice is complete
+        // push it into its R group's CTAs (itself included), 16 bytes a
+        // store, at the slice's place in the group
+        constexpr int CH = RS / 16;
+        for (int i = tid; i < BM * Cn * CH; i += THREADS) {
+          const int row = i / (Cn * CH), j = (i / CH) % Cn;
+          const int c = (i % CH) * 16;
+          *cluster.map_shared_rank(
+              reinterpret_cast<int4*>(tq_grp + row * ldg + in * RS + c),
+              ir * Cn + j) =
+              *reinterpret_cast<const int4*>(tq_own + row * LDO + c);
+        }
+        cluster.sync();  // the group's Tq is complete in every CTA
+      }
+      // the first phase-2 step's barrier publishes tq_grp
+      continue;
     }
-    const int row = wm * 16 + g, m = m0 + row;
+
+    // ---- phase 2: partial Y over R group ir, this CTA's columns --------
+    const int j2 = s - n1, ks = j2 % n2k, n0 = n_cta + (j2 / n2k) * nc;
+    const int tiles = (BM / 16) * (nc / 8);
+    if (ks == 0) {
 #pragma unroll
-    for (int j = 0; j < NT2; ++j) {
-      const int n = n0 + wn * (BN / WN) + j * 8 + 2 * t;
+      for (int j = 0; j < MAXT2; ++j)
+        acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0;
+    }
+    to_col_layout(BTw, stg, ncb, w2_packed != 0, bk2, nc);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < MAXT2; ++j) {
+      const int tile = warp + j * WARPS;
+      if (tile < tiles)
+        mma_tile(acc2[j], tq_grp + (tile / (nc / 8)) * 16 * ldg + ks * bk2,
+                 ldg, BTw, nc + 8, 0, (tile % (nc / 8)) * 8, bk2);
+    }
+    if (ks != n2k - 1) continue;
+
+    // ---- epilogue of a chunk: Y = sum over the Cr groups * st ---------
+    if (Cr == 1) {
+#pragma unroll
+      for (int j = 0; j < MAXT2; ++j) {
+        const int tile = warp + j * WARPS;
+        if (tile >= tiles) continue;
+        const int row = (tile / (nc / 8)) * 16 + g;
+        const int n = n0 + (tile % (nc / 8)) * 8 + 2 * t;
+        if (n >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + row + 8 * h;
+          if (m >= M) continue;
+          float2 o;
+          o.x = static_cast<float>(acc2[j][2 * h]) * st[row + 8 * h];
+          o.y = static_cast<float>(acc2[j][2 * h + 1]) * st[row + 8 * h];
+          *reinterpret_cast<float2*>(y + (size_t)m * N + n) = o;
+        }
+      }
+      continue;
+    }
+    // each partial goes to the CTA of its group `in` that owns the
+    // column's 1/Cr share, into slot ir of that CTA's `red` (DSMEM)
+    const int share = nc / Cr;
+    if (j2 / n2k > 0) cluster.sync();  // owners have read the last chunk
+#pragma unroll
+    for (int j = 0; j < MAXT2; ++j) {
+      const int tile = warp + j * WARPS;
+      if (tile >= tiles) continue;
+      const int row = (tile / (nc / 8)) * 16 + g;
+      const int c = (tile % (nc / 8)) * 8 + 2 * t;
+      int* dst = cluster.map_shared_rank(red, (c / share) * Cn + in) +
+                 (ir * BM + row) * share + c % share;
+      *reinterpret_cast<int2*>(dst) = make_int2(acc2[j][0], acc2[j][1]);
+      *reinterpret_cast<int2*>(dst + 8 * share) =
+          make_int2(acc2[j][2], acc2[j][3]);
+    }
+    cluster.sync();  // every partial of this chunk has arrived
+    const int rows = min(BM, M - m0);
+    for (int i = tid; i < rows * share; i += THREADS) {
+      const int row = i / share, cc = i % share, n = n0 + ir * share + cc;
       if (n >= N) continue;
-      if (m < M) {
-        float2 o;
-        o.x = static_cast<float>(acc[j][0]) * st[row];
-        o.y = static_cast<float>(acc[j][1]) * st[row];
-        *reinterpret_cast<float2*>(y + (size_t)m * N + n) = o;
-      }
-      if (m + 8 < M) {
-        float2 o;
-        o.x = static_cast<float>(acc[j][2]) * st[row + 8];
-        o.y = static_cast<float>(acc[j][3]) * st[row + 8];
-        *reinterpret_cast<float2*>(y + (size_t)(m + 8) * N + n) = o;
-      }
+      int sum = 0;
+      for (int jr = 0; jr < Cr; ++jr) sum += red[(jr * BM + row) * share + cc];
+      y[(size_t)(m0 + row) * N + n] = static_cast<float>(sum) * st[row];
     }
   }
+  // after the last cluster barrier no CTA touches another's shared memory,
+  // so each may leave on its own
 }
 
-template <int BMT>
+template <int BM, int RS>
 int launch(const int8_t* xq, const float* sx, const int8_t* w1,
            const float* s1, const int8_t* w2, const float* s2, float* y,
-           int M, int K, int R, int N, int w1p, int w2p, int qm, int n_split,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(BMT, R);
+           int M, int K, int R, int N, int w1p, int w2p, int qm, int C,
+           int Cn, int Ncl, cudaStream_t stream) {
+  const int sw = Ncl / Cn;
+  const Layout L = layout(BM, RS, C, Cn, sw < NC ? sw : NC);
+  auto kern = lrmm_kernel<BM, RS>;
   cudaError_t e = cudaFuncSetAttribute(
-      lrmm_kernel<BMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.total));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((M + BMT - 1) / BMT, n_split);
-  lrmm_kernel<BMT><<<grid, THREADS, smem, stream>>>(
-      xq, sx, w1, s1, w2, s2, y, M, K, R, N, w1p, w2p, qm);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((N + Ncl - 1) / Ncl), (M + BM - 1) / BM, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, xq, sx, w1, s1, w2, s2, y, M, K, R, N,
+                         w1p, w2p, qm, Cn, Ncl);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory one CTA of `bm` rows needs at rank R (the wrapper picks
-// bm so that this fits the card's per-block limit).
-extern "C" long long lrmm_smem_bytes(int bm, int R) {
-  return static_cast<long long>(smem_bytes(bm, R));
+// Shared memory of one CTA of `bm` rows and rank slice `rs`, in a cluster
+// of `c` CTAs with `cn` along N in phase 2, each taking `ncl / cn` of the
+// cluster's columns (the wrapper's chooser keeps it within the card's
+// per-block limit).
+extern "C" long long lrmm_smem_bytes(int bm, int rs, int c, int cn,
+                                     int ncl) {
+  const int sw = ncl / cn;
+  return static_cast<long long>(layout(bm, rs, c, cn, sw < NC ? sw : NC)
+                                    .total);
 }
 
-// Shapes: K % 16 == 0, R % 4 == 0, N % 4 == 0, bm in {16, 32, 64},
-// pointers 16-byte aligned (the Python wrapper checks). n_split CTAs
-// share the N columns of each row block. Returns the launch's CUDA error.
+// Shapes: K % 16 == 0, R % 32 == 0, N % 32 == 0, pointers 16-byte
+// aligned; bm in {16, 32, 64}, rs in {32, 64, 128} with C * rs >= R;
+// C in {1, 2, 4, 8} CTAs per cluster, cn | C, ncl a multiple of 32 * cn.
+// The grid is C * ceil(N / ncl) CTAs along x by ceil(M / bm) along y.
+// Returns the launch's CUDA error.
 extern "C" int lrmm_launch(const int8_t* xq, const float* sx,
                            const int8_t* w1, const float* s1,
                            const int8_t* w2, const float* s2, float* y, int M,
                            int K, int R, int N, int w1_packed, int w2_packed,
-                           int act_qmax, int bm, int n_split, void* stream) {
+                           int act_qmax, int bm, int rs, int C, int cn,
+                           int ncl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bm) {
-    case 64:
-      return launch<64>(xq, sx, w1, s1, w2, s2, y, M, K, R, N, w1_packed,
-                        w2_packed, act_qmax, n_split, s);
-    case 32:
-      return launch<32>(xq, sx, w1, s1, w2, s2, y, M, K, R, N, w1_packed,
-                        w2_packed, act_qmax, n_split, s);
-    case 16:
-      return launch<16>(xq, sx, w1, s1, w2, s2, y, M, K, R, N, w1_packed,
-                        w2_packed, act_qmax, n_split, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define LRMM_CASE(BM, RS)                                                   \
+  if (bm == BM && rs == RS)                                                 \
+    return launch<BM, RS>(xq, sx, w1, s1, w2, s2, y, M, K, R, N, w1_packed, \
+                          w2_packed, act_qmax, C, cn, ncl, s);
+  LRMM_CASE(16, 32) LRMM_CASE(16, 64) LRMM_CASE(16, 128)
+  LRMM_CASE(32, 32) LRMM_CASE(32, 64) LRMM_CASE(32, 128)
+  LRMM_CASE(64, 32) LRMM_CASE(64, 64) LRMM_CASE(64, 128)
+#undef LRMM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,30 +25,77 @@
 //
 // What bounds the function on this card: it is fp32 attention, 4 * Dh
 // flops per key and query row. Decode steps (one query row per kv head)
-// are bound by the K/V bytes and in practice by latency; a 256-row prefill
-// tile is bound by the fp32 rate outside the tensor cores. Float64 is this
-// kernel's own choice, for parity with the CPU, and runs at about half
-// that rate: a cost above the bound, not part of it.
+// are bound by the K/V bytes and in practice by latency: how long the
+// longest row's walk takes on one SM. A 256-row prefill tile is bound by
+// the fp32 rate outside the tensor cores. Float64 is this kernel's own
+// choice, for parity with the CPU, and is a cost above that bound.
 //
-// Design: one CTA per (batch row, kv head, tile of 16 query rows) -- the
-// query rows of a 256-token prefill chunk spread over 16 CTAs instead of
-// waiting in one. 4 warps; each warp owns 4 query rows, each lane Dh/32
-// output dims. A CTA stages whole blocks, about 64 keys at a time, in
-// shared memory (16-byte loads of fp32 K/V, 4-byte loads of int8 codes,
-// dequantized on the way), so a walk over a 512-token context waits on
-// device memory 8 times, not 32. Lane j scores key j of a 32-key chunk
-// against the warp's query row, warp shuffles give the chunk's max and
-// sum, and the probabilities are broadcast lane by lane into the PV
-// update. The tile stops at the block that holds its last query position.
+// Design. The grid is (batch row x kv head x query tile) x key splits.
+// Each CTA takes the keys [split * kps, ...) of its tile (any kps; the
+// wrapper picks whole blocks so that decode covers the card), and writes
+// its partial (running max m, denominator l, numerator acc) in float64 to
+// a workspace; a second small kernel combines the splits of each row in
+// split order -- deterministic, no atomics -- and rounds once to fp32.
+// With one split the first kernel writes the output itself. K/V blocks
+// come through a two-stage shared-memory ring with 16-byte cp.async
+// (int8 codes and their scales raw, dequantized where they are read), so
+// the next ~64 keys load while the current ones are consumed.
+// - Decode tiles (W*G <= 16 query rows, QT = 16): all four warps take
+//   keys, 16 of every 64 each; two lanes share a key, each summing half
+//   of Dh, joined by a shuffle. Each warp keeps its own softmax state per
+//   row in shared memory; the four are merged in warp order at the end.
+// - Prefill tiles (QT = 64 rows, 16 per warp): S = Q.K^T and O += P.V run
+//   on the FP64 tensor cores (mma.sync m8n8k4 .f64). A product of two
+//   fp32 values is exact in float64, so the float64 semantics stay. A warp
+//   whose rows all lie past the span, or a 32-key chunk that none of its
+//   rows sees (above the causal diagonal), is skipped. What remains is
+//   bound by the float64 exp of the softmax on the FP64 pipes, then by the
+//   products; the wrapper cuts long tiles into splits so that they do not
+//   hold the launch up.
+// Shared-memory rows are padded so that the lanes of a warp read distinct
+// banks: K rows by Dh + 4 floats (or Dh + 16 bytes), V rows by Dh + 8.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int QT = 16, THREADS = 128, WARPS = THREADS / 32,
-              RPW = QT / WARPS;
+constexpr int THREADS = 128, WARPS = THREADS / 32;
 constexpr int KEYS = 64;  // keys staged per step, rounded to whole blocks
 constexpr double NEG = -2.3819763e38;  // masked score, as in the reference
+
+__host__ __device__ inline int blocks_per_stage(int bs) {
+  return bs >= KEYS ? 1 : KEYS / bs;
+}
+
+// Rows of a stage: its keys rounded up to a multiple of 64 (zero-filled).
+__host__ __device__ inline int stage_rows(int bs) {
+  return (blocks_per_stage(bs) * bs + 63) / 64 * 64;
+}
+
+// Byte strides of a K and a V row in shared memory, and a stage's size.
+__host__ __device__ inline int k_stride(int dh, bool quant) {
+  return quant ? dh + 16 : (dh + 4) * 4;
+}
+__host__ __device__ inline int v_stride(int dh, bool quant) {
+  return quant ? dh + 16 : (dh + 8) * 4;
+}
+__host__ __device__ inline size_t stage_bytes(int dh, bool quant, int bs) {
+  const int rows = stage_rows(bs);
+  return (size_t)rows * (k_stride(dh, quant) + v_stride(dh, quant)) +
+         (quant ? (size_t)rows * 8 : 0);
+}
+
+// Dynamic shared memory: the Q tile (QT x (Dh + 4) floats), decode tiles'
+// per-warp softmax states (m, l, acc in float64), two ring stages.
+__host__ __device__ inline size_t smem_bytes(int qt, int dh, bool quant,
+                                             int bs) {
+  const size_t q = (size_t)qt * (dh + 4) * 4;
+  const size_t states =
+      qt <= 16 ? (size_t)WARPS * qt * (dh + 2) * 8 : 0;
+  return q + states + 2 * stage_bytes(dh, quant, bs);
+}
 
 __device__ __forceinline__ double warp_max(double v) {
 #pragma unroll
@@ -63,196 +110,548 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-template <int DPL, bool QUANT>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const float* __restrict__ q, const void* __restrict__ kp,
-                       const void* __restrict__ vp,
-                       const float* __restrict__ ks,
-                       const float* __restrict__ vs,
-                       const int* __restrict__ bt, const int* __restrict__ ctxs,
-                       const int* __restrict__ qls, float* __restrict__ out,
-                       int W, int H, int Hk, int bs, int MB, double scale,
-                       double cap) {
-  constexpr int DH = 32 * DPL, D4 = DH / 4;
-  extern __shared__ float sm[];
-  const int bpi = max(1, KEYS / bs);    // blocks staged per step
-  float* Qs = sm;                       // QT x DH
-  float* Vs = Qs + QT * DH;             // bpi*bs x DH (16-byte aligned)
-  float* Ks = Vs + bpi * bs * DH;       // bpi*bs x (DH + 1): padded rows
+// d += a * b on the FP64 tensor cores: A 8x4 (lane = 4*g + t holds
+// A[g][t]), B 4x8 (B[t][g]), C/D 8x8 (C[g][2t], C[g][2t+1]).
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, "
+      "{%0,%1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
 
-  const int b = blockIdx.x, hk = blockIdx.y, row0 = blockIdx.z * QT;
-  const int G = H / Hk, WG = W * G;
-  const int ctx = ctxs[b], ql = qls[b];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int active = min(QT, max(0, ql * G - row0));  // valid rows of tile
+__device__ __forceinline__ double soft(double s, double cap) {
+  return cap > 0.0 ? cap * tanh(s / cap) : s;
+}
 
-  // output index of tile row i: (b, w = (row0+i) / G, head hk*G + g)
-  auto out_row = [&](int i) {
-    const int r = row0 + i;
-    return out + (((size_t)b * W + r / G) * H + hk * G + r % G) * DH;
-  };
+// Element d of a staged K or V row in float64: the fp32 value, or the
+// int8 code times the row's scale in fp32 (the reference's dequantization).
+template <bool QUANT>
+__device__ __forceinline__ double kv_at(const unsigned char* row, int d,
+                                        const float* scale) {
+  if constexpr (QUANT)
+    return static_cast<double>(
+        static_cast<float>(reinterpret_cast<const int8_t*>(row)[d]) * *scale);
+  return static_cast<double>(reinterpret_cast<const float*>(row)[d]);
+}
 
-  // rows past the span or idle: zeros
-  for (int idx = threadIdx.x; idx < QT * DH; idx += THREADS) {
-    const int i = idx / DH;
-    if (i >= active && row0 + i < WG) out_row(i)[idx % DH] = 0.0f;
+// Where a tile stands: batch row, kv head, query rows and key range.
+struct Tile {
+  int b, hk, row0, G, ctx, active, tile_keys;
+};
+
+__device__ __forceinline__ Tile locate(int cta, int tiles, int qt, int W,
+                                       int H, int Hk, int bs, int MB,
+                                       const int* ctxs, const int* qls) {
+  Tile t;
+  const int tile = cta % tiles;
+  t.hk = (cta / tiles) % Hk;
+  t.b = cta / tiles / Hk;
+  t.G = H / Hk;
+  t.row0 = tile * qt;
+  t.ctx = ctxs[t.b];
+  const int ql = qls[t.b];
+  t.active = min(qt, max(0, ql * t.G - t.row0));  // valid rows of the tile
+  t.tile_keys = 0;
+  if (t.active > 0) {
+    const int nb = min((t.ctx + ql + bs - 1) / bs, MB);
+    const int last_pos = t.ctx + (t.row0 + t.active - 1) / t.G;
+    t.tile_keys = min(last_pos + 1, nb * bs);
   }
-  if (active == 0) return;
+  return t;
+}
 
-  for (int idx = threadIdx.x; idx < QT * DH; idx += THREADS) {
-    const int i = idx / DH, r = row0 + i;
-    Qs[idx] = i < active
-                  ? q[(((size_t)b * W + r / G) * H + hk * G + r % G) * DH +
-                      idx % DH]
-                  : 0.0f;
-  }
+// output row of tile row i: (b, w = (row0+i) / G, head hk*G + g)
+__device__ __forceinline__ float* out_row(float* out, const Tile& t, int i,
+                                          int W, int H, int dh) {
+  const int r = t.row0 + i;
+  return out + (((size_t)t.b * W + r / t.G) * H + t.hk * t.G + r % t.G) * dh;
+}
 
-  const int nb = min((ctx + ql + bs - 1) / bs, MB);
-  const int last_pos = ctx + (row0 + active - 1) / G;
-  const int nblk = min(nb, last_pos / bs + 1);
-
-  double m_i[RPW], l_i[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m_i[r] = NEG;
-    l_i[r] = 0.0;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.0;
-  }
-
-  for (int blk0 = 0; blk0 < nblk; blk0 += bpi) {
-    const int nkeys = min(bpi, nblk - blk0) * bs;
-    __syncthreads();  // the previous keys are consumed (and Qs is ready)
-    for (int idx = threadIdx.x; idx < nkeys * D4; idx += THREADS) {
-      const int j = idx / D4, d = (idx % D4) * 4;
-      const size_t id = static_cast<size_t>(bt[(size_t)b * MB + blk0 + j / bs]);
-      const size_t at = ((id * bs + j % bs) * Hk + hk) * DH + d;
-      float4 kv, vv;
-      if (QUANT) {
-        const size_t tok = at / DH;
-        const char4 kc = *reinterpret_cast<const char4*>(
-            static_cast<const int8_t*>(kp) + at);
-        const char4 vc = *reinterpret_cast<const char4*>(
-            static_cast<const int8_t*>(vp) + at);
-        const float sk = ks[tok], sv = vs[tok];
-        kv = make_float4(static_cast<float>(kc.x) * sk,
-                         static_cast<float>(kc.y) * sk,
-                         static_cast<float>(kc.z) * sk,
-                         static_cast<float>(kc.w) * sk);
-        vv = make_float4(static_cast<float>(vc.x) * sv,
-                         static_cast<float>(vc.y) * sv,
-                         static_cast<float>(vc.z) * sv,
-                         static_cast<float>(vc.w) * sv);
-      } else {
-        kv = *reinterpret_cast<const float4*>(static_cast<const float*>(kp) +
-                                              at);
-        vv = *reinterpret_cast<const float4*>(static_cast<const float*>(vp) +
-                                              at);
-      }
-      float* kr = Ks + j * (DH + 1) + d;
-      kr[0] = kv.x;
-      kr[1] = kv.y;
-      kr[2] = kv.z;
-      kr[3] = kv.w;
-      *reinterpret_cast<float4*>(Vs + j * DH + d) = vv;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int i = warp + r * WARPS;
-      if (i >= active) continue;  // warp-uniform
-      const int qpos = ctx + (row0 + i) / G;
-      const float* qi = Qs + i * DH;
-      for (int j0 = 0; j0 < nkeys; j0 += 32) {
-        const int j = j0 + lane;
-        const bool valid = j < nkeys && blk0 * bs + j <= qpos;
-        double s = NEG;
-        if (valid) {
-          const float* kj = Ks + j * (DH + 1);
-          double dot = 0.0;
-#pragma unroll 16
-          for (int d = 0; d < DH; ++d)
-            dot += static_cast<double>(qi[d]) * static_cast<double>(kj[d]);
-          s = dot * scale;
-          if (cap > 0.0) s = cap * tanh(s / cap);
-        }
-        const double m_new = fmax(m_i[r], warp_max(s));
-        const double p = valid ? exp(s - m_new) : 0.0;
-        const double alpha = exp(m_i[r] - m_new);
-        l_i[r] = l_i[r] * alpha + warp_sum(p);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
-        const int nj = min(32, nkeys - j0);
-        for (int jj = 0; jj < nj; ++jj) {
-          const double pj = __shfl_sync(0xffffffffu, p, jj);
-          const float* vj = Vs + (j0 + jj) * DH + lane * DPL;
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[r][e] += pj * vj[e];
-        }
-        m_i[r] = m_new;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = warp + r * WARPS;
-    if (i >= active) continue;
-    const double l = l_i[r] > 0.0 ? l_i[r] : 1.0;
-    float* o = out_row(i) + lane * DPL;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[e] = static_cast<float>(acc[r][e] / l);
+// Zeros for tile rows past the span (their outputs exist but are unused).
+__device__ __forceinline__ void zero_tail(float* out, const Tile& t, int qt,
+                                          int W, int H, int dh) {
+  const int WG = W * t.G;
+  for (int idx = threadIdx.x; idx < qt * dh; idx += THREADS) {
+    const int i = idx / dh;
+    if (i >= t.active && t.row0 + i < WG)
+      out_row(out, t, i, W, H, dh)[idx % dh] = 0.0f;
   }
 }
 
-template <int DPL, bool QUANT>
+template <int DH, bool QUANT, int QT>
+__global__ void __launch_bounds__(THREADS)
+attend_kernel(const float* __restrict__ q, const void* __restrict__ kp,
+              const void* __restrict__ vp, const float* __restrict__ ks,
+              const float* __restrict__ vs, const int* __restrict__ bt,
+              const int* __restrict__ ctxs, const int* __restrict__ qls,
+              float* __restrict__ out, double* __restrict__ ws_ml,
+              double* __restrict__ ws_acc, int W, int H, int Hk, int bs,
+              int MB, int kps, int tiles, double scale, double cap) {
+  constexpr bool DECODE = QT <= 16;
+  constexpr int QS = DH + 4;  // Q row stride (floats)
+  constexpr int KSTR = QUANT ? DH + 16 : (DH + 4) * 4;
+  constexpr int VSTR = QUANT ? DH + 16 : (DH + 8) * 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = gridDim.y, split = blockIdx.y;
+  const int cta = blockIdx.x * S + split;
+  const Tile tl = locate(blockIdx.x, tiles, QT, W, H, Hk, bs, MB, ctxs, qls);
+  if (S == 1) zero_tail(out, tl, QT, W, H, DH);
+  const int k_lo = split * kps;
+  if (tl.active == 0 || k_lo >= tl.tile_keys) return;
+  const int k_hi = min(k_lo + kps, tl.tile_keys);
+
+  float* Qs = reinterpret_cast<float*>(smem);
+  double* st_ml = reinterpret_cast<double*>(Qs + QT * QS);  // decode only
+  double* st_acc = st_ml + (DECODE ? WARPS * QT * 2 : 0);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      st_acc + (DECODE ? WARPS * QT * DH : 0));
+  const int rows = stage_rows(bs), bpi = blocks_per_stage(bs);
+  const size_t sbytes = stage_bytes(DH, QUANT, bs);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int blk_first = k_lo / bs, blk_end = (k_hi - 1) / bs + 1;
+  const int n_stages = (blk_end - blk_first + bpi - 1) / bpi;
+
+  // stage st holds blocks blk_first + st*bpi ...: K rows, V rows, and for
+  // int8 the two scale planes; rows past the stage's blocks are zeros
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      unsigned char* base = ring + (st & 1) * sbytes;
+      unsigned char* Kd = base;
+      unsigned char* Vd = base + (size_t)rows * KSTR;
+      const int blk0 = blk_first + st * bpi;
+      constexpr int CPR = QUANT ? DH / 16 : DH / 4;  // 16-byte chunks a row
+      constexpr int ESZ = QUANT ? 1 : 4;
+      for (int idx = tid; idx < rows * CPR; idx += THREADS) {
+        const int j = idx / CPR, c = idx % CPR;
+        const int blk = blk0 + j / bs;
+        const bool ok = j < bpi * bs && blk < blk_end;
+        size_t at = 0;
+        if (ok) {
+          const size_t id = static_cast<size_t>(bt[(size_t)tl.b * MB + blk]);
+          at = (((id * bs + j % bs) * Hk + tl.hk) * DH) * ESZ + c * 16;
+        }
+        rt::cp_async16(Kd + j * KSTR + c * 16,
+                       static_cast<const unsigned char*>(kp) + at, ok);
+        rt::cp_async16(Vd + j * VSTR + c * 16,
+                       static_cast<const unsigned char*>(vp) + at, ok);
+      }
+      if constexpr (QUANT) {
+        float* ksd = reinterpret_cast<float*>(Vd + (size_t)rows * VSTR);
+        float* vsd = ksd + rows;
+        for (int j = tid; j < rows; j += THREADS) {
+          const int blk = blk0 + j / bs;
+          const bool ok = j < bpi * bs && blk < blk_end;
+          size_t tok = 0;
+          if (ok) {
+            const size_t id = static_cast<size_t>(bt[(size_t)tl.b * MB + blk]);
+            tok = (id * bs + j % bs) * Hk + tl.hk;
+          }
+          rt::cp_async4(ksd + j, ks + tok, ok);
+          rt::cp_async4(vsd + j, vs + tok, ok);
+        }
+      }
+    }
+    rt::cp_async_commit();
+  };
+
+  issue(0);
+  // the Q tile, rows past `active` zero
+  for (int idx = tid; idx < QT * DH; idx += THREADS) {
+    const int i = idx / DH, d = idx % DH;
+    Qs[i * QS + d] =
+        i < tl.active ? out_row(const_cast<float*>(q), tl, i, W, H, DH)[d]
+                      : 0.0f;
+  }
+  if (DECODE) {
+    for (int idx = tid; idx < WARPS * QT; idx += THREADS) {
+      st_ml[2 * idx] = NEG;
+      st_ml[2 * idx + 1] = 0.0;
+    }
+    for (int idx = tid; idx < WARPS * QT * DH; idx += THREADS)
+      st_acc[idx] = 0.0;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  // prefill state: rows warp*16 + mt*8 + g of the tile
+  constexpr int NDT = DH / 8;
+  double o[2][NDT][2], m_r[2], l_r[2];
+  int qpos_r[2];
+  bool live_r[2];
+  if (!DECODE) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int i = warp * 16 + mt * 8 + g;
+      m_r[mt] = NEG;
+      l_r[mt] = 0.0;
+      live_r[mt] = i < tl.active;
+      qpos_r[mt] = tl.ctx + (tl.row0 + i) / tl.G;
+#pragma unroll
+      for (int dn = 0; dn < NDT; ++dn) o[mt][dn][0] = o[mt][dn][1] = 0.0;
+    }
+  }
+
+  for (int st = 0; st < n_stages; ++st) {
+    __syncthreads();        // the stage about to be refilled is consumed
+    issue(st + 1);
+    rt::cp_async_wait<1>();  // this thread's copies of stage st landed
+    __syncthreads();        // ... and everyone's
+    const unsigned char* base = ring + (st & 1) * sbytes;
+    const unsigned char* Kb = base;
+    const unsigned char* Vb = base + (size_t)rows * KSTR;
+    const float* ksc = reinterpret_cast<const float*>(Vb + (size_t)rows * VSTR);
+    const float* vsc = ksc + rows;
+    const int kbase = (blk_first + st * bpi) * bs;  // position of row 0
+
+    auto kval = [&](int j, int d) {
+      return kv_at<QUANT>(Kb + j * KSTR, d, ksc + j);
+    };
+    auto vval = [&](int j, int d) {
+      return kv_at<QUANT>(Vb + j * VSTR, d, vsc + j);
+    };
+
+    if constexpr (DECODE) {
+      // ---- decode: warp w takes keys [w*kpw, (w+1)*kpw) of the stage ----
+      constexpr int DPL = DH / 32, HALF = DH / 2;
+      const int kpw = rows / WARPS, half = lane >> 4;
+      for (int i = 0; i < tl.active; ++i) {
+        const int qpos = tl.ctx + (tl.row0 + i) / tl.G;
+        const float* qi = Qs + i * QS;
+        double* ml = st_ml + 2 * (warp * QT + i);
+        double* ac = st_acc + (size_t)(warp * QT + i) * DH + lane * DPL;
+        double m = ml[0], l = ml[1], acc[DPL];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[e] = ac[e];
+        for (int kc = 0; kc < kpw; kc += 16) {
+          const int j = warp * kpw + kc + (lane & 15);
+          const int kpos = kbase + j;
+          const bool valid = kpos >= k_lo && kpos < k_hi && kpos <= qpos;
+          double dot = 0.0;
+          if constexpr (QUANT) {
+            const float sk = ksc[j];
+#pragma unroll
+            for (int d0 = 0; d0 < HALF; d0 += 16) {
+              const int d = half * HALF + d0;
+              const int4 w = *reinterpret_cast<const int4*>(
+                  Kb + j * KSTR + d);
+              const int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+              for (int u = 0; u < 16; ++u) {
+                const int code = static_cast<int>(
+                    static_cast<int8_t>(words[u / 4] >> (8 * (u % 4))));
+                dot += static_cast<double>(qi[d + u]) *
+                       static_cast<double>(static_cast<float>(code) * sk);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int d0 = 0; d0 < HALF; d0 += 4) {
+              const int d = half * HALF + d0;
+              const float4 kv = *reinterpret_cast<const float4*>(
+                  Kb + j * KSTR + d * 4);
+              dot += static_cast<double>(qi[d]) * static_cast<double>(kv.x);
+              dot += static_cast<double>(qi[d + 1]) * static_cast<double>(kv.y);
+              dot += static_cast<double>(qi[d + 2]) * static_cast<double>(kv.z);
+              dot += static_cast<double>(qi[d + 3]) * static_cast<double>(kv.w);
+            }
+          }
+          dot += __shfl_xor_sync(0xffffffffu, dot, 16);
+          const double s = valid ? soft(dot * scale, cap) : NEG;
+          const double m_new = fmax(m, warp_max(s));
+          const double p = valid ? exp(s - m_new) : 0.0;
+          const double alpha = exp(m - m_new);
+          l = l * alpha + warp_sum(half == 0 ? p : 0.0);
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[e] *= alpha;
+          for (int jj = 0; jj < 16; ++jj) {
+            const double pj = __shfl_sync(0xffffffffu, p, jj);
+            if (pj == 0.0) continue;  // warp-uniform: masked key
+            const int key = warp * kpw + kc + jj;
+#pragma unroll
+            for (int e = 0; e < DPL; ++e)
+              acc[e] += pj * vval(key, lane * DPL + e);
+          }
+          m = m_new;
+        }
+        if (lane == 0) {
+          ml[0] = m;
+          ml[1] = l;
+        }
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) ac[e] = acc[e];
+      }
+    } else {
+      // ---- prefill: 32 keys at a time on the FP64 tensor cores -----------
+      // a warp whose 16 rows are all past the span, or a 32-key chunk that
+      // none of its rows sees, skips the work (warp-uniform)
+      if (warp * 16 >= tl.active) continue;
+      const int last_row = min(warp * 16 + 15, tl.active - 1);
+      const int warp_qpos = tl.ctx + (tl.row0 + last_row) / tl.G;
+      for (int sc = 0; sc < rows; sc += 32) {
+        const int k0 = kbase + sc;
+        if (k0 > warp_qpos || k0 >= k_hi || k0 + 31 < k_lo) continue;
+        double s[2][4][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) s[mt][nt][0] = s[mt][nt][1] = 0.0;
+#pragma unroll 4
+        for (int kk = 0; kk < DH; kk += 4) {
+          double a[2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            a[mt] = static_cast<double>(
+                Qs[(warp * 16 + mt * 8 + g) * QS + kk + t]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const double b = kval(sc + nt * 8 + g, kk + t);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) dmma(s[mt][nt], a[mt], b);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          double mx = NEG;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int kpos = kbase + sc + nt * 8 + 2 * t + h;
+              const bool valid = live_r[mt] && kpos >= k_lo && kpos < k_hi &&
+                                 kpos <= qpos_r[mt];
+              s[mt][nt][h] = valid ? soft(s[mt][nt][h] * scale, cap) : NEG;
+              mx = fmax(mx, s[mt][nt][h]);
+            }
+          mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const double m_new = fmax(m_r[mt], mx);
+          double rs = 0.0;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              double p = 0.0;
+              if (s[mt][nt][h] > NEG) p = exp(s[mt][nt][h] - m_new);
+              s[mt][nt][h] = p;
+              rs += p;
+            }
+          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+          const double alpha = exp(m_r[mt] - m_new);
+          l_r[mt] = l_r[mt] * alpha + rs;
+          m_r[mt] = m_new;
+#pragma unroll
+          for (int dn = 0; dn < NDT; ++dn) {
+            o[mt][dn][0] *= alpha;
+            o[mt][dn][1] *= alpha;
+          }
+        }
+        // O += P.V: P[g][kk4 + t] sits in lane 4g + (kk4 % 8 + t) / 2
+#pragma unroll
+        for (int kk4 = 0; kk4 < 32; kk4 += 4) {
+          const int nt = kk4 / 8, src = 4 * g + ((kk4 % 8) + t) / 2;
+          double a[2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const double p0 = __shfl_sync(0xffffffffu, s[mt][nt][0], src);
+            const double p1 = __shfl_sync(0xffffffffu, s[mt][nt][1], src);
+            a[mt] = (t & 1) ? p1 : p0;
+          }
+#pragma unroll
+          for (int dn = 0; dn < NDT; ++dn) {
+            const double b = vval(sc + kk4 + t, dn * 8 + g);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) dmma(o[mt][dn], a[mt], b);
+          }
+        }
+      }
+    }
+  }
+
+  // ---- this split's result: the output, or a partial for the combine --
+  const bool final_out = S == 1;
+  if constexpr (DECODE) {
+    __syncthreads();
+    for (int idx = tid; idx < tl.active * DH; idx += THREADS) {
+      const int i = idx / DH, d = idx % DH;
+      double M = NEG;
+      for (int w = 0; w < WARPS; ++w) M = fmax(M, st_ml[2 * (w * QT + i)]);
+      double L = 0.0, A = 0.0;
+      for (int w = 0; w < WARPS; ++w) {
+        const double e = exp(st_ml[2 * (w * QT + i)] - M);
+        L += st_ml[2 * (w * QT + i) + 1] * e;
+        A += st_acc[(size_t)(w * QT + i) * DH + d] * e;
+      }
+      if (final_out) {
+        out_row(out, tl, i, W, H, DH)[d] =
+            static_cast<float>(A / (L > 0.0 ? L : 1.0));
+      } else {
+        ws_acc[((size_t)cta * QT + i) * DH + d] = A;
+        if (d == 0) {
+          ws_ml[((size_t)cta * QT + i) * 2] = M;
+          ws_ml[((size_t)cta * QT + i) * 2 + 1] = L;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int i = warp * 16 + mt * 8 + g;
+      if (!live_r[mt]) continue;
+      if (final_out) {
+        const double l = l_r[mt] > 0.0 ? l_r[mt] : 1.0;
+        float* orow = out_row(out, tl, i, W, H, DH);
+#pragma unroll
+        for (int dn = 0; dn < NDT; ++dn) {
+          orow[dn * 8 + 2 * t] = static_cast<float>(o[mt][dn][0] / l);
+          orow[dn * 8 + 2 * t + 1] = static_cast<float>(o[mt][dn][1] / l);
+        }
+      } else {
+        double* wa = ws_acc + ((size_t)cta * QT + i) * DH;
+#pragma unroll
+        for (int dn = 0; dn < NDT; ++dn) {
+          wa[dn * 8 + 2 * t] = o[mt][dn][0];
+          wa[dn * 8 + 2 * t + 1] = o[mt][dn][1];
+        }
+        if (t == 0) {
+          ws_ml[((size_t)cta * QT + i) * 2] = m_r[mt];
+          ws_ml[((size_t)cta * QT + i) * 2 + 1] = l_r[mt];
+        }
+      }
+    }
+  }
+}
+
+// Combine the splits of each tile row in split order (m, l, acc ->
+// acc_total / l_total) and round once to fp32; zeros past the span. A CTA
+// takes CR rows of a tile: the splits' (m, l) are loaded at once, one
+// thread a row derives the split factors exp(m_j - M) and l_total in split
+// order, then every (row, dim) of the CTA sums its acc_j in split order.
+constexpr int CR = 16, CTHREADS = 256;
+
+__host__ __device__ inline size_t combine_smem(int S) {
+  return (size_t)CR * S * 3 * 8 + CR * 8;
+}
+
+template <int DH, int QT>
+__global__ void __launch_bounds__(CTHREADS)
+combine_kernel(const double* __restrict__ ws_ml,
+               const double* __restrict__ ws_acc, const int* __restrict__ ctxs,
+               const int* __restrict__ qls, float* __restrict__ out, int W,
+               int H, int Hk, int bs, int MB, int kps, int S, int tiles) {
+  extern __shared__ double cs[];
+  double* ml = cs;                 // CR x S (m, l) pairs
+  double* fac = ml + CR * S * 2;   // CR x S factors exp(m_j - M)
+  double* tot = fac + CR * S;      // CR denominators
+  const Tile tl = locate(blockIdx.x, tiles, QT, W, H, Hk, bs, MB, ctxs, qls);
+  const int r0 = blockIdx.y * CR, tid = threadIdx.x;
+  const int WG = W * tl.G, rows = max(0, min(CR, tl.active - r0));
+  // rows of this CTA past the span: zeros
+  for (int idx = tid; idx < CR * DH; idx += CTHREADS) {
+    const int i = r0 + idx / DH;
+    if (i >= tl.active && i < QT && tl.row0 + i < WG)
+      out_row(out, tl, i, W, H, DH)[idx % DH] = 0.0f;
+  }
+  if (rows == 0) return;
+  const int ns = (tl.tile_keys + kps - 1) / kps;  // splits that ran
+  const size_t base = (size_t)blockIdx.x * S;
+  for (int idx = tid; idx < rows * ns; idx += CTHREADS) {
+    const int i = idx / ns, j = idx % ns;
+    const size_t r = (base + j) * QT + r0 + i;
+    ml[2 * (i * S + j)] = ws_ml[2 * r];
+    ml[2 * (i * S + j) + 1] = ws_ml[2 * r + 1];
+  }
+  __syncthreads();
+  if (tid < rows) {
+    const double* m = ml + 2 * tid * S;
+    double M = NEG, L = 0.0;
+    for (int j = 0; j < ns; ++j) M = fmax(M, m[2 * j]);
+    for (int j = 0; j < ns; ++j) {
+      const double e = exp(m[2 * j] - M);
+      fac[tid * S + j] = e;
+      L += m[2 * j + 1] * e;
+    }
+    tot[tid] = L > 0.0 ? L : 1.0;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < rows * DH; idx += CTHREADS) {
+    const int i = idx / DH, d = idx % DH;
+    double A = 0.0;
+#pragma unroll 4
+    for (int j = 0; j < ns; ++j)
+      A += ws_acc[((base + j) * QT + r0 + i) * DH + d] * fac[i * S + j];
+    out_row(out, tl, r0 + i, W, H, DH)[d] = static_cast<float>(A / tot[i]);
+  }
+}
+
+template <int DH, bool QUANT, int QT>
 int launch(const float* q, const void* k, const void* v, const float* ks,
            const float* vs, const int* bt, const int* ctx, const int* ql,
-           float* out, int B, int W, int H, int Hk, int bs, int MB,
-           double scale, double cap, cudaStream_t stream) {
-  constexpr int DH = 32 * DPL;
-  const int keys = (KEYS / bs > 1 ? KEYS / bs : 1) * bs;
-  const size_t smem = (size_t)(QT * DH + keys * (DH + 1) + keys * DH) * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<DPL, QUANT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+           float* out, double* ws_ml, double* ws_acc, int B, int W, int H,
+           int Hk, int bs, int MB, int kps, int S, double scale, double cap,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(QT, DH, QUANT, bs);
+  auto kern = attend_kernel<DH, QUANT, QT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (W * (H / Hk) + QT - 1) / QT;
+  const dim3 grid(B * Hk * tiles, S);
+  kern<<<grid, THREADS, smem, stream>>>(q, k, v, ks, vs, bt, ctx, ql, out,
+                                        ws_ml, ws_acc, W, H, Hk, bs, MB, kps,
+                                        tiles, scale, cap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || S == 1) return static_cast<int>(e);
+  const size_t csmem = combine_smem(S);
+  if (csmem > 48 * 1024) {
+    e = cudaFuncSetAttribute(combine_kernel<DH, QT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(csmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int G = H / Hk;
-  dim3 grid(B, Hk, (W * G + QT - 1) / QT);
-  paged_attention_kernel<DPL, QUANT><<<grid, THREADS, smem, stream>>>(
-      q, k, v, ks, vs, bt, ctx, ql, out, W, H, Hk, bs, MB, scale, cap);
+  combine_kernel<DH, QT><<<dim3(B * Hk * tiles, QT / CR), CTHREADS, csmem,
+                           stream>>>(ws_ml, ws_acc, ctx, ql, out, W, H, Hk,
+                                     bs, MB, kps, S, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Shared memory of one CTA (the wrapper checks it against the card's
+// per-block limit).
+extern "C" long long paged_attention_smem_bytes(int qt, int dh, int quant,
+                                                int bs) {
+  return static_cast<long long>(smem_bytes(qt, dh, quant != 0, bs));
+}
+
 // q (B, W, H, Dh) f32; k/v (NB, bs, Hk, Dh) f32, or int8 with ks/vs
 // (NB, bs, Hk, 1) f32 scales when quant != 0; block_table (B, MB) i32;
-// ctx_lens, q_lens (B,) i32; out (B, W, H, Dh) f32. Dh in {32, 64, 128}.
-// Returns the launch's CUDA error.
-extern "C" int paged_attention_launch(const float* q, const void* k,
-                                      const void* v, const float* ks,
-                                      const float* vs, const int* block_table,
-                                      const int* ctx_lens, const int* q_lens,
-                                      float* out, int B, int W, int H, int Hk,
-                                      int Dh, int bs, int MB, int quant,
-                                      double scale, double softcap,
-                                      void* stream) {
+// ctx_lens, q_lens (B,) i32; out (B, W, H, Dh) f32. Dh in {32, 64, 128};
+// qt (query rows per tile) 16 or 64; each tile's keys go to
+// ceil(keys / kps) CTAs of S; with S > 1, ws_ml (tiles x S x qt x 2) and
+// ws_acc (tiles x S x qt x Dh) float64 hold their partials. Returns the
+// launches' CUDA error.
+extern "C" int paged_attention_launch(
+    const float* q, const void* k, const void* v, const float* ks,
+    const float* vs, const int* block_table, const int* ctx_lens,
+    const int* q_lens, float* out, double* ws_ml, double* ws_acc, int B,
+    int W, int H, int Hk, int Dh, int bs, int MB, int quant, int qt, int kps,
+    int S, double scale, double softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_CASE(DPL)                                                        \
-  if (Dh == 32 * DPL)                                                       \
-    return quant ? launch<DPL, true>(q, k, v, ks, vs, block_table, ctx_lens, \
-                                     q_lens, out, B, W, H, Hk, bs, MB, scale, \
-                                     softcap, s)                              \
-                 : launch<DPL, false>(q, k, v, ks, vs, block_table, ctx_lens, \
-                                      q_lens, out, B, W, H, Hk, bs, MB,       \
-                                      scale, softcap, s);
-  PA_CASE(1)
-  PA_CASE(2)
-  PA_CASE(4)
+#define PA_CASE(DH, QT)                                                    \
+  if (Dh == DH && qt == QT)                                                \
+    return quant ? launch<DH, true, QT>(q, k, v, ks, vs, block_table,      \
+                                        ctx_lens, q_lens, out, ws_ml,      \
+                                        ws_acc, B, W, H, Hk, bs, MB, kps,  \
+                                        S, scale, softcap, s)              \
+                 : launch<DH, false, QT>(q, k, v, ks, vs, block_table,     \
+                                         ctx_lens, q_lens, out, ws_ml,     \
+                                         ws_acc, B, W, H, Hk, bs, MB, kps, \
+                                         S, scale, softcap, s);
+  PA_CASE(32, 16) PA_CASE(64, 16) PA_CASE(128, 16)
+  PA_CASE(32, 64) PA_CASE(64, 64) PA_CASE(128, 64)
 #undef PA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,31 +1,50 @@
 """Fused ITERA cascade: wrapper of `csrc/lowrank_qmm.cu` and its plain
 version (port of `repro.kernels.lowrank_qmm`, the paper's §V-B engine).
 
-The (M, R) intermediate lives only in each CTA's shared memory; the
-wrapper allocates the output and nothing else. On a CUDA tensor
+The (M, R) intermediate lives only in the shared memory of the thread-block
+clusters that compute it; the wrapper allocates the output and nothing
+else. `choose_tiles` is the launch's partition, a pure function of the
+shapes, so it runs (and is tested) on the CPU. On a CUDA tensor
 `lowrank_qmm` launches the kernel (or raises); on a CPU tensor it runs the
 plain version.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
+import typing
 
 import torch
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.quant_matmul import _check
 from repro_torch.kernels.ref import lowrank_qmm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lrmm_launch": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P)),
-    "lrmm_smem_bytes": (ctypes.c_longlong, (_I, _I)),
+                         _I, _I, _I, _I, _I, _I, _P)),
+    "lrmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I)),
 }
-BN = 128            # phase-2 column tile of the kernel
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+CLUSTER = 8          # CTAs per cluster at most (the portable maximum)
+RS_MAX = 128         # widest rank slice one CTA of the kernel takes
+
+
+class Tiles(typing.NamedTuple):
+    """One launch's partition (see csrc/lowrank_qmm.cu): `bm` rows per
+    CTA; clusters of `cluster` CTAs, each computing phase 1 for `rs`
+    columns of R; in phase 2 the cluster is (cluster / cn) R groups x
+    `cn` column shares of its `ncl` columns of N."""
+    bm: int
+    rs: int
+    cluster: int
+    cn: int
+    ncl: int
+
+    def ctas(self, m: int, n: int) -> int:
+        """CTAs of the launch for an (m, n) output."""
+        return self.cluster * -(-n // self.ncl) * -(-m // self.bm)
 
 
 def lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
@@ -36,23 +55,48 @@ def lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
     return lowrank_qmm_ref(xq, sx, w1, s1, w2, s2, act_qmax)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes) -> Tiles:
+    """The launch's partition, from the shapes, the card's SM count and
+    `smem_bytes(bm, rs, cluster, cn, ncl)`, the kernel's shared memory per
+    CTA.
 
-
-def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes):
-    """(bm, n_split): the fewest rows a CTA holds that cover small M (a
-    decode step has M = max_batch), shrunk until BM x R fits shared
-    memory; then enough CTAs along N for about one wave on the card."""
+    The cluster takes C = the fewest CTAs (a power of two, at most 8)
+    whose 32-column slices cover R, and each CTA the narrowest slice
+    (32, 64 or 128 columns) with C * rs >= R. bm is the fewest rows that
+    cover small M (a decode step has M = max_batch). The cluster's span
+    of N columns is the widest power of two times 32 that still gives
+    about one wave (7/8 of the SMs) -- a wider span recomputes phase 1
+    less often -- and cn, the CTAs that split that span in phase 2, the
+    most that leave each at least 32 columns. bm halves until a CTA fits
+    shared memory."""
+    if r % 32 or n % 32 or r <= 0 or n <= 0:
+        raise ValueError(f"lowrank_qmm kernel needs R % 32 == N % 32 == 0, "
+                         f"got R={r} N={n}")
+    c = 1
+    while c < CLUSTER and c * 32 < r:
+        c *= 2
+    rs = 32
+    while c * rs < r:
+        rs *= 2
+    if rs > RS_MAX:
+        raise ValueError(f"rank {r} exceeds the kernel's {CLUSTER * RS_MAX}")
+    top = 32
+    while top < n:
+        top *= 2
     bm = 16 if m <= 16 else 32 if m <= 32 else 64
-    while bm > 16 and smem_bytes(bm, r) > SMEM_LIMIT:
+    while True:
+        m_blocks = -(-m // bm)
+        ncl = top
+        while ncl > 32 and m_blocks * -(-n // ncl) * c < num_sms * 7 / 8:
+            ncl //= 2
+        cn = c
+        while cn > 1 and ncl // cn < 32:
+            cn //= 2
+        if smem_bytes(bm, rs, c, cn, ncl) <= SMEM_LIMIT:
+            return Tiles(bm, rs, c, cn, ncl)
+        if bm == 16:
+            raise ValueError(f"rank {r} does not fit one CTA's shared memory")
         bm //= 2
-    if smem_bytes(bm, r) > SMEM_LIMIT:
-        raise ValueError(f"rank {r} does not fit one CTA's shared memory")
-    m_blocks = -(-m // bm)
-    n_tiles = -(-n // BN)
-    return bm, max(1, min(n_tiles, -(-num_sms // m_blocks)))
 
 
 def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
@@ -62,8 +106,8 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
 
     xq (M, K) int8, sx (M, 1) f32; w1q (K, R) int8 or (K, R/2) packed
     along R, s1 (1, R) f32; w2q (R, N) int8 or (R, N/2) packed along N,
-    s2 (R, 1) f32. The CUDA kernel needs K % 16 == 0, R % 4 == 0 and
-    N % 4 == 0 (`ops.lrmm` pads to that)."""
+    s2 (R, 1) f32. The CUDA kernel needs K % 16 == 0, R % 32 == 0 and
+    N % 32 == 0 (`ops.lrmm` pads to that) and R <= 1024."""
     if xq.device.type == "cpu":
         return lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2,
                                  w1_packed=w1_packed, w2_packed=w2_packed,
@@ -73,29 +117,29 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
     m, k = xq.shape
     r = w1q.shape[1] * 2 if w1_packed else w1q.shape[1]
     n = w2q.shape[1] * 2 if w2_packed else w2q.shape[1]
-    if k % 16 or r % 4 or n % 4:
-        raise ValueError(f"lowrank_qmm kernel needs K % 16, R % 4, N % 4 == "
-                         f"0, got K={k} R={r} N={n}")
+    if k % 16 or r % 32 or n % 32:
+        raise ValueError(f"lowrank_qmm kernel needs K % 16, R % 32, N % 32 "
+                         f"== 0, got K={k} R={r} N={n}")
     if not 1 <= act_qmax <= 127:
         raise ValueError(f"act_qmax must be in [1, 127], got {act_qmax}")
     dev = xq.device
     _check(xq, "xq", torch.int8, (m, k), dev, align=16)
     _check(sx, "sx", torch.float32, (m, 1), dev)
-    _check(w1q, "w1q", torch.int8, (k, w1q.shape[1]), dev)
+    _check(w1q, "w1q", torch.int8, (k, w1q.shape[1]), dev, align=16)
     _check(s1, "s1", torch.float32, (1, r), dev)
-    _check(w2q, "w2q", torch.int8, (r, w2q.shape[1]), dev)
+    _check(w2q, "w2q", torch.int8, (r, w2q.shape[1]), dev, align=16)
     _check(s2, "s2", torch.float32, (r, 1), dev)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y
     lib = build.load("lowrank_qmm", _SIGNATURES)
-    bm, n_split = choose_tiles(m, r, n, _sm_count(dev.index or 0),
-                               lib.lrmm_smem_bytes)
+    tl = choose_tiles(m, r, n, build.sm_count(dev.index or 0),
+                      lib.lrmm_smem_bytes)
     err = lib.lrmm_launch(xq.data_ptr(), sx.data_ptr(), w1q.data_ptr(),
                           s1.data_ptr(), w2q.data_ptr(), s2.data_ptr(),
                           y.data_ptr(), m, k, r, n, int(w1_packed),
-                          int(w2_packed), int(act_qmax), bm, n_split,
-                          build.stream_handle(dev))
+                          int(w2_packed), int(act_qmax), tl.bm, tl.rs,
+                          tl.cluster, tl.cn, tl.ncl, build.stream_handle(dev))
     build.check(err, "lowrank_qmm")
     build.LAUNCHES["lowrank_qmm"] += 1
     return y

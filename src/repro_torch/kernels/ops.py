@@ -5,12 +5,14 @@ act_wl carried on the weight node), pad to what the CUDA kernels take,
 and call the kernel wrappers, which launch the CUDA kernel on CUDA tensors
 and run the plain version on CPU tensors.
 
-Padding: the CUDA kernels read activations 16 bytes at a time and weights
-4 columns at a time, so K pads to a multiple of 16 and N (and R) to a
-multiple of 4, in the packed domain where a factor is packed (zero bytes
-are zero codes, so padding is exact). The TPU's 128/256 padding and its
-packed-axis demotion are not needed: the CUDA kernels take any packed
-axis of even width.
+Padding: the CUDA kernels read activations 16 bytes at a time, so K pads
+to a multiple of 16. `quant_matmul` reads weights 4 columns at a time (N
+pads to 4); `lowrank_qmm` copies whole 16-byte rows of 32 packed columns
+with cp.async (R and N pad to 32). Padding is in the packed domain where
+a factor is packed (zero bytes are zero codes) with scale 1, so it is
+exact: a zero-code rank column adds 0 to T and to the row absmax. The
+TPU's 128/256 padding and its packed-axis demotion are not needed: the
+CUDA kernels take any packed axis of even width.
 """
 from __future__ import annotations
 
@@ -87,7 +89,7 @@ def lrmm(x: torch.Tensor, lr: LowRankQ, *, out_dtype=None,
                          w_packed=w2p)[:, :n]
         return y.to(out_dtype).reshape(*lead, n)
     if _on_cuda(x):
-        kp, rp, np_ = _up(k, 16), _up(r, 4), _up(n, 4)
+        kp, rp, np_ = _up(k, 16), _up(r, 32), _up(n, 32)
         xq = _pad(xq, xq.shape[0], kp).contiguous()
         w1v = _pad(w1v, kp, rp // 2 if w1p else rp).contiguous()
         s1 = _pad(s1, 1, rp, 1.0).contiguous()

@@ -25,15 +25,43 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.quant_matmul import _check
 
 NEG = -2.3819763e38  # large negative for masking in f32 (the reference's)
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    "paged_attention_launch": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _D, _D, _P)),
+    "paged_attention_launch": (_I, (_P,) * 11 + (_I,) * 11 + (_D, _D, _P)),
+    "paged_attention_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I)),
 }
+QT_DECODE, QT_PREFILL = 16, 64  # query rows per CTA of the two tile kinds
+STAGE_KEYS = 64                 # keys the kernel stages per step
+
+
+def choose_splits(b: int, hk: int, w: int, g: int, mb: int, bs: int,
+                  num_sms: int) -> tuple[int, int, int]:
+    """(qt, kps, splits) of a launch, from the shapes alone (the host never
+    reads ctx_lens, which live on the card).
+
+    qt: query rows per tile, 16 (decode tiles, W*G <= 16) or 64 (prefill
+    tiles, on the tensor cores). Each tile's keys are cut into splits of
+    kps keys, whole blocks of at least one stage: the widest power of two
+    of stages that still gives B x Hk x tiles x splits >= `waves` x the
+    SM count for the longest possible row (MB blocks). Decode tiles take
+    two waves (two CTAs share an SM), so a decode step covers the card.
+    Prefill tiles take four: causal tiles differ in length by up to the
+    span, and a long tile cut into splits no longer holds the launch up."""
+    qt = QT_DECODE if w * g <= QT_DECODE else QT_PREFILL
+    tiles = -(-w * g // qt)
+    waves = 2 if qt == QT_DECODE else 4
+    step = max(1, STAGE_KEYS // bs)     # blocks per stage
+    bps = step
+    while bps < mb:
+        bps *= 2
+    while bps > step and b * hk * tiles * -(-mb // bps) < waves * num_sms:
+        bps //= 2
+    return qt, bps * bs, max(1, -(-mb // bps))
 
 
 def softcap(x, cap: float):
@@ -72,7 +100,8 @@ def span_attend_gather(q, pool, block_table, ctx_lens, logit_softcap=0.0):
 
 
 def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
-                    logit_softcap: float = 0.0) -> torch.Tensor:
+                    logit_softcap: float = 0.0,
+                    keys_per_split: int | None = None) -> torch.Tensor:
     """Span queries against ONE layer's blocked pool, reading only valid
     blocks.
 
@@ -80,7 +109,9 @@ def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
     leaves (NB, bs, Hk, *), already holding this step's span K/V;
     block_table (B, MB) int32; ctx_lens, q_lens (B,) int32. Returns
     (B, W, H, Dh) f32: attention at span positions [:q_lens[r]] of every
-    row; the kernel writes zeros past them and for idle rows."""
+    row; the kernel writes zeros past them and for idle rows.
+    keys_per_split overrides the kernel's key split (`choose_splits`);
+    any positive count is exact, block-aligned or not."""
     if q.device.type == "cpu":
         return span_attend_gather(q, pool, block_table, ctx_lens,
                                   logit_softcap)
@@ -94,11 +125,11 @@ def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
         raise ValueError(f"paged_attention kernel needs Dh in (32, 64, 128) "
                          f"and H % Hk == 0, got Dh={dh} H={h} Hk={hk}")
     dev = q.device
-    # the kernel reads fp32 K/V 16 bytes and int8 codes 4 bytes at a time
-    kv_dtype, kv_align = (torch.int8, 4) if quant else (torch.float32, 16)
+    # the kernel copies K/V rows 16 bytes at a time
+    kv_dtype = torch.int8 if quant else torch.float32
     _check(q, "q", torch.float32, (b, w, h, dh), dev)
-    _check(pool["k"], "k", kv_dtype, (nb_, bs, hk, dh), dev, kv_align)
-    _check(pool["v"], "v", kv_dtype, (nb_, bs, hk, dh), dev, kv_align)
+    _check(pool["k"], "k", kv_dtype, (nb_, bs, hk, dh), dev, 16)
+    _check(pool["v"], "v", kv_dtype, (nb_, bs, hk, dh), dev, 16)
     if quant:
         _check(pool["ks"], "ks", torch.float32, (nb_, bs, hk, 1), dev)
         _check(pool["vs"], "vs", torch.float32, (nb_, bs, hk, 1), dev)
@@ -106,14 +137,34 @@ def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
     _check(ctx_lens, "ctx_lens", torch.int32, (b,), dev)
     _check(q_lens, "q_lens", torch.int32, (b,), dev)
     out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
     lib = build.load("paged_attention", _SIGNATURES)
+    qt, kps, splits = choose_splits(b, hk, w, h // hk, mb, bs,
+                                    build.sm_count(dev.index or 0))
+    if keys_per_split is not None:
+        if keys_per_split < 1:
+            raise ValueError(f"keys_per_split must be >= 1, got "
+                             f"{keys_per_split}")
+        kps, splits = keys_per_split, max(1, -(-mb * bs // keys_per_split))
+    smem = lib.paged_attention_smem_bytes(qt, dh, int(quant), bs)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: block size {bs} at Dh {dh} needs "
+                         f"{smem} bytes of shared memory per CTA")
+    ws_ml = ws_acc = None
+    if splits > 1:
+        rows = b * hk * -(-w * (h // hk) // qt) * splits * qt
+        ws_ml = torch.empty((rows, 2), dtype=torch.float64, device=dev)
+        ws_acc = torch.empty((rows, dh), dtype=torch.float64, device=dev)
     err = lib.paged_attention_launch(
         q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(),
         pool["ks"].data_ptr() if quant else None,
         pool["vs"].data_ptr() if quant else None,
         block_table.data_ptr(), ctx_lens.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), b, w, h, hk, dh, bs, mb, int(quant),
-        float(dh) ** -0.5, float(logit_softcap), build.stream_handle(dev))
+        out.data_ptr(), ws_ml.data_ptr() if splits > 1 else None,
+        ws_acc.data_ptr() if splits > 1 else None, b, w, h, hk, dh, bs, mb,
+        int(quant), qt, kps, splits, float(dh) ** -0.5,
+        float(logit_softcap), build.stream_handle(dev))
     build.check(err, "paged_attention")
     build.LAUNCHES["paged_attention"] += 1
     return out

@@ -143,3 +143,81 @@ def test_paged_attention_kernel_equals_plain(cuda, kv_bits, w):
         torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
                                    atol=1e-5)
         assert not o[r, ql[r]:].any()        # idle and pad rows are zero
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,r,n", [
+    (37, 512, 288, 544),    # M not a multiple of bm; R not of 8 x cluster
+    (8, 16, 256, 2080),     # K 16; N not a multiple of the cluster span
+    (2048, 512, 256, 2048),  # prefill: clusters split N, not R
+    (8, 2048, 1024, 512),   # the widest rank slice (R 1024)
+])
+def test_lowrank_qmm_cluster_partitions(cuda, packed, m, k, r, n):
+    """The kernel itself (no padding by ops) at shapes that leave rank
+    slices, row blocks and cluster spans partly or wholly empty."""
+    rng = np.random.default_rng(m + k + r + n)
+    wl = 4 if packed else 8
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w1 = _codes(rng, (k, r), wl).to(cuda)
+    w2 = _codes(rng, (r, n), wl).to(cuda)
+    if packed:
+        w1, w2 = quant.pack_int4(w1), quant.pack_int4(w2)
+    s1 = _uniform(rng, (1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (r, 1), 0.01, 0.1).to(cuda)
+    kw = dict(w1_packed=packed, w2_packed=packed, act_qmax=127)
+    before = build.LAUNCHES["lowrank_qmm"]
+    y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lowrank_qmm"] == before + 1
+    assert torch.equal(y, lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2, **kw))
+
+
+def _pa_case(rng, ctx, ql, kv_bits, bs=16, hk=2, g=2, hd=64):
+    """A span batch over fresh consecutive blocks with random history."""
+    ctx, ql = np.array(ctx, np.int32), np.array(ql, np.int32)
+    w = int(ql.max())
+    mb = max(1, -(-int((ctx + ql).max()) // bs))
+    table = np.zeros((len(ctx), mb), np.int32)
+    nxt = 1
+    for r in range(len(ctx)):
+        need = -(-int(ctx[r] + ql[r]) // bs)
+        table[r, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+    shape = (nxt, bs, hk, hd)
+    if kv_bits == 8:
+        pool = {"k": _codes(rng, shape, 8), "v": _codes(rng, shape, 8),
+                "ks": _uniform(rng, (*shape[:-1], 1), 0.005, 0.025),
+                "vs": _uniform(rng, (*shape[:-1], 1), 0.005, 0.025)}
+    else:
+        pool = {"k": torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32)),
+                "v": torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32))}
+    q = torch.from_numpy(rng.standard_normal(
+        (len(ctx), w, g * hk, hd)).astype(np.float32))
+    return q, pool, table, ctx, ql
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("kps", [None, 40, 16, 4096])
+@pytest.mark.parametrize("ctx,ql", [
+    ([0, 32, 0, 95], [1, 1, 0, 1]),     # context 0; block-aligned; idle row
+    ([0, 48, 7, 200], [9, 0, 20, 3]),   # prefill tiles (W*G > 16)
+])
+def test_paged_attention_splits(cuda, kv_bits, kps, ctx, ql):
+    """Split-KV decode and prefill tiles against the plain version: splits
+    that end mid-block (40 keys), more splits than valid blocks (16 keys),
+    one split (4096), and the chooser's own (None); zeros past q_len."""
+    rng = np.random.default_rng(sum(ctx) + kv_bits)
+    q, pool, table, ctx, ql = _pa_case(rng, ctx, ql, kv_bits)
+    pool = {key: v.to(cuda) for key, v in pool.items()}
+    q = q.to(cuda)
+    tab, ctx_t, ql_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx, ql))
+    o = pa.paged_attention(q, pool, tab, ctx_t, ql_t, keys_per_split=kps)
+    torch.cuda.synchronize()
+    ref = pa.span_attend_gather(q, pool, tab, ctx_t)
+    for r in range(len(ctx)):
+        torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
+                                   atol=1e-5)
+        assert not o[r, ql[r]:].any()

@@ -209,17 +209,86 @@ def test_byte_and_op_models():
         + (32 + 32) * 4 + 8 * 64 * 4
 
 
-def test_lowrank_tile_choice():
-    def smem(bm, r):            # lowrank_qmm.cu's smem_bytes
-        rp = -(-r // 256) * 256
-        return bm * rp * 4 + bm * (rp + 16) + bm * 4 + bm * 272 + 128 * 272
+def lowrank_smem_bytes(bm, rs, c, cn, ncl):
+    """Shared memory of one CTA: lowrank_qmm.cu's `layout` (a ring of 3
+    stages, each the larger of the Xq + W1 and W2 tiles; the transposed
+    tile; T; the pushed partials when c > cn; the Tq slice and R group;
+    every rank's row max; st)."""
+    bk = (128 if rs >= 128 else 16384 // rs) if bm == 16 else 128
+    nc = min(128, ncl // cn)
+    bk2 = min(bk, rs * cn)
+    stage = max(bm * (bk + 16) + bk * rs, bk2 * nc)
+    bt = max(bk // 4 * (rs + 8), bk2 // 4 * (nc + 8)) * 4
+    red = bm * nc * 4 if c > cn else 0
+    return (3 * stage + bt + bm * rs * 4 + red + bm * (rs + 16)
+            + bm * (rs * cn + 16) + 8 * bm * 4 + bm * 4)
 
-    assert tlr.choose_tiles(8, 256, 2048, 132, smem) == (16, 16)
-    assert tlr.choose_tiles(2048, 256, 512, 132, smem) == (64, 4)
-    bm, split = tlr.choose_tiles(300, 1024, 512, 132, smem)
-    assert bm == 32 and smem(bm, 1024) <= tlr.SMEM_LIMIT
-    with pytest.raises(ValueError):
-        tlr.choose_tiles(64, 4096, 512, 132, smem)
+
+def _owned_columns(t, n):
+    """Columns of Y each CTA writes, as lowrank_qmm.cu assigns them: CTA
+    (ir, in) of a cluster takes share `in` of the cluster's span in chunks
+    of at most 128 columns, and of each chunk its 1/Cr part."""
+    cols = []
+    cr, share = t.cluster // t.cn, t.ncl // t.cn
+    nc = min(share, 128)
+    for x in range(-(-n // t.ncl)):
+        for rank in range(t.cluster):
+            ir, i_n = divmod(rank, t.cn)
+            for ch in range(share // nc):
+                n0 = x * t.ncl + i_n * share + ch * nc
+                part = nc // cr
+                cols += [c for c in range(n0 + ir * part, n0 + (ir + 1) * part)
+                         if c < n]
+    return cols
+
+
+@pytest.mark.parametrize("m,r,n", [(8, 256, 512), (8, 256, 2048),
+                                   (8, 256, 512 + 32), (2048, 256, 2048),
+                                   (300, 1024, 512), (8, 1024, 2048),
+                                   (2048, 1024, 512), (5, 32, 64)])
+def test_lowrank_tile_choice(m, r, n):
+    """Clusters of at most 8 CTAs whose rank slices cover R, every column
+    of Y written by exactly one CTA, shared memory within the card's
+    limit, and about one wave (132 SMs) at the decode shapes."""
+    t = tlr.choose_tiles(m, r, n, 132, lowrank_smem_bytes)
+    assert t.cluster in (1, 2, 4, 8) and t.cluster % t.cn == 0
+    assert t.rs in (32, 64, 128) and t.cluster * t.rs >= r
+    assert t.ncl % (32 * t.cn) == 0
+    assert lowrank_smem_bytes(t.bm, t.rs, t.cluster, t.cn,
+                              t.ncl) <= tlr.SMEM_LIMIT
+    assert sorted(_owned_columns(t, n)) == list(range(n))
+    if m == 8 and r == 256:
+        assert t.ctas(m, n) >= 0.9 * 132
+
+
+def test_lowrank_tile_choice_refuses():
+    with pytest.raises(ValueError, match="rank"):
+        tlr.choose_tiles(8, 2048, 512, 132, lowrank_smem_bytes)
+    with pytest.raises(ValueError, match="% 32"):
+        tlr.choose_tiles(8, 250, 512, 132, lowrank_smem_bytes)
+    with pytest.raises(ValueError, match="shared memory"):
+        tlr.choose_tiles(8, 256, 512, 132, lambda *tiles: 1 << 30)
+
+
+@pytest.mark.parametrize("b,hk,w,g,mb", [(8, 8, 1, 1, 32), (8, 8, 256, 1, 33),
+                                         (1, 1, 1, 1, 3), (4, 2, 1, 8, 200),
+                                         (2, 2, 40, 2, 9)])
+def test_attention_split_choice(b, hk, w, g, mb):
+    """Decode tiles (W*G <= 16) take 16 query rows, prefill tiles 64;
+    splits are whole stages of blocks, cover the longest row once, and
+    give two waves of CTAs (prefill: four) where the rows are long enough
+    to split."""
+    bs = 16
+    qt, kps, splits = tpa.choose_splits(b, hk, w, g, mb, bs, 132)
+    assert qt == (16 if w * g <= 16 else 64)
+    assert kps % 64 == 0 and kps % bs == 0
+    assert splits * kps >= mb * bs > (splits - 1) * kps
+    tiles = -(-w * g // qt)
+    waves = 2 if qt == 16 else 4
+    if splits < -(-mb * bs // 64):      # could split further
+        assert b * hk * tiles * splits >= waves * 132
+    if (b, hk, w, mb) == (8, 8, 1, 32):  # the serving decode step
+        assert b * hk * splits >= 132
 
 
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():

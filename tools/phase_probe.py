@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Phase breakdown of the CUDA kernels `lowrank_qmm` and `paged_attention`
+on one NVIDIA GPU.
+
+    python3 tools/phase_probe.py [--src <root of a checkout>]
+
+It copies the two kernels' sources from the checkout (default: this one)
+into `build/phase_probe/`, adds `%globaltimer` stamps taken by thread 0
+of every CTA, builds them with nvcc, launches each at the serving path's
+shapes (the L2 cache flushed first), and prints each phase's mean and
+slowest CTA in microseconds beside the launch's CUDA-event time, plus
+ptxas's register and spill lines. It knows two versions: the first
+(one CTA per row block and N tile; one CTA per attention tile) and the
+second (thread-block clusters; split-KV with tensor-core prefill tiles).
+The kernels of the main path carry no timing code: the stamps exist only
+in these copies.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "phase_probe"
+
+STAMP = '''__device__ unsigned long long g_st[8192 * 8];
+__device__ __forceinline__ unsigned long long gt() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+namespace {
+'''
+
+LRMM_PATCHES = [
+    ("namespace {\n", STAMP),
+    ("  // ---- phase 1: T = Xq @ W1q, RT columns of R at a time ----------------\n",
+     "  unsigned long long tl = 0, tm = 0, tb = 0, a0, a1, a2;\n"
+     "  // ---- phase 1: T = Xq @ W1q, RT columns of R at a time ----------------\n"),
+    ("      rt::load_rows<THREADS, BMT, BK>(As, LDS, xq, K, m0, M, k0, K);\n",
+     "      a0 = gt();\n"
+     "      rt::load_rows<THREADS, BMT, BK>(As, LDS, xq, K, m0, M, k0, K);\n"),
+    ("                                         k0, r0);\n      __syncthreads();\n",
+     "                                         k0, r0);\n      __syncthreads();\n"
+     "      a1 = gt();\n"),
+    ("                        Bs + wn * (RT / WN) * LDS, LDS, BK);\n      __syncthreads();\n",
+     "                        Bs + wn * (RT / WN) * LDS, LDS, BK);\n      __syncthreads();\n"
+     "      a2 = gt(); tl += a1 - a0; tm += a2 - a1;\n"),
+    ("  // ---- boundary: fold", "  a0 = gt();\n  // ---- boundary: fold"),
+    ("  // ---- phase 2: Y", "  a1 = gt(); tb = a1 - a0;\n  // ---- phase 2: Y"),
+    ("        *reinterpret_cast<float2*>(y + (size_t)(m + 8) * N + n) = o;\n"
+     "      }\n    }\n  }\n}\n",
+     "        *reinterpret_cast<float2*>(y + (size_t)(m + 8) * N + n) = o;\n"
+     "      }\n    }\n  }\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    const int c = blockIdx.x * gridDim.y + blockIdx.y;\n"
+     "    if (c < 8192) { g_st[8 * c] = tl; g_st[8 * c + 1] = tm;\n"
+     "      g_st[8 * c + 2] = tb; g_st[8 * c + 3] = gt() - a1; }\n  }\n}\n"),
+]
+
+PA_PATCHES = [
+    ("namespace {\n", STAMP),
+    ("  for (int blk0 = 0; blk0 < nblk; blk0 += bpi) {\n"
+     "    const int nkeys = min(bpi, nblk - blk0) * bs;\n    __syncthreads();",
+     "  unsigned long long tl = 0, ts = 0, tp = 0, a0, a1;\n"
+     "  const unsigned long long tstart = gt();\n"
+     "  for (int blk0 = 0; blk0 < nblk; blk0 += bpi) {\n"
+     "    const int nkeys = min(bpi, nblk - blk0) * bs;\n    __syncthreads();\n"
+     "    a0 = gt();"),
+    ("      *reinterpret_cast<float4*>(Vs + j * DH + d) = vv;\n    }\n"
+     "    __syncthreads();\n",
+     "      *reinterpret_cast<float4*>(Vs + j * DH + d) = vv;\n    }\n"
+     "    __syncthreads();\n    a1 = gt(); tl += a1 - a0;\n"),
+    ("      for (int j0 = 0; j0 < nkeys; j0 += 32) {\n        const int j = j0 + lane;",
+     "      for (int j0 = 0; j0 < nkeys; j0 += 32) {\n        a0 = gt();\n"
+     "        const int j = j0 + lane;"),
+    ("        const int nj = min(32, nkeys - j0);",
+     "        a1 = gt(); ts += a1 - a0;\n        const int nj = min(32, nkeys - j0);"),
+    ("        m_i[r] = m_new;\n      }", "        m_i[r] = m_new;\n        tp += gt() - a1;\n      }"),
+    ("    for (int e = 0; e < DPL; ++e) o[e] = static_cast<float>(acc[r][e] / l);\n  }\n}\n",
+     "    for (int e = 0; e < DPL; ++e) o[e] = static_cast<float>(acc[r][e] / l);\n  }\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    const int c = (blockIdx.x * gridDim.y + blockIdx.y) * gridDim.z + blockIdx.z;\n"
+     "    if (c < 8192) { g_st[8 * c] = tl; g_st[8 * c + 1] = ts;\n"
+     "      g_st[8 * c + 2] = tp; g_st[8 * c + 3] = gt() - tstart; }\n  }\n}\n"),
+]
+
+# clusters of 8 that can be resident at once, for the decode tile
+CLUSTERS = '''extern "C" int probe_max_clusters() {
+  const int smem = static_cast<int>(layout(16, 32, 8, 1, 32).total);
+  auto kern = lrmm_kernel<16, 32>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(128, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute a[1];
+  a[0].id = cudaLaunchAttributeClusterDimension;
+  a[0].val.clusterDim.x = 8;
+  a[0].val.clusterDim.y = 1;
+  a[0].val.clusterDim.z = 1;
+  cfg.attrs = a;
+  cfg.numAttrs = 1;
+  int n = -1;
+  cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return n;
+}
+'''
+
+# The second (cluster / split-KV) version: per CTA, the time waiting on
+# the copy ring and barriers, and each phase's own work.
+LRMM2_PATCHES = [
+    ("namespace {\n", STAMP),
+    ("  cg::cluster_group cluster = cg::this_cluster();\n",
+     "  const unsigned long long t_in = gt();\n"
+     "  cg::cluster_group cluster = cg::this_cluster();\n"),
+    ("  for (int s = 0; s < n_steps; ++s) {\n",
+     "  unsigned long long pw = 0, p1 = 0, pb = 0, p2 = 0, a0, a1;\n"
+     "  const unsigned long long t0 = gt();\n"
+     "  for (int s = 0; s < n_steps; ++s) {\n    a0 = gt();\n"),
+    ("    issue(s + STAGES - 1);\n",
+     "    issue(s + STAGES - 1);\n    a1 = gt(); pw += a1 - a0; a0 = a1;\n"),
+    ("      if (s != n1 - 1) continue;\n",
+     "      a1 = gt(); p1 += a1 - a0; a0 = a1;\n"
+     "      if (s != n1 - 1) continue;\n"),
+    ("      // the first phase-2 step's barrier publishes tq_grp\n",
+     "      pb += gt() - a0;\n"),
+    ("    if (ks != n2k - 1) continue;\n",
+     "    a1 = gt(); p2 += a1 - a0; a0 = a1;\n    if (ks != n2k - 1) continue;\n"),
+    ("  // so each may leave on its own\n}\n",
+     "  // so each may leave on its own\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    const int c = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     "    if (c < 8192) { g_st[8 * c] = pw; g_st[8 * c + 1] = p1;\n"
+     "      g_st[8 * c + 2] = pb; g_st[8 * c + 3] = p2;\n"
+     "      g_st[8 * c + 4] = t_in; g_st[8 * c + 5] = gt(); }\n  }\n}\n"),
+    ("extern \"C\" long long lrmm_smem_bytes", CLUSTERS
+     + "extern \"C\" long long lrmm_smem_bytes"),
+]
+
+PA2_PATCHES = [
+    ("namespace {\n", STAMP),
+    ("  const int S = gridDim.y, split = blockIdx.y;\n",
+     "  const unsigned long long t_in = gt();\n"
+     "  const int S = gridDim.y, split = blockIdx.y;\n"),
+    ("  for (int st = 0; st < n_stages; ++st) {\n",
+     "  unsigned long long pw = 0, ps = 0, pm = 0, pv = 0, a0, a1;\n"
+     "  for (int st = 0; st < n_stages; ++st) {\n    a0 = gt();\n"),
+    ("    __syncthreads();        // ... and everyone's\n",
+     "    __syncthreads();        // ... and everyone's\n    pw += gt() - a0;\n"),
+    ("        for (int kc = 0; kc < kpw; kc += 16) {\n",
+     "        for (int kc = 0; kc < kpw; kc += 16) {\n          a0 = gt();\n"),
+    ("          for (int jj = 0; jj < 16; ++jj) {\n",
+     "          a1 = gt(); ps += a1 - a0;\n"
+     "          for (int jj = 0; jj < 16; ++jj) {\n"),
+    ("          m = m_new;\n", "          m = m_new;\n          pv += gt() - a1;\n"),
+    ("      for (int sc = 0; sc < rows; sc += 32) {\n",
+     "      for (int sc = 0; sc < rows; sc += 32) {\n        a0 = gt();\n"),
+    ("#pragma unroll\n        for (int mt = 0; mt < 2; ++mt) {\n          double mx = NEG;",
+     "        a1 = gt(); ps += a1 - a0; a0 = a1;\n"
+     "#pragma unroll\n        for (int mt = 0; mt < 2; ++mt) {\n          double mx = NEG;"),
+    ("        // O += P.V", "        a1 = gt(); pm += a1 - a0; a0 = a1;\n        // O += P.V"),
+    ("            for (int mt = 0; mt < 2; ++mt) dmma(o[mt][dn], a[mt], b);\n"
+     "          }\n        }\n",
+     "            for (int mt = 0; mt < 2; ++mt) dmma(o[mt][dn], a[mt], b);\n"
+     "          }\n        }\n        pv += gt() - a0;\n"),
+    ("  // ---- this split's result: the output, or a partial for the combine --\n",
+     "  if (threadIdx.x == 0) {\n"
+     "    const int c = blockIdx.x * gridDim.y + blockIdx.y;\n"
+     "    if (c < 8192) { g_st[8 * c] = pw; g_st[8 * c + 1] = ps;\n"
+     "      g_st[8 * c + 2] = pm; g_st[8 * c + 3] = pv;\n"
+     "      g_st[8 * c + 4] = t_in; g_st[8 * c + 5] = gt(); }\n  }\n"
+     "  // ---- this split's result: the output, or a partial for the combine --\n"),
+]
+
+READ = '''
+extern "C" int probe_read(unsigned long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_st, sizeof(unsigned long long) * 8 * n);
+}
+extern "C" int probe_clear() {
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, g_st);
+  return (int)cudaMemset(p, 0, sizeof(unsigned long long) * 8 * 8192);
+}
+'''
+
+
+def instrument(src: pathlib.Path, patches, dst: pathlib.Path) -> bool:
+    """Write `src` with the stamps of `patches` to `dst`; False when a
+    patch finds no place in it (another version of the kernel)."""
+    text = src.read_text()
+    for old, new in patches:
+        if old not in text:
+            return False
+        text = text.replace(old, new, 1)
+    dst.write_text(text + READ)
+    return True
+
+
+def build_probes(csrc: pathlib.Path, build) -> None:
+    nvcc = build._nvcc()
+    procs = [(n, subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(OUT / f"{n}.so"),
+         str(OUT / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for n in ("lrmm", "pa")]
+    for n, p in procs:
+        log, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"nvcc failed for {n}:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {n}: {line.strip()}")
+
+
+def stamps(lib, ctas: int, torch):
+    """The (CTA, 8) stamps in microseconds of CTAs that wrote any: four
+    phase sums, then (second version) entry and exit times."""
+    buf = (ctypes.c_ulonglong * (8 * ctas))()
+    if lib.probe_read(ctypes.addressof(buf), ctas):
+        raise RuntimeError("reading the stamps failed")
+    a = torch.tensor(list(buf), dtype=torch.float64).reshape(ctas, 8)
+    a = a[a[:, :4].sum(1) > 0]
+    a[:, :4] /= 1e3
+    return a
+
+
+def report(res, key, a, ctas, us):
+    """Phase means [slowest CTA]; with entry/exit stamps, the span from
+    the first CTA's entry to the last one's exit and the spread of the
+    entries (CTAs that waited for a free SM)."""
+    span = spread = None
+    if a[:, 4].min() > 0:
+        t0 = a[:, 4].min()
+        span = float(a[:, 5].max() - t0) / 1e3
+        spread = float(a[:, 4].max() - t0) / 1e3
+    print(f"  {key}: " + " ".join(
+        f"{a[:, i].mean():.2f} [{a[:, i].max():.2f}]" for i in range(4))
+        + f" | {len(a)} of {ctas} CTAs, {us:.1f} us"
+        + ("" if span is None else
+           f"; CTAs span {span:.1f} us, entries spread {spread:.1f} us"))
+    res[key] = dict(us=us, ctas=ctas, live=len(a), span_us=span,
+                    entry_spread_us=spread, mean=a[:, :4].mean(0).tolist(),
+                    max=a[:, :4].max(0).values.tolist())
+
+
+LRMM_SHAPES = ((8, 512, 256, 512), (8, 512, 256, 2048), (8, 2048, 256, 512),
+               (2048, 512, 256, 2048))
+
+
+def lrmm_inputs(torch, g, m, k, r, n):
+    from repro_torch.core.quant import pack_int4
+    from repro_torch.kernels.ops import quantize_acts
+
+    xq, sx = quantize_acts(torch.randn((m, k), generator=g, device="cuda"),
+                           127)
+    w1 = pack_int4(torch.randint(-7, 8, (k, r), generator=g, device="cuda",
+                                 dtype=torch.int8))
+    w2 = pack_int4(torch.randint(-7, 8, (r, n), generator=g, device="cuda",
+                                 dtype=torch.int8))
+    s1 = torch.rand((1, r), generator=g, device="cuda") * 0.1
+    s2 = torch.rand((r, 1), generator=g, device="cuda") * 0.1
+    return xq, sx, w1, s1, w2, s2
+
+
+def probe_first(torch, cs, timer, res) -> None:
+    """The first version's kernels, launched through their C entry points."""
+    from repro_torch.kernels import lowrank_qmm as lrm
+
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    L = ctypes.CDLL(str(OUT / "lrmm.so"))
+    L.lrmm_launch.restype = I
+    L.lrmm_launch.argtypes = [P] * 7 + [I] * 9 + [P]
+    L.lrmm_smem_bytes.restype = ctypes.c_longlong
+    L.lrmm_smem_bytes.argtypes = [I, I]
+    L.probe_read.argtypes = [P, I]
+    A = ctypes.CDLL(str(OUT / "pa.so"))
+    A.paged_attention_launch.restype = I
+    A.paged_attention_launch.argtypes = [P] * 9 + [I] * 8 + [D, D, P]
+    A.probe_read.argtypes = [P, I]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    print("lowrank_qmm, us per CTA, mean [slowest]: phase-1 load, phase-1 "
+          "mma, boundary, phase 2")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, r, n in LRMM_SHAPES:
+        xq, sx, w1, s1, w2, s2 = lrmm_inputs(torch, g, m, k, r, n)
+        y = torch.empty((m, n), device="cuda")
+        bm, split = lrm.choose_tiles(m, r, n, 132, L.lrmm_smem_bytes)
+
+        def launch():
+            err = L.lrmm_launch(xq.data_ptr(), sx.data_ptr(), w1.data_ptr(),
+                                s1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
+                                y.data_ptr(), m, k, r, n, 1, 1, 127, bm,
+                                split, stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+
+        us = timer(launch) * 1e3
+        L.probe_clear()
+        timer.flush.zero_()
+        launch()
+        torch.cuda.synchronize()
+        ctas = -(-m // bm) * split
+        report(res, f"lowrank_qmm M{m} K{k} N{n}", stamps(L, ctas, torch),
+               ctas, us)
+
+    print("paged_attention, us per CTA, mean [slowest]: loads, scores, PV, "
+          "total")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for kv_bits in (16, 8):
+        for w in (1, 256):
+            q, pool, table, ctx_t, ql_t, _, _ = cs._span_batch(torch, g, w,
+                                                               kv_bits)
+            b, _, h, dh = q.shape
+            _, bs, hk, _ = pool["k"].shape
+            quant = kv_bits == 8
+            out = torch.empty_like(q)
+
+            def launch():
+                err = A.paged_attention_launch(
+                    q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(),
+                    pool["ks"].data_ptr() if quant else None,
+                    pool["vs"].data_ptr() if quant else None,
+                    table.data_ptr(), ctx_t.data_ptr(), ql_t.data_ptr(),
+                    out.data_ptr(), b, w, h, hk, dh, bs, table.shape[1],
+                    int(quant), dh ** -0.5, 0.0, stream)
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+
+            us = timer(launch) * 1e3
+            A.probe_clear()
+            timer.flush.zero_()
+            launch()
+            torch.cuda.synchronize()
+            ctas = b * hk * -(-w * (h // hk) // 16)
+            report(res, f"paged_attention W{w} kv{kv_bits}",
+                   stamps(A, ctas, torch), ctas, us)
+
+
+def probe_second(torch, cs, timer, res) -> None:
+    """The cluster / split-KV kernels, launched through the wrappers with
+    the stamped libraries in place of the built ones."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lowrank_qmm as lrm
+    from repro_torch.kernels import paged_attention as pa
+
+    libs = {}
+    for name, so, mod in (("lowrank_qmm", "lrmm", lrm),
+                          ("paged_attention", "pa", pa)):
+        lib = ctypes.CDLL(str(OUT / f"{so}.so"))
+        for fn, (ret, args) in mod._SIGNATURES.items():
+            getattr(lib, fn).restype = ret
+            getattr(lib, fn).argtypes = list(args)
+        lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        build._LIBS[name] = libs[name] = lib
+
+    print(f"lowrank_qmm: {libs['lowrank_qmm'].probe_max_clusters()} clusters "
+          "of 8 decode CTAs fit on the card at once")
+    print("lowrank_qmm, us per CTA, mean [slowest]: waits (ring, barriers), "
+          "phase 1, boundary (with cluster syncs), phase 2 products")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, r, n in LRMM_SHAPES:
+        args = lrmm_inputs(torch, g, m, k, r, n)
+        kw = dict(w1_packed=True, w2_packed=True)
+        us = timer(lambda: lrm.lowrank_qmm(*args, **kw)) * 1e3
+        libs["lowrank_qmm"].probe_clear()
+        timer.flush.zero_()
+        lrm.lowrank_qmm(*args, **kw)
+        torch.cuda.synchronize()
+        ctas = lrm.choose_tiles(m, r, n, 132, libs["lowrank_qmm"]
+                                .lrmm_smem_bytes).ctas(m, n)
+        report(res, f"lowrank_qmm M{m} K{k} N{n}",
+               stamps(libs["lowrank_qmm"], ctas, torch), ctas, us)
+
+    print("paged_attention, us per CTA with keys, mean [slowest]: waits "
+          "(ring, barriers), scores (decode: with softmax), softmax, PV")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for kv_bits in (16, 8):
+        for w in (1, 256):
+            q, pool, table, ctx_t, ql_t, _, _ = cs._span_batch(torch, g, w,
+                                                               kv_bits)
+            b, _, h, _ = q.shape
+            _, bs, hk, _ = pool["k"].shape
+            qt, kps, splits = pa.choose_splits(b, hk, w, h // hk,
+                                               table.shape[1], bs, 132)
+
+            def call():
+                return pa.paged_attention(q, pool, table, ctx_t, ql_t)
+
+            us = timer(call) * 1e3
+            libs["paged_attention"].probe_clear()
+            timer.flush.zero_()
+            call()
+            torch.cuda.synchronize()
+            ctas = b * hk * -(-w * (h // hk) // qt) * splits
+            report(res, f"paged_attention W{w} kv{kv_bits} split {kps}",
+                   stamps(libs["paged_attention"], ctas, torch), ctas, us)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", type=pathlib.Path, default=ROOT,
+                    help="root of a checkout (default: this one)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("phase_probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.src / "src"))
+    sys.path.insert(0, str(args.src))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+
+    csrc = args.src / "src" / "repro_torch" / "kernels" / "csrc"
+    OUT.mkdir(parents=True, exist_ok=True)
+    versions = (("first", LRMM_PATCHES, PA_PATCHES, probe_first),
+                ("second", LRMM2_PATCHES, PA2_PATCHES, probe_second))
+    for name, lp, ap_, run in versions:
+        if (instrument(csrc / "lowrank_qmm.cu", lp, OUT / "lrmm.cu")
+                and instrument(csrc / "paged_attention.cu", ap_,
+                               OUT / "pa.cu")):
+            break
+    else:
+        print(f"phase_probe: {csrc} holds neither known version",
+              file=sys.stderr)
+        return 1
+    print(f"phase_probe: {name} version of the kernels, from {csrc}")
+    build_probes(csrc, build)
+    res: dict = {}
+    run(torch, cs, cs.Timer(torch), res)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"version": name, "device": smi, "phases": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
