@@ -19,10 +19,13 @@ through four phases, and exits non-zero, printing no result, if any fails:
    (ITERA W4A8 at rank fraction 0.5 for every attention and MLP linear,
    W8A8 quantization for the lm head), serving 16 ragged requests with an
    fp32 KV pool and again with int8 KV; every kernel's launch counter,
-   zeroed just before, must be > 0 after;
-4. parity: the compressed weights, copied to the CPU, serve 4 short
-   requests there (the kernels' plain versions) and on the card; the
-   greedy tokens must be identical.
+   zeroed just before, must be > 0 after; then the paper's quantization-
+   only baseline (W4A8 for every attention and MLP linear, the same W8A8
+   lm head) serving the same requests with an fp32 pool, every linear on
+   `quant_matmul`; each serve once more under torch.profiler;
+4. parity: the compressed weights of both plans, copied to the CPU, serve
+   4 short requests there (the kernels' plain versions) and on the card;
+   the greedy tokens must be identical.
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -149,7 +152,8 @@ def check_quant_matmul(torch, timer, failures):
           "bound_ms (bound by)")
     for packed in (False, True):
         for m in (8, 256, 2048):
-            for k, n in ((512, 512), (512, 2048), (512, 32000)):
+            for k, n in ((512, 512), (512, 2048), (2048, 512),
+                         (512, 32000)):
                 qm = 7 if packed else 127
                 xq = torch.randint(-127, 128, (m, k), generator=g,
                                    device="cuda", dtype=torch.int8)
@@ -275,6 +279,14 @@ def lowrank_launch_shapes(cfg) -> dict:
     under the mixed plan."""
     d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
     return {(d, d): 4 * n, (d, f): n, (f, d): n}
+
+
+def quant_launch_shapes(cfg) -> dict:
+    """Launches of quant_matmul per step by (K, N) under the quant-only
+    plan: every layer's wq/wk/wv/wo, mlp/up and mlp/down, and the lm
+    head."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
+    return {(d, d): 4 * n, (d, f): n, (f, d): n, (d, cfg.vocab_size): 1}
 
 
 def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
@@ -403,6 +415,19 @@ def mixed_plan(params):
                         label="itera_W4A8_r0.5+lm_head_W8A8")
 
 
+def quant_plan(params):
+    """The paper's quantization-only baseline: W4A8 for every attention and
+    MLP linear (the §V-A engine, `quant_matmul`, for all of them) and the
+    mixed plan's W8A8 lm head."""
+    from repro_torch.api.plan import CompressionPlan, LayerPlan
+
+    base = CompressionPlan.uniform(params, method="quant", weight_wl=4,
+                                   exclude=r"(embed|norm|ln|lm_head)")
+    return base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
+                                                        8),),
+                        label="quant_W4A8+lm_head_W8A8")
+
+
 def workload(vocab: int, seed: int = 0):
     """16 requests of 32-512 prompt tokens; four share a 64-token prefix
     (four full 16-token blocks for the prefix cache)."""
@@ -420,18 +445,19 @@ def workload(vocab: int, seed: int = 0):
     return reqs
 
 
-def profile_serve(torch, eng, reqs, sp):
-    """The kv16 serve once more under torch.profiler: the card's busy share
-    of the wall time and its time by kernel. Informational, nothing is
-    checked; a profiler that cannot trace the card is reported and
-    skipped."""
+def profile_serve(torch, eng, reqs, sp, label: str):
+    """The fp32-KV serve once more under torch.profiler: the card's busy
+    share of the wall time, its time by kernel, and the linears' kernels'
+    (quant_matmul's and lowrank_qmm's) card time per step. Informational,
+    nothing is checked; a profiler that cannot trace the card is reported
+    and skipped."""
     from torch.profiler import ProfilerActivity, profile
 
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.serve(reqs, sp)
+            res = eng.serve(reqs, sp)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device-side events only (kernels, copies, memsets): the host ops
@@ -445,11 +471,17 @@ def profile_serve(torch, eng, reqs, sp):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"[profile] kv16 serve: wall {wall_ms:.1f} ms, card busy "
+    print(f"[profile] {label} serve: wall {wall_ms:.1f} ms, card busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy / wall_ms):.1f}%")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:7d} x  {key[:90]}")
+    lin = [(ms, n) for ms, n, key in rows
+           if "qmm_kernel" in key or "lrmm_kernel" in key]
+    ms = sum(r[0] for r in lin)
+    print(f"[profile] {label}: linears (quant_matmul, lowrank_qmm) "
+          f"{ms:.3f} ms of card time over {sum(r[1] for r in lin)} "
+          f"launches in {res.steps} steps = {ms / res.steps:.4f} ms a step")
 
 
 def last_logits(torch, eng, toks):
@@ -471,6 +503,53 @@ def last_logits(torch, eng, toks):
     return logits[0, -1].float().cpu()
 
 
+def build_engine(torch, cfg, make_plan):
+    """Random full-width weights from seed 0, compressed on the card by the
+    port under `make_plan(params)`, in an fp32-KV engine of 8 rows."""
+    from repro_torch.api.engine import InferenceEngine
+    from repro_torch.models.transformer import init_params
+
+    params = init_params(cfg, seed=0, device="cuda")
+    plan = make_plan(params)
+    print(f"[engine] {plan.summary()}")
+    t0 = time.perf_counter()
+    eng = InferenceEngine.build(cfg, plan, params=params, device="cuda",
+                                max_batch=8, block_size=16)
+    torch.cuda.synchronize()
+    print(f"[engine] compressed in {time.perf_counter() - t0:.1f} s: "
+          f"{eng.report.summary()}; weights {eng.weight_bytes() / 2**20:.1f} "
+          f"MiB on the card")
+    return eng
+
+
+def serve_checked(torch, eng, kv, reqs, sp, before, failures):
+    """Serve `reqs`, print the serve's numbers and the launches since
+    `before`, and check the outputs' shape and range."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+
+    res = eng.serve(reqs, sp)
+    torch.cuda.synchronize()
+    counts = {k: build.LAUNCHES[k] - before.get(k, 0) for k in build.SOURCES}
+    print(f"[engine] {eng.plan.label} {kv}: {len(reqs)} requests, prompts "
+          f"{min(res.prompt_lens)}-{max(res.prompt_lens)} tokens, "
+          f"{res.total_tokens} tokens in {res.seconds:.3f} s = "
+          f"{res.tokens_per_second:.1f} tok/s; TTFT p50 "
+          f"{res.ttft_p50 * 1e3:.1f} ms, TPOT p50 "
+          f"{res.tpot_p50 * 1e3:.2f} ms; {res.steps} steps "
+          f"({res.mixed_steps} mixed); prefix cache "
+          f"{res.cache_hit_blocks}/{res.cache_lookup_blocks} blocks, "
+          f"{res.cache_cow_blocks} COW; launches {counts}")
+    out = np.stack(res.outputs)
+    vocab = eng.cfg.vocab_size
+    check(failures, out.shape == (len(reqs), sp.max_tokens),
+          f"{kv}: outputs {out.shape}")
+    check(failures, bool(((out >= 0) & (out < vocab)).all()),
+          f"{kv}: token ids out of range")
+    return res
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not under {SRC}; run "
@@ -489,7 +568,6 @@ def main() -> int:
                                         params_to)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models.transformer import init_params
 
     t_start = time.perf_counter()
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
@@ -518,89 +596,94 @@ def main() -> int:
     # ---- 3. the engine at full width -----------------------------------
     failures = []
     cfg = get_config("opus-mt")
-    params = init_params(cfg, seed=0, device="cuda")
-    plan = mixed_plan(params)
-    print(f"[engine] {plan.summary()}")
-    t0 = time.perf_counter()
-    eng = InferenceEngine.build(cfg, plan, params=params, device="cuda",
-                                max_batch=8, block_size=16)
-    torch.cuda.synchronize()
-    del params
-    print(f"[engine] compressed in {time.perf_counter() - t0:.1f} s: "
-          f"{eng.report.summary()}; weights {eng.weight_bytes() / 2**20:.1f} "
-          f"MiB on the card")
+    reqs = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=32)
+    eng = build_engine(torch, cfg, mixed_plan)
     eng8 = InferenceEngine(dataclasses.replace(cfg, kv_cache_bits=8),
                            eng.params, device=eng.device, plan=eng.plan,
                            max_batch=8, block_size=16)
-    reqs = workload(cfg.vocab_size)
-    sp = SamplingParams(max_tokens=32)
     eng.serve(reqs[:2], SamplingParams(max_tokens=2))        # warm-up
     torch.cuda.synchronize()
-    build.reset_launches()                  # the main path's run starts
-    results = {}
+    build.reset_launches()                  # the mixed path's run starts
     for kv, e in (("kv16", eng), ("int8 KV", eng8)):
         before = dict(build.LAUNCHES)
-        res = e.serve(reqs, sp)
-        torch.cuda.synchronize()
-        counts = {k: build.LAUNCHES[k] - before.get(k, 0)
-                  for k in build.SOURCES}
-        results[kv] = res
-        print(f"[engine] {kv}: {len(reqs)} requests, prompts "
-              f"{min(res.prompt_lens)}-{max(res.prompt_lens)} tokens, "
-              f"{res.total_tokens} tokens in {res.seconds:.3f} s = "
-              f"{res.tokens_per_second:.1f} tok/s; TTFT p50 "
-              f"{res.ttft_p50 * 1e3:.1f} ms, TPOT p50 "
-              f"{res.tpot_p50 * 1e3:.2f} ms; {res.steps} steps "
-              f"({res.mixed_steps} mixed); prefix cache "
-              f"{res.cache_hit_blocks}/{res.cache_lookup_blocks} blocks, "
-              f"{res.cache_cow_blocks} COW; launches {counts}")
-        out = np.stack(res.outputs)
-        check(failures, out.shape == (len(reqs), 32),
-              f"{kv}: outputs {out.shape}")
-        check(failures, bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-              f"{kv}: token ids out of range")
+        res = serve_checked(torch, e, kv, reqs, sp, before, failures)
         check(failures, res.cache_hit_blocks > 0,
               f"{kv}: the prefix cache found no shared block")
-    launches = dict(build.LAUNCHES)         # ... and ends here
-    print(f"[engine] launches on the main path: {launches}")
+    mixed = dict(build.LAUNCHES)            # ... and ends here
+    print(f"[engine] launches on the mixed path: {mixed}")
     print("[engine] lowrank_qmm launches per decode step by shape: "
           + ", ".join(f"K{k}->N{n} x{c}"
                       for (k, n), c in lowrank_launch_shapes(cfg).items()))
     for name in build.SOURCES:
-        check(failures, launches.get(name, 0) > 0,
-              f"kernel {name} was not launched on the main path")
+        check(failures, mixed.get(name, 0) > 0,
+              f"kernel {name} was not launched on the mixed path")
     end_phase("engine", failures)
-    profile_serve(torch, eng, reqs, sp)
+    profile_serve(torch, eng, reqs, sp, "mixed kv16")
+
+    # the quant-only baseline: every linear on quant_matmul
+    failures = []
+    qeng = build_engine(torch, cfg, quant_plan)
+    qeng.serve(reqs[:2], SamplingParams(max_tokens=2))       # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()                  # the quant-only path's run starts
+    res = serve_checked(torch, qeng, "kv16", reqs, sp, {}, failures)
+    quant = dict(build.LAUNCHES)            # ... and ends here
+    shapes = {(k, n): c for (name, k, n), c in build.LAUNCH_SHAPES.items()
+              if name == "quant_matmul"}
+    print(f"[baseline] launches on the quant-only path: {quant}")
+    print("[baseline] quant_matmul launches by shape over "
+          f"{res.steps} steps: " + ", ".join(
+              f"K{k}->N{n} {c} ({c / res.steps:g} a step)"
+              for (k, n), c in sorted(shapes.items())))
+    check(failures, quant.get("lowrank_qmm", 0) == 0,
+          "lowrank_qmm launched under the quant-only plan")
+    check(failures, quant.get("paged_attention", 0) > 0,
+          "paged_attention was not launched on the quant-only path")
+    for (k, n), per in quant_launch_shapes(cfg).items():
+        check(failures, shapes.get((k, n), 0) == per * res.steps,
+              f"quant_matmul K{k}->N{n}: {shapes.get((k, n), 0)} launches, "
+              f"expected {per} a step x {res.steps} steps")
+    check(failures, sum(shapes.values()) == quant.get("quant_matmul", 0),
+          "quant_matmul launches outside the plan's linears")
+    end_phase("baseline", failures)
+    profile_serve(torch, qeng, reqs, sp, "quant-only kv16")
+    launches = {name: mixed.get(name, 0) + quant.get(name, 0)
+                for name in build.SOURCES}
 
     # ---- 4. card vs CPU --------------------------------------------------
     failures = []
-    cpu_params = params_to(eng.params, "cpu")
     rng = np.random.default_rng(1)
     short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
              for n in (16, 29, 47, 64)]
-    for kv in (16, 8):
-        c = dataclasses.replace(cfg, kv_cache_bits=kv)
-        gpu = InferenceEngine(c, eng.params, device=eng.device, plan=eng.plan)
-        cpu = InferenceEngine(c, cpu_params, device=torch.device("cpu"),
-                              plan=eng.plan)
-        sp8 = SamplingParams(max_tokens=8)
-        rg, rc = gpu.serve(short, sp8), cpu.serve(short, sp8)
-        for i, (a, b) in enumerate(zip(rg.outputs, rc.outputs)):
-            if np.array_equal(a, b):
-                continue
-            s = int(np.argmax(a != b))
-            seq = np.concatenate([short[i], a[:s]])
-            lg, lc = last_logits(torch, gpu, seq), last_logits(torch, cpu,
-                                                                seq)
-            top = torch.topk(lc, 2)
-            print(f"  kv{kv} request {i} differs at step {s}: card {a[s]} "
-                  f"cpu {b[s]}; CPU top-2 {top.indices.tolist()} margin "
-                  f"{float(top.values[0] - top.values[1]):.3e}; card logit "
-                  f"gap {float(lg[a[s]] - lg[b[s]]):.3e}")
-            check(failures, False, f"kv{kv} request {i}: card and CPU "
-                  f"tokens differ")
-        print(f"[parity] kv{kv}: {len(short)} requests x 8 tokens, card == "
-              f"CPU: {not failures}")
+    for e in (eng, qeng):
+        cpu_params = params_to(e.params, "cpu")
+        for kv in (16, 8):
+            c = dataclasses.replace(cfg, kv_cache_bits=kv)
+            gpu = InferenceEngine(c, e.params, device=e.device, plan=e.plan)
+            cpu = InferenceEngine(c, cpu_params, device=torch.device("cpu"),
+                                  plan=e.plan)
+            sp8 = SamplingParams(max_tokens=8)
+            rg, rc = gpu.serve(short, sp8), cpu.serve(short, sp8)
+            same = True
+            for i, (a, b) in enumerate(zip(rg.outputs, rc.outputs)):
+                if np.array_equal(a, b):
+                    continue
+                same = False
+                s = int(np.argmax(a != b))
+                seq = np.concatenate([short[i], a[:s]])
+                lg = last_logits(torch, gpu, seq)
+                lc = last_logits(torch, cpu, seq)
+                top = torch.topk(lc, 2)
+                print(f"  {e.plan.label} kv{kv} request {i} differs at step "
+                      f"{s}: card {a[s]} cpu {b[s]}; CPU top-2 "
+                      f"{top.indices.tolist()} margin "
+                      f"{float(top.values[0] - top.values[1]):.3e}; card "
+                      f"logit gap {float(lg[a[s]] - lg[b[s]]):.3e}")
+                check(failures, False, f"{e.plan.label} kv{kv} request {i}: "
+                      f"card and CPU tokens differ")
+            print(f"[parity] {e.plan.label} kv{kv}: {len(short)} requests x "
+                  f"8 tokens, card == CPU: {same}")
     end_phase("parity", failures)
 
     # ---- result ----------------------------------------------------------

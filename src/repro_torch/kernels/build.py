@@ -9,7 +9,8 @@ missing library, all at once; `load()` builds on first use.
 
 Every wrapper counts its launches in `LAUNCHES` (one per kernel launch,
 nowhere else), which is how a run shows that the serving path went
-through the kernels.
+through the kernels; `quant_matmul` also counts them by (K, N) in
+`LAUNCH_SHAPES`, which shows which linears a plan sent through it.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
-    "quant_matmul": ("quant_matmul.cu", "common.cuh"),
+    "quant_matmul": ("quant_matmul.cu", "common.cuh", "async_copy.cuh"),
     "lowrank_qmm": ("lowrank_qmm.cu", "common.cuh", "async_copy.cuh"),
     "paged_attention": ("paged_attention.cu", "async_copy.cuh"),
 }
@@ -40,11 +41,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:

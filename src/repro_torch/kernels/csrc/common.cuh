@@ -1,17 +1,22 @@
 // Shared device helpers of the port's int8 kernels (quant_matmul.cu,
-// lowrank_qmm.cu): the s8 tensor-core product, tile loads into shared
-// memory, and the packed-nibble decode.
+// lowrank_qmm.cu): the s8 tensor-core product, the packed-nibble decode,
+// and the transposition of a weight tile into the product's operand
+// layout.
 //
 // Operand layout in shared memory. The product runs on
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32. Its A operand is row-major
 // (M x K, K contiguous: the activation codes as they lie in memory); its B
 // operand is "col", i.e. each output column's 32 K-values contiguous. The
 // weights lie K x N with N contiguous (the reference's layout, kept so
-// checkpoints move byte for byte), so tiles of B are transposed on their
-// way into shared memory: BT[n][k]. Rows of both tiles are padded by 16
-// bytes, which makes the fragment reads below free of bank conflicts
-// (row stride of 80 or R+16 bytes maps the 8 row groups of a warp onto
-// distinct banks).
+// checkpoints move byte for byte), so a raw weight tile lands in shared
+// memory as it lies (cp.async, packed bytes included) and `to_col_layout`
+// rewrites it as BTw[k/4][n]: the word of K-values k..k+3 of column n,
+// rows of nt + 8 words. 4x4 byte blocks are transposed in registers with
+// byte permutes and stored one 16-byte word per thread; with that row
+// stride the stores and the fragment reads of `mma_tile(s)` are free of
+// bank conflicts (the 8 column groups x 4 k-groups of a warp land on 32
+// distinct banks). A tiles keep rows padded by 16 bytes (a row stride of
+// BK + 16), which does the same for the A fragment reads.
 #pragma once
 
 #include <cstdint>
@@ -20,6 +25,12 @@
 namespace rt {
 
 // One m16n8k32 step: c += a (16x32 s8, row) * b (32x8 s8, col), s32 sums.
+// Fragment ownership (PTX ISA, m16n8k32 .s8): lane = 4*g + t;
+//   A regs: (row g, k 4t..4t+3), (row g+8, same), (row g, k 16+4t..),
+//           (row g+8, k 16+4t..);
+//   B regs: (col g, k 4t..4t+3), (col g, k 16+4t..);
+//   C regs: (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
+//           (row g+8, col 2t+1).
 __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
                                        const int (&b)[2]) {
   asm volatile(
@@ -29,128 +40,114 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Warp product of a 16-row A strip (smem, row stride lda bytes) with NT
-// 8-column groups of BT (smem, row stride ldb bytes), over kdim (a
-// multiple of 32) K-values: acc[j] holds the 16x8 tile of column group j.
-// Fragment ownership (PTX ISA, m16n8k32 .s8): lane = 4*g + t;
-//   A regs: (row g, k 4t..4t+3), (row g+8, same), (row g, k 16+4t..),
-//           (row g+8, k 16+4t..);
-//   B regs: (col g, k 4t..4t+3), (col g, k 16+4t..);
-//   C regs: (row g, col 2t), (row g, col 2t+1), (row g+8, col 2t),
-//           (row g+8, col 2t+1).
-template <int NT>
-__device__ __forceinline__ void warp_mma(int (&acc)[NT][4],
-                                         const int8_t* A, int lda,
-                                         const int8_t* BT, int ldb,
-                                         int kdim) {
+// 4x4 byte transpose: out[c] holds byte c of in[0..3] (in[j] -> byte j).
+__device__ __forceinline__ int4 transpose4(const uint32_t (&r)[4]) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
+  return make_int4(static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
+                   static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
+                   static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
+                   static_cast<int>(__byte_perm(hi01, hi23, 0x7632)));
+}
+
+// Four packed codes (the low 16 bits of x, code i in bits 4i..4i+3, as
+// core.quant.pack_int4 lays them) -> four sign-extended int8 bytes.
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  const uint32_t v = (x & 0xFu) | ((x << 4) & 0xF00u) |
+                     ((x << 8) & 0xF0000u) | ((x << 12) & 0xF000000u);
+  return v | ((v & 0x08080808u) * 0x1Eu);  // bit 3 set: high nibble 0xF
+}
+
+// Raw weight tile (kt rows of rb bytes; nt columns, two per byte when
+// packed) -> BTw[k/4][n] words holding k..k+3 of column n, row stride
+// nt + 8 words. A thread takes 4 rows x 4 columns (8 when packed: one
+// 32-bit word of each row).
+template <int THREADS>
+__device__ __forceinline__ void to_col_layout(uint32_t* BTw,
+                                              const int8_t* raw, int rb,
+                                              bool packed, int kt, int nt) {
+  const int nws = nt + 8;
+  if (packed) {
+    const int ng = nt / 8;
+    for (int i = threadIdx.x; i < (kt / 4) * ng; i += THREADS) {
+      const int kq = i / ng, n = (i % ng) * 8;
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            raw + (kq * 4 + j) * rb + n / 2);
+        lo[j] = spread4(w);
+        hi[j] = spread4(w >> 16);
+      }
+      *reinterpret_cast<int4*>(BTw + kq * nws + n) = transpose4(lo);
+      *reinterpret_cast<int4*>(BTw + kq * nws + n + 4) = transpose4(hi);
+    }
+    return;
+  }
+  const int ng = nt / 4;
+  for (int i = threadIdx.x; i < (kt / 4) * ng; i += THREADS) {
+    const int kq = i / ng, n = (i % ng) * 4;
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = *reinterpret_cast<const uint32_t*>(raw + (kq * 4 + j) * rb + n);
+    *reinterpret_cast<int4*>(BTw + kq * nws + n) = transpose4(r);
+  }
+}
+
+// acc += A (16 rows from A, row stride lda bytes) x BTw columns n0..n0+7,
+// over the K-values k0, k0 + 32 * kw, ... below kd of BTw from row kq0
+// (kd % 32 == 0): kw warps may share one tile's depth.
+__device__ __forceinline__ void mma_tile(int (&acc)[4], const int8_t* A,
+                                         int lda, const uint32_t* BTw,
+                                         int nws, int kq0, int n0, int kd,
+                                         int k0 = 0, int kw = 1) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int kk = 0; kk < kdim; kk += 32) {
-    int a[4];
+  for (int kk = k0; kk < kd; kk += 32 * kw) {
+    int a[4], b[2];
     a[0] = *reinterpret_cast<const int*>(A + g * lda + kk + 4 * t);
     a[1] = *reinterpret_cast<const int*>(A + (g + 8) * lda + kk + 4 * t);
     a[2] = *reinterpret_cast<const int*>(A + g * lda + kk + 16 + 4 * t);
     a[3] = *reinterpret_cast<const int*>(A + (g + 8) * lda + kk + 16 + 4 * t);
+    const uint32_t* col = BTw + (kq0 + kk / 4 + t) * nws + n0 + g;
+    b[0] = static_cast<int>(col[0]);
+    b[1] = static_cast<int>(col[4 * nws]);
+    mma_s8(acc, a, b);
+  }
+}
+
+// The same for a warp tile of MT 16-row tiles (rows i * 16 of A) by NT
+// 8-column groups (columns n0 + j * 8 of BTw): each fragment is read once
+// per 32-deep slice and used MT or NT times.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tiles(int (&acc)[MT][NT][4],
+                                          const int8_t* A, int lda,
+                                          const uint32_t* BTw, int nws,
+                                          int n0, int kd, int k0 = 0,
+                                          int kw = 1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int kk = k0; kk < kd; kk += 32 * kw) {
+    int a[MT][4], b[NT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int8_t* r = A + (i * 16 + g) * lda + kk + 4 * t;
+      a[i][0] = *reinterpret_cast<const int*>(r);
+      a[i][1] = *reinterpret_cast<const int*>(r + 8 * lda);
+      a[i][2] = *reinterpret_cast<const int*>(r + 16);
+      a[i][3] = *reinterpret_cast<const int*>(r + 8 * lda + 16);
+    }
+    const uint32_t* col = BTw + (kk / 4 + t) * nws + n0 + g;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int8_t* col = BT + (j * 8 + g) * ldb + kk;
-      int b[2];
-      b[0] = *reinterpret_cast<const int*>(col + 4 * t);
-      b[1] = *reinterpret_cast<const int*>(col + 16 + 4 * t);
-      mma_s8(acc[j], a, b);
+      b[j][0] = static_cast<int>(col[j * 8]);
+      b[j][1] = static_cast<int>(col[4 * nws + j * 8]);
     }
-  }
-}
-
-// Sign-extend nibble i (0..3) of a 16-bit packed word: byte b holds code
-// 2b in bits 3..0 and code 2b+1 in bits 7..4 (core.quant.pack_int4), the
-// same shifts as the reference's unpack_int4_block.
-__device__ __forceinline__ uint32_t unpack4(uint32_t p16) {
-  uint32_t out = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int code = static_cast<int>((p16 >> (4 * i)) << 28) >> 28;
-    out |= (static_cast<uint32_t>(code) & 0xFFu) << (8 * i);
-  }
-  return out;
-}
-
-// Load a ROWS x COLS int8 tile of a row-major matrix (row stride ld bytes,
-// ld % 16 == 0, base 16-byte aligned) into smem (row stride lds) with
-// 16-byte loads. Rows >= nrows and 16-byte chunks at or past ncols are
-// zero (ncols % 16 == 0). Every load is issued before the first store, so
-// a tile costs one trip to device memory, not one per chunk.
-template <int THREADS, int ROWS, int COLS>
-__device__ __forceinline__ void load_rows(int8_t* dst, int lds,
-                                          const int8_t* src, int ld,
-                                          int row0, int nrows, int col0,
-                                          int ncols) {
-  constexpr int CHUNKS = COLS / 16, N = ROWS * CHUNKS;
-  constexpr int ITEMS = (N + THREADS - 1) / THREADS;
-  int4 v[ITEMS];
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 16;
-    v[it] = make_int4(0, 0, 0, 0);
-    if (i < N && row0 + r < nrows && col0 + c < ncols)
-      v[it] = *reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * ld +
-                                             col0 + c);
-  }
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    if (i < N)
-      *reinterpret_cast<int4*>(dst + (i / CHUNKS) * lds +
-                               (i % CHUNKS) * 16) = v[it];
-  }
-}
-
-// Load a KT x NT tile (K rows from k0, N columns from n0) of a K x N
-// weight into BT[n][k] (row stride ldb bytes), transposing 4x4 byte
-// blocks in registers. packed: the weight holds two nibble codes per byte
-// along N (row stride N/2 bytes), decoded here. K rows past kdim and
-// columns past ndim (ndim % 4 == 0) load as zero codes. As in load_rows,
-// all of a thread's loads are in flight before it stores.
-template <int THREADS, int KT, int NT>
-__device__ __forceinline__ void load_weight_t(int8_t* BT, int ldb,
-                                              const int8_t* w, int kdim,
-                                              int ndim, bool packed, int k0,
-                                              int n0) {
-  constexpr int NG = NT / 4, N = (KT / 4) * NG;
-  constexpr int ITEMS = (N + THREADS - 1) / THREADS;
-  uint32_t r[ITEMS][4];
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int kq = (i / NG) * 4, n = n0 + (i % NG) * 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + kq + j;
-      r[it][j] = 0;
-      if (i < N && k < kdim && n < ndim) {
-        if (packed) {
-          r[it][j] = unpack4(*reinterpret_cast<const uint16_t*>(
-              w + (size_t)k * (ndim / 2) + n / 2));
-        } else {
-          r[it][j] = *reinterpret_cast<const uint32_t*>(
-              w + (size_t)k * ndim + n);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    if (i >= N) continue;
-    const int kq = (i / NG) * 4, nq = (i % NG) * 4;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t col = ((r[it][0] >> (8 * c)) & 0xFFu) |
-                           (((r[it][1] >> (8 * c)) & 0xFFu) << 8) |
-                           (((r[it][2] >> (8 * c)) & 0xFFu) << 16) |
-                           (((r[it][3] >> (8 * c)) & 0xFFu) << 24);
-      *reinterpret_cast<uint32_t*>(BT + (nq + c) * ldb + kq) = col;
-    }
+      for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j]);
   }
 }
 

@@ -57,7 +57,9 @@
 // as one 16-byte word per thread into rows of stride NT + 8 words, which
 // keeps both those stores and the fragment reads free of bank conflicts
 // (the 8 column groups x 4 k-groups of a warp land on 32 distinct banks).
-// Both products are int8 mma.sync m16n8k32 with s32 sums.
+// Both products are int8 mma.sync m16n8k32 with s32 sums. The unpack,
+// the transposition and the product are common.cuh's, shared with
+// quant_matmul.cu.
 #include <cooperative_groups.h>
 
 #include "async_copy.cuh"
@@ -104,83 +106,6 @@ __host__ __device__ inline Layout layout(int bm, int rs, int c, int cn,
   l.st = l.amax + (size_t)CLUSTER * bm * 4;       // every rank's row max
   l.total = l.st + bm * 4;
   return l;
-}
-
-// 4x4 byte transpose: out[c] holds byte c of in[0..3] (in[j] -> byte j).
-__device__ __forceinline__ int4 transpose4(const uint32_t (&r)[4]) {
-  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
-  return make_int4(static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
-                   static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
-                   static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
-                   static_cast<int>(__byte_perm(hi01, hi23, 0x7632)));
-}
-
-// Four packed codes (the low 16 bits of x, code i in bits 4i..4i+3, as
-// core.quant.pack_int4 lays them) -> four sign-extended int8 bytes.
-__device__ __forceinline__ uint32_t spread4(uint32_t x) {
-  const uint32_t v = (x & 0xFu) | ((x << 4) & 0xF00u) |
-                     ((x << 8) & 0xF0000u) | ((x << 12) & 0xF000000u);
-  return v | ((v & 0x08080808u) * 0x1Eu);  // bit 3 set: high nibble 0xF
-}
-
-// Raw weight tile (kt rows of rb bytes; nt columns, two per byte when
-// packed) -> BTw[k/4][n] words holding k..k+3 of column n, row stride
-// nt + 8 words. A thread takes 4 rows x 4 columns (8 when packed: one
-// 32-bit word of each row).
-__device__ __forceinline__ void to_col_layout(uint32_t* BTw,
-                                              const int8_t* raw, int rb,
-                                              bool packed, int kt, int nt) {
-  const int nws = nt + 8;
-  if (packed) {
-    const int ng = nt / 8;
-    for (int i = threadIdx.x; i < (kt / 4) * ng; i += THREADS) {
-      const int kq = i / ng, n = (i % ng) * 8;
-      uint32_t lo[4], hi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-            raw + (kq * 4 + j) * rb + n / 2);
-        lo[j] = spread4(w);
-        hi[j] = spread4(w >> 16);
-      }
-      *reinterpret_cast<int4*>(BTw + kq * nws + n) = transpose4(lo);
-      *reinterpret_cast<int4*>(BTw + kq * nws + n + 4) = transpose4(hi);
-    }
-    return;
-  }
-  const int ng = nt / 4;
-  for (int i = threadIdx.x; i < (kt / 4) * ng; i += THREADS) {
-    const int kq = i / ng, n = (i % ng) * 4;
-    uint32_t r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      r[j] = *reinterpret_cast<const uint32_t*>(raw + (kq * 4 + j) * rb + n);
-    *reinterpret_cast<int4*>(BTw + kq * nws + n) = transpose4(r);
-  }
-}
-
-// acc += A (16 rows from A, row stride lda bytes) x BTw columns n0..n0+7,
-// over the K-values k0, k0 + 32 * kw, ... below kd of BTw from row kq0
-// (kd % 32 == 0): kw warps may share one tile's depth.
-__device__ __forceinline__ void mma_tile(int (&acc)[4], const int8_t* A,
-                                         int lda, const uint32_t* BTw,
-                                         int nws, int kq0, int n0, int kd,
-                                         int k0 = 0, int kw = 1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int kk = k0; kk < kd; kk += 32 * kw) {
-    int a[4], b[2];
-    a[0] = *reinterpret_cast<const int*>(A + g * lda + kk + 4 * t);
-    a[1] = *reinterpret_cast<const int*>(A + (g + 8) * lda + kk + 4 * t);
-    a[2] = *reinterpret_cast<const int*>(A + g * lda + kk + 16 + 4 * t);
-    a[3] = *reinterpret_cast<const int*>(A + (g + 8) * lda + kk + 16 + 4 * t);
-    const uint32_t* col = BTw + (kq0 + kk / 4 + t) * nws + n0 + g;
-    b[0] = static_cast<int>(col[0]);
-    b[1] = static_cast<int>(col[4 * nws]);
-    rt::mma_s8(acc, a, b);
-  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -309,16 +234,17 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
     if (s < n1) {
       // ---- phase 1: T[:, own slice] += Xq tile @ W1 tile -------------
-      to_col_layout(BTw, stg + BM * LDA, rsb, w1_packed != 0, BK, RS);
+      rt::to_col_layout<THREADS>(BTw, stg + BM * LDA, rsb, w1_packed != 0,
+                                 BK, RS);
       __syncthreads();
       const int kd = min(BK, (K - s * BK + 31) / 32 * 32);
 #pragma unroll
       for (int j = 0; j < MAXT1; ++j) {
         const int tile = warp % TW + j * TW;
         if (tile < T1)
-          mma_tile(acc1[j], stg + (tile / (RS / 8)) * 16 * LDA, LDA, BTw,
-                   RS + 8, 0, (tile % (RS / 8)) * 8, kd, 32 * (warp / TW),
-                   KW);
+          rt::mma_tile(acc1[j], stg + (tile / (RS / 8)) * 16 * LDA, LDA,
+                       BTw, RS + 8, 0, (tile % (RS / 8)) * 8, kd,
+                       32 * (warp / TW), KW);
       }
       if (s != n1 - 1) continue;
 
@@ -411,14 +337,15 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       for (int j = 0; j < MAXT2; ++j)
         acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0;
     }
-    to_col_layout(BTw, stg, ncb, w2_packed != 0, bk2, nc);
+    rt::to_col_layout<THREADS>(BTw, stg, ncb, w2_packed != 0, bk2, nc);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < MAXT2; ++j) {
       const int tile = warp + j * WARPS;
       if (tile < tiles)
-        mma_tile(acc2[j], tq_grp + (tile / (nc / 8)) * 16 * ldg + ks * bk2,
-                 ldg, BTw, nc + 8, 0, (tile % (nc / 8)) * 8, bk2);
+        rt::mma_tile(acc2[j],
+                     tq_grp + (tile / (nc / 8)) * 16 * ldg + ks * bk2, ldg,
+                     BTw, nc + 8, 0, (tile % (nc / 8)) * 8, bk2);
     }
     if (ks != n2k - 1) continue;
 

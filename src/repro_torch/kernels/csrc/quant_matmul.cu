@@ -6,83 +6,336 @@
 // scales sx, int8 weight codes Wq (K, N) -- or packed W4, two nibbles per
 // byte along N, (K, N/2) -- with per-column fp32 scales sw. Output fp32.
 //
-// What bounds it on this card: on the serving path it runs the lm head at
-// M = max_batch rows (K = 512, N = 32000), where it streams 16 MB of int8
-// weights for 2 x 8 x 512 x 32000 ops: far below the H100's ~590 int8
-// ops per byte, so it is bound by HBM bytes. Packed W4 halves those bytes;
-// the nibbles are decoded in registers on the way into shared memory.
+// What bounds it on this card. The serving path runs it for the lm head of
+// every plan (M = the step's rows, K 512, N 32000, W8) and, under a
+// quant-only plan, for every linear. Least bytes (each input read once, Y
+// written once) at 3.35 TB/s, at a decode step's 8 rows:
+//   K 512 -> N 512, packed W4:    154 KB, 0.05 us
+//   K 512 -> N 2048, packed W4:   602 KB, 0.18 us
+//   K 2048 -> N 512, packed W4:   559 KB, 0.17 us
+//   lm head K 512 -> N 32000, W8: 17.5 MB, 5.2 us
+// and at a 2048-row prefill step, K 512 -> N 2048: 18.4 MB (16.8 MB of it
+// the fp32 Y), 5.5 us, against 2.2 us of int8 operations at 1979 TOPS.
+// Every shape is bound by bytes; at decode all but the lm head are so far
+// below a microsecond that what bounds them in practice is latency: the
+// launch, one trip to memory, the barriers, and how many SMs share the
+// work. The lm head has to stream 16 MB at near the HBM rate.
 //
-// Design (first version, right before fast): one CTA per 64 x 128 output
-// tile, 8 warps, each warp a 16 x 64 strip of int8 mma.sync m16n8k32
-// products with s32 sums in registers; K in steps of 128 through shared
-// memory, single-buffered, every thread's loads of a step issued before
-// its stores so a step waits on device memory once. The epilogue applies
-// the scales in the reference's order, ((float)acc * sx) * sw, so the
-// result is bit-equal to the plain version. Wgmma, TMA and a deeper
-// pipeline come later.
+// Design. The wrapper's `choose_tiles` picks a partition of BM x BN output
+// tiles, each split along K over the C CTAs of a thread-block cluster:
+// - BM 16 at M <= 16 (decode): one strip, no padding rows beyond the
+//   mma's 16. BN narrows to 32 and C grows to 8 until the launch fills the
+//   card: K 512 -> N 512 runs 16 column tiles x 8 CTAs, each a 64-deep K
+//   slice. 8 warps split a strip's 8-column groups; where there are fewer
+//   groups than warps, warps share a group's depth. Wider M takes BM 64 or
+//   128 with 4 x 2 warps. Every tile fits two CTAs an SM.
+// - Every tile streams through a ring of 3 shared-memory stages filled with
+//   16-byte cp.async copies issued two steps ahead: raw Xq rows and raw
+//   weight rows as they lie, packed bytes included. A strip takes each K
+//   step up to 16 KB of weights deep (the lm head's 64 KB a CTA in 4),
+//   since a step costs two barriers however small it is.
+// - From the ring, `to_col_layout` (common.cuh, shared with lowrank_qmm)
+//   unpacks 8 codes a word by shift-and-mask and transposes 4x4 byte blocks
+//   by byte permutes into the mma's "col" operand, with no bank conflicts.
+//   Products are int8 mma.sync m16n8k32 with s32 sums in registers, each
+//   fragment read once per 32-deep slice for all the warp's tiles.
+// - Where warps or a cluster split K, the warps' s32 partial sums meet in
+//   shared memory and each CTA pushes its sums into the CTA of its cluster
+//   that owns those columns (DSMEM, one cluster barrier); the owner adds
+//   them -- exact in any order -- and converts once. The tile's scales
+//   arrive with the first step's copies.
+// The epilogue is the reference's, ((float)acc * sx) * sw, left to right
+// (built with --fmad=false), so Y is bit-equal to the plain version.
+#include <cooperative_groups.h>
+
+#include "async_copy.cuh"
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 64, BN = 128, BK = 128, THREADS = 256, LDS = BK + 16;
-constexpr int NT = BN / 2 / 8;  // 4 warps along M x 2 along N, 8-col groups
+constexpr int THREADS = 256, WARPS = THREADS / 32, STAGES = 3;
 
-__global__ void __launch_bounds__(THREADS)
+// The warp grid of a BM x BN tile: WM warps along M, each MT 16-row
+// tiles; the other warps split the BN / 8 column groups (NT each), and
+// KW of them share a group's depth when there are fewer groups than warps.
+template <int BM, int BN>
+struct Warps {
+  static constexpr int WM = BM >= 64 ? 4 : 1, MT = BM / 16 / WM;
+  static constexpr int WNK = WARPS / WM;
+  static constexpr int WN = BN / 8 < WNK ? BN / 8 : WNK;
+  static constexpr int NT = BN / 8 / WN, KW = WNK / WN;
+};
+
+// Byte offsets of one CTA's dynamic shared memory: the ring (as many
+// stages as the CTA has steps, at most STAGES), the transposed weight
+// tile, the tile's scales, the warps' s32 partial sums when warps or a
+// cluster split K, and the cluster's partials pushed here.
+struct Layout {
+  size_t stage, bt, sc, part, red, total;
+};
+
+__host__ __device__ inline Layout layout(int bm, int bn, int bk, int packed,
+                                         int c, int kw, int kslice) {
+  Layout l;
+  const int steps = (kslice + bk - 1) / bk;
+  const int stages = steps < STAGES ? (steps > 0 ? steps : 1) : STAGES;
+  l.stage = (size_t)bm * (bk + 16) + (size_t)bk * (packed ? bn / 2 : bn);
+  l.bt = stages * l.stage;
+  l.sc = l.bt + (size_t)(bk / 4) * (bn + 8) * 4;
+  l.part = l.sc + (size_t)(bm + bn) * 4;
+  l.red = l.part + (c > 1 || kw > 1 ? (size_t)kw * bm * bn * 4 : 0);
+  l.total = l.red + (c > 1 ? (size_t)bm * bn * 4 : 0);
+  return l;
+}
+
+// PTX split cluster barrier: arrive without waiting, wait later.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// One CTA: output rows m0.., columns n0.. of its tile, K rows
+// [rank * kslice, (rank + 1) * kslice) of its cluster's K.
+template <int BM, int BN>
+__global__ void __launch_bounds__(THREADS, 2)
 qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
            const int8_t* __restrict__ wq, const float* __restrict__ sw,
-           float* __restrict__ y, int M, int K, int N, int packed) {
-  __shared__ __align__(16) int8_t As[BM * LDS];
-  __shared__ __align__(16) int8_t Bs[BN * LDS];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
-  int acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+           float* __restrict__ y, int M, int K, int N, int ldw, int packed,
+           int BK, int kslice) {
+  using W = Warps<BM, BN>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // peers write into this CTA's shared memory only once all have started
+  if (C > 1) cluster_arrive();
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    rt::load_rows<THREADS, BM, BK>(As, LDS, xq, K, m0, M, k0, K);
-    rt::load_weight_t<THREADS, BK, BN>(Bs, LDS, wq, K, N, packed != 0, k0,
-                                       n0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / W::WNK, wn = warp % W::WNK % W::WN,
+            kw = warp % W::WNK / W::WN;
+  const int m0 = blockIdx.y * BM, n0 = (blockIdx.x / C) * BN;
+  const int k_lo = rank * kslice, k_hi = min(K, k_lo + kslice);
+  const int n_steps = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+  const int bnb = packed ? BN / 2 : BN, n0b = packed ? n0 / 2 : n0;
+  const int lda = BK + 16;
+  const Layout L = layout(BM, BN, BK, packed, C, W::KW, kslice);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  uint32_t* BTw = reinterpret_cast<uint32_t*>(smem + L.bt);
+  float* sxs = reinterpret_cast<float*>(smem + L.sc);
+  float* sws = sxs + BM;
+  int* part = reinterpret_cast<int*>(smem + L.part);
+  int* red = reinterpret_cast<int*>(smem + L.red);
+
+  // Issue the copies of step s into ring stage s % STAGES (one commit
+  // group per call, empty past the last step, so group counts stay even).
+  // Chunks past M, past the slice's K or past the weight's row are zeros.
+  auto issue = [&](int s) {
+    if (s < n_steps) {
+      int8_t* stg = ring + (s % STAGES) * L.stage;
+      const int k0 = k_lo + s * BK, ca = BK / 16, cw = bnb / 16;
+      for (int i = tid; i < BM * ca; i += THREADS) {
+        const int r = i / ca, c = (i % ca) * 16;
+        const bool ok = m0 + r < M && k0 + c < k_hi;
+        rt::cp_async16(stg + r * lda + c,
+                       ok ? xq + (size_t)(m0 + r) * K + k0 + c : xq, ok);
+      }
+      int8_t* wt = stg + BM * lda;
+      // cw divides THREADS: each thread keeps one 16-byte column chunk
+      const int c = (tid % cw) * 16;
+      for (int r = tid / cw; r < BK; r += THREADS / cw) {
+        const bool ok = k0 + r < k_hi && n0b + c < ldw;
+        rt::cp_async16(wt + r * bnb + c,
+                       ok ? wq + (size_t)(k0 + r) * ldw + n0b + c : wq, ok);
+      }
+    }
+    rt::cp_async_commit();
+  };
+
+  int acc[W::MT][W::NT][4];
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  // the tile's scales ride with step 0's copies, so that the epilogue
+  // reads them from shared memory, not from device memory at the end
+  for (int i = tid; i < BM + BN; i += THREADS) {
+    const int r = i < BM ? m0 + i : n0 + i - BM;
+    const bool ok = r < (i < BM ? M : N);
+    rt::cp_async4(sxs + i, ok ? (i < BM ? sx : sw) + r : sx, ok);
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    rt::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step s landed everywhere; step s-1 is consumed
+    issue(s + STAGES - 1);
+    const int8_t* stg = ring + (s % STAGES) * L.stage;
+    const int kd = min(BK, (k_hi - k_lo - s * BK + 31) / 32 * 32);
+    rt::to_col_layout<THREADS>(BTw, stg + BM * lda, bnb, packed != 0, BK,
+                               BN);
     __syncthreads();
-    rt::warp_mma<NT>(acc, As + wm * 16 * LDS, LDS, Bs + wn * 64 * LDS, LDS,
-                     BK);
-    __syncthreads();
+    rt::mma_tiles<W::MT, W::NT>(acc, stg + wm * W::MT * 16 * lda, lda,
+                                BTw, BN + 8, wn * W::NT * 8, kd, 32 * kw,
+                                W::KW);
   }
 
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m = m0 + wm * 16 + g;
+  if (C == 1 && W::KW == 1) {
+    // ---- epilogue straight from the fragments ---------------------
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + wn * 64 + j * 8 + 2 * t;
-    if (n >= N) continue;  // N % 4 == 0, so n + 1 < N too
-    const float sw0 = sw[n], sw1 = sw[n + 1];
-    if (m < M) {
-      const float s = sx[m];
-      float2 o;
-      o.x = static_cast<float>(acc[j][0]) * s * sw0;
-      o.y = static_cast<float>(acc[j][1]) * s * sw1;
-      *reinterpret_cast<float2*>(y + (size_t)m * N + n) = o;
+    for (int i = 0; i < W::MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j) {
+        const int n = n0 + (wn * W::NT + j) * 8 + 2 * t;
+        if (n >= N) continue;  // N % 4 == 0, so n + 1 < N too
+        const float sw0 = sws[n - n0], sw1 = sws[n - n0 + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (wm * W::MT + i) * 16 + g + 8 * h, m = m0 + row;
+          if (m >= M) continue;
+          const float s = sxs[row];
+          float2 o;
+          o.x = static_cast<float>(acc[i][j][2 * h]) * s * sw0;
+          o.y = static_cast<float>(acc[i][j][2 * h + 1]) * s * sw1;
+          *reinterpret_cast<float2*>(y + (size_t)m * N + n) = o;
+        }
+      }
     }
-    if (m + 8 < M) {
-      const float s = sx[m + 8];
-      float2 o;
-      o.x = static_cast<float>(acc[j][2]) * s * sw0;
-      o.y = static_cast<float>(acc[j][3]) * s * sw1;
-      *reinterpret_cast<float2*>(y + (size_t)(m + 8) * N + n) = o;
+    return;
+  }
+
+  // ---- reductions: the warps' partial sums of the tile into `part`
+  // (slot kw), added per element; with a cluster, each CTA then pushes its
+  // sums into slot `rank` of the CTA owning the columns (a 1/C share of
+  // the tile, DSMEM), which adds the C slots and writes Y. Integer sums
+  // are exact in any order. ----------------------------------------------
+  const int rows = min(BM, M - m0);
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = (wm * W::MT + i) * 16 + g + 8 * h;
+      if (row >= rows) continue;
+      int* p = part + (kw * BM + row) * BN;
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j)
+        *reinterpret_cast<int2*>(p + (wn * W::NT + j) * 8 + 2 * t) =
+            make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
     }
   }
+  rt::cp_async_wait<0>();  // the scales, in a CTA whose K slice is empty
+  __syncthreads();
+  if (C == 1) {
+    for (int i = tid; i < rows * BN; i += THREADS) {
+      const int row = i / BN, cc = i % BN, n = n0 + cc;
+      if (n >= N) continue;
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < W::KW; ++j) sum += part[(j * BM + row) * BN + cc];
+      y[(size_t)(m0 + row) * N + n] =
+          static_cast<float>(sum) * sxs[row] * sws[cc];
+    }
+    return;
+  }
+  const int share = BN / C;
+  cluster_wait();
+  for (int i = tid; i < rows * BN; i += THREADS) {
+    const int row = i / BN, cc = i % BN;
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < W::KW; ++j) sum += part[(j * BM + row) * BN + cc];
+    *cluster.map_shared_rank(red + (rank * BM + row) * share + cc % share,
+                             cc / share) = sum;
+  }
+  cluster.sync();  // every partial of this CTA's columns has arrived
+  for (int i = tid; i < rows * share; i += THREADS) {
+    const int row = i / share, cc = i % share, n = n0 + rank * share + cc;
+    if (n >= N) continue;
+    int sum = 0;
+    for (int j = 0; j < C; ++j) sum += red[(j * BM + row) * share + cc];
+    y[(size_t)(m0 + row) * N + n] =
+        static_cast<float>(sum) * sxs[row] * sws[rank * share + cc];
+  }
+  // after the last cluster barrier no CTA touches another's shared memory,
+  // so each may leave on its own
+}
+
+template <int BM, int BN>
+int launch(const int8_t* xq, const float* sx, const int8_t* wq,
+           const float* sw, float* y, int M, int K, int N, int ldw,
+           int packed, int bk, int C, int kslice, cudaStream_t stream) {
+  const Layout L = layout(BM, BN, bk, packed, C, Warps<BM, BN>::KW, kslice);
+  auto kern = qmm_kernel<BM, BN>;
+  // raise the kernel's dynamic shared memory limit once, to the most any
+  // launch has asked for
+  static size_t allowed = 0;
+  if (L.total > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L.total));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed = L.total;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((N + BN - 1) / BN), (M + BM - 1) / BM, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xq, sx, wq, sw, y, M, K, N,
+                                     ldw, packed, bk, kslice);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shapes: K % 16 == 0, N % 4 == 0, pointers 16-byte aligned (the Python
-// wrapper checks). Launches on `stream`; returns the launch's CUDA error.
+#define QMM_TILES(X) \
+  X(16, 32) X(16, 64) X(16, 128) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
+
+// Shared memory of one CTA of a (bm, bn) tile taking bk K rows a step of
+// its kslice (-1: no such tile). The wrapper's chooser keeps it within
+// two CTAs an SM.
+extern "C" long long qmm_smem_bytes(int bm, int bn, int bk, int packed,
+                                    int c, int kslice) {
+#define QMM_SMEM(BM, BN)                                                    \
+  if (bm == BM && bn == BN)                                                 \
+    return static_cast<long long>(                                          \
+        layout(BM, BN, bk, packed, c, Warps<BM, BN>::KW, kslice).total);
+  QMM_TILES(QMM_SMEM)
+#undef QMM_SMEM
+  return -1;
+}
+
+// Shapes: K % 16 == 0, N % 4 == 0; weight rows of ldw bytes, ldw % 16 ==
+// 0 and ldw >= N (N / 2 packed), the bytes past N zero; xq and wq 16-byte
+// aligned. (bm, bn) one of QMM_TILES; bk % 32 == 0; kslice % 32 == 0 with
+// c * kslice >= K; c in {1, 2, 4, 8} with bn / c even. The grid is
+// c * ceil(N / bn) CTAs along x by ceil(M / bm) along y. Launches on
+// `stream`; returns the launch's CUDA error.
 extern "C" int qmm_launch(const int8_t* xq, const float* sx,
                           const int8_t* wq, const float* sw, float* y, int M,
-                          int K, int N, int packed, void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      xq, sx, wq, sw, y, M, K, N, packed);
-  return static_cast<int>(cudaGetLastError());
+                          int K, int N, int ldw, int packed, int bm, int bn,
+                          int bk, int c, int kslice, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QMM_CASE(BM, BN)                                                    \
+  if (bm == BM && bn == BN)                                                 \
+    return launch<BM, BN>(xq, sx, wq, sw, y, M, K, N, ldw, packed, bk, c,   \
+                          kslice, s);
+  QMM_TILES(QMM_CASE)
+#undef QMM_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,9 +6,10 @@ and call the kernel wrappers, which launch the CUDA kernel on CUDA tensors
 and run the plain version on CPU tensors.
 
 Padding: the CUDA kernels read activations 16 bytes at a time, so K pads
-to a multiple of 16. `quant_matmul` reads weights 4 columns at a time (N
-pads to 4); `lowrank_qmm` copies whole 16-byte rows of 32 packed columns
-with cp.async (R and N pad to 32). Padding is in the packed domain where
+to a multiple of 16. `quant_matmul` writes Y two columns at a time from
+4-column groups (N pads to 4; it pads weight rows to 16 bytes itself
+where needed); `lowrank_qmm` copies whole 16-byte rows of 32 packed
+columns with cp.async (R and N pad to 32). Padding is in the packed domain where
 a factor is packed (zero bytes are zero codes) with scale 1, so it is
 exact: a zero-code rank column adds 0 to T and to the row absmax. The
 TPU's 128/256 padding and its packed-axis demotion are not needed: the

@@ -1,26 +1,91 @@
 """Dense WxAy matmul: wrapper of `csrc/quant_matmul.cu` and its plain
 version (port of `repro.kernels.quant_matmul`, the paper's §V-A engine).
 
-On a CUDA tensor `quant_matmul` launches the CUDA kernel (or raises); on a
-CPU tensor it runs the plain version. Nothing else chooses the path.
+`choose_tiles` is the launch's partition, a pure function of the shapes,
+so it runs (and is tested) on the CPU. On a CUDA tensor `quant_matmul`
+launches the CUDA kernel (or raises); on a CPU tensor it runs the plain
+version. Nothing else chooses the path.
 """
 from __future__ import annotations
 
 import ctypes
+import typing
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import quant_matmul_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"qmm_launch": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P))}
+_SIGNATURES = {
+    "qmm_launch": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P)),
+    "qmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I, _I)),
+}
+CLUSTER = 8            # CTAs per cluster at most (the portable maximum)
+STRIP_STAGE = 16384    # weight bytes of one K step of a 16-row strip
+# shared memory a CTA may take so that two share an SM (228 KB an SM,
+# 1 KB of it reserved for each CTA)
+SMEM_TWO_PER_SM = 115712
+
+
+class Tiles(typing.NamedTuple):
+    """One launch's partition (see csrc/quant_matmul.cu): `bm` x `bn`
+    output tiles, each computed by a cluster of `cluster` CTAs, CTA r
+    taking K rows [r * kslice, (r + 1) * kslice) in steps of `bk`."""
+    bm: int
+    bn: int
+    bk: int
+    cluster: int
+    kslice: int
+
+    def ctas(self, m: int, n: int) -> int:
+        """CTAs of the launch for an (m, n) output."""
+        return self.cluster * -(-n // self.bn) * -(-m // self.bm)
 
 
 def quant_matmul_plain(xq, sx, wq, sw, *, w_packed: bool = False):
     """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors)."""
     return quant_matmul_ref(xq, sx, unpack_int4(wq) if w_packed else wq, sw)
+
+
+def choose_tiles(m: int, k: int, n: int, packed: bool, num_sms: int,
+                 smem_bytes) -> Tiles:
+    """The launch's partition, from the shapes, the card's SM count and
+    `smem_bytes(bm, bn, bk, packed, cluster, kslice)`, the kernel's shared
+    memory per CTA.
+
+    bm: one 16-row strip at M <= 16 (a decode step), 64 rows up to M 256,
+    else 128. bn: 128 columns, halved (to 32 for a strip, 64 for wider
+    tiles) while the tiles alone leave SMs idle. cluster: doubled (to 8)
+    while twice the CTAs still fit one wave and each CTA keeps a K slice
+    of at least 64 rows. bk: a strip takes up to STRIP_STAGE weight bytes
+    of its slice a step (a step costs two barriers however small), wider
+    tiles 128 rows; bk halves until a CTA fits two to an SM."""
+    if k <= 0 or n <= 0 or m < 0 or k % 16 or n % 4:
+        raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 4 "
+                         f"== 0, got K={k} N={n}")
+    bm = 16 if m <= 16 else 64 if m <= 256 else 128
+    rows = max(1, -(-m // bm))
+    bn = 128
+    while bn > (32 if bm == 16 else 64) and rows * -(-n // bn) < num_sms:
+        bn //= 2
+    tiles = rows * -(-n // bn)
+    c = 1
+    while (c < CLUSTER and tiles * 2 * c <= num_sms
+           and k >= 2 * c * 64):
+        c *= 2
+    kslice = -(-k // (32 * c)) * 32
+    bnb = bn // 2 if packed else bn
+    bk = min(STRIP_STAGE // bnb, kslice) if bm == 16 else 128
+    while smem_bytes(bm, bn, bk, int(packed), c, kslice) > SMEM_TWO_PER_SM:
+        if bk <= 32:
+            raise ValueError(f"no K step of a {bm} x {bn} tile fits two "
+                             f"CTAs' shared memory on an SM")
+        bk = max(32, bk // 2 // 32 * 32)
+    return Tiles(bm, bn, bk, c, kslice)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device,
@@ -46,7 +111,10 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
 
     xq (M, K) int8; sx (M, 1) f32; wq (K, N) int8, or (K, N/2) packed W4
     nibbles along N when w_packed; sw (1, N) f32. The CUDA kernel needs
-    K % 16 == 0 and N % 4 == 0 (`ops.qmm` pads to that)."""
+    K % 16 == 0 and N % 4 == 0 (`ops.qmm` pads to that). It copies weight
+    rows 16 bytes at a time, so a weight whose rows are not a multiple of
+    16 bytes is copied here into zero-padded rows (no serving width of the
+    repository's models needs that)."""
     if xq.device.type == "cpu":
         return quant_matmul_plain(xq, sx, wq, sw, w_packed=w_packed)
     if xq.device.type != "cuda":
@@ -64,10 +132,17 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y
+    if wq.shape[1] % 16:
+        wq = F.pad(wq, (0, -wq.shape[1] % 16))
+    _check(wq, "wq", torch.int8, (k, wq.shape[1]), dev, align=16)
     lib = build.load("quant_matmul", _SIGNATURES)
+    tl = choose_tiles(m, k, n, w_packed, build.sm_count(dev.index or 0),
+                      lib.qmm_smem_bytes)
     err = lib.qmm_launch(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
-                         sw.data_ptr(), y.data_ptr(), m, k, n, int(w_packed),
-                         build.stream_handle(dev))
+                         sw.data_ptr(), y.data_ptr(), m, k, n, wq.shape[1],
+                         int(w_packed), tl.bm, tl.bn, tl.bk, tl.cluster,
+                         tl.kslice, build.stream_handle(dev))
     build.check(err, "quant_matmul")
     build.LAUNCHES["quant_matmul"] += 1
+    build.LAUNCH_SHAPES["quant_matmul", k, n] += 1
     return y

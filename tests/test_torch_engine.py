@@ -180,6 +180,46 @@ def test_serve_is_token_identical_to_reference(bridged, reference_serves,
         assert got.cache_hit_blocks > 0 and got.cache_cow_blocks >= 1
 
 
+@pytest.fixture(scope="module")
+def bridged_quant(tmp_path_factory):
+    """Smoke-size opus-mt compressed by the reference with the paper's
+    quantization-only baseline (uniform W4, packed where the packing rule
+    allows), saved, and read back by the port."""
+    cfg = j_get_config("opus-mt", smoke=True)
+    params = jtfm.init_params(jax.random.PRNGKey(1), cfg)
+    plan = jplan.CompressionPlan.uniform(params, method="quant", weight_wl=4)
+    jeng = jengine.InferenceEngine.build(cfg, plan, params=params)
+    path = tmp_path_factory.mktemp("ckpt_quant")
+    ckpt.save(str(path), 0, jeng.params)
+    return cfg, jeng.params, bridge.load_checkpoint(str(path))
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_quant_only_serve_is_token_identical_to_reference(bridged_quant,
+                                                          kv_bits):
+    """Every linear on quant_matmul (packed W4): the port's CPU serve gives
+    the reference engine's greedy tokens and scheduling counters."""
+    cfg, jparams, tparams = bridged_quant
+    leaves = flatten(tparams).values()
+    quant = [q for q in leaves if isinstance(q, QuantizedTensor)]
+    assert quant and not any(isinstance(q, LowRankQ) for q in leaves)
+    assert any(q.packed for q in quant)
+    want = jengine.InferenceEngine(
+        dataclasses.replace(cfg, kv_cache_bits=kv_bits), jparams,
+        max_batch=3, block_size=4, chunk_tokens=8).serve(
+            _shared_workload(cfg.vocab_size),
+            jengine.SamplingParams(max_tokens=5))
+    got = tengine.InferenceEngine.build(
+        t_get_config("opus-mt", smoke=True), None, params=tparams,
+        device="cpu", kv_bits=kv_bits, max_batch=3, block_size=4,
+        chunk_tokens=8).serve(_shared_workload(cfg.vocab_size),
+                              tengine.SamplingParams(max_tokens=5))
+    for i, (a, b) in enumerate(zip(got.outputs, want.outputs)):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
+    for f in ("steps", "prefill_chunks", "mixed_steps", "cache_hit_blocks"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
 def _mixed_plan(params):
     """ITERA W4 (rank fraction 0.5) for every attention and MLP linear,
     quant W8 for the lm head: both matmul kernels in one engine."""

@@ -57,6 +57,37 @@ def test_quant_matmul_kernel_equals_plain(cuda, packed, m, k, n):
                                                 w_packed=packed))
 
 
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (8, 512, 512),      # decode strip, K split over a cluster of 8 CTAs
+    (8, 2048, 512),     # K 2048: 256-row slices
+    (1, 512, 32000),    # the lm head: strip, no cluster, 250 column tiles
+    (16, 512, 2080),    # ragged N against the strip's tiles
+    (17, 96, 36),       # 64-row tile; rows of 36 (18 packed) bytes
+    (256, 512, 512),    # 64-row tiles, K split over clusters of 4
+    (2048, 512, 2048),  # wide prefill tile, 128 rows
+    (300, 2048, 544),   # ragged M and N against 128 x 64 tiles
+    (0, 512, 512),      # M 0: nothing to launch
+])
+def test_quant_matmul_tiles_equal_plain(cuda, packed, m, k, n):
+    """Every branch of `choose_tiles` (split-K cluster, M <= 16 strip,
+    wide prefill tile) bit-equal to the plain version; one launch counted
+    under its (K, N)."""
+    rng = np.random.default_rng(m + k + n)
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w = _codes(rng, (k, n), 4 if packed else 8).to(cuda)
+    wq = quant.pack_int4(w) if packed else w
+    sw = _uniform(rng, (1, n), 0.001, 0.01).to(cuda)
+    before = build.LAUNCH_SHAPES["quant_matmul", k, n]
+    y = qm.quant_matmul(xq, sx, wq, sw, w_packed=packed)
+    torch.cuda.synchronize()
+    assert build.LAUNCH_SHAPES["quant_matmul", k, n] == before + (m > 0)
+    assert tuple(y.shape) == (m, n)
+    assert torch.equal(y, qm.quant_matmul_plain(xq, sx, wq, sw,
+                                                w_packed=packed))
+
+
 @pytest.mark.parametrize("act_wl", [4, 8])
 @pytest.mark.parametrize("m,k,r,n", [(8, 512, 256, 2048),
                                      (300, 2048, 256, 512),

@@ -17,6 +17,7 @@ from repro.core import itera as jitera
 from repro.core import quant as jquant
 from repro.kernels import ops as jops
 from repro.kernels import paged_attention as jpa
+from repro.kernels import quant_matmul as jqm
 from repro.models import attention as jattn
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import itera as titera
@@ -289,6 +290,88 @@ def test_attention_split_choice(b, hk, w, g, mb):
         assert b * hk * tiles * splits >= waves * 132
     if (b, hk, w, mb) == (8, 8, 1, 32):  # the serving decode step
         assert b * hk * splits >= 132
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,n,blocks", [(8, 128, 256, (8, 64, 256)),
+                                          (24, 192, 512, (8, 64, 256))])
+def test_quant_matmul_plain_matches_pallas_interpret(packed, m, k, n,
+                                                     blocks):
+    """The port's plain quant_matmul (which the CUDA kernel is held to on
+    the card) against the reference Pallas kernel in interpret mode, bit
+    for bit, on int8 carrier and packed W4 weights."""
+    rng = np.random.default_rng(m + k + n + packed)
+    wl = 4 if packed else 8
+    xq = _codes(rng, (m, k), 8)
+    sx = rng.uniform(0.01, 1, (m, 1)).astype(np.float32)
+    w = _codes(rng, (k, n), wl)
+    sw = rng.uniform(0.001, 0.01, (1, n)).astype(np.float32)
+    jw = jquant.pack_int4(jnp.asarray(w)) if packed else jnp.asarray(w)
+    tw = tquant.pack_int4(torch.from_numpy(w)) if packed else \
+        torch.from_numpy(w)
+    bm, bk, bn = blocks
+    yj = jqm.quant_matmul(jnp.asarray(xq), jnp.asarray(sx), jw,
+                          jnp.asarray(sw), bm=bm, bk=bk, bn=bn,
+                          interpret=True, w_packed=packed)
+    yt = tqm.quant_matmul_plain(torch.from_numpy(xq), torch.from_numpy(sx),
+                                tw, torch.from_numpy(sw), w_packed=packed)
+    np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+
+
+def quant_smem_bytes(bm, bn, bk, packed, c, kslice):
+    """Shared memory of one CTA: quant_matmul.cu's `layout` (a ring of as
+    many stages as the CTA has K steps, at most 3, each an Xq tile with
+    rows padded by 16 bytes and a raw weight tile; the transposed tile;
+    the tile's scales; the warps' partial sums when warps or a cluster
+    split K; the cluster's pushed partials)."""
+    wnk = 8 // (4 if bm >= 64 else 1)
+    kw = wnk // (bn // 8) if bn // 8 < wnk else 1
+    stages = min(3, max(1, -(-kslice // bk)))
+    stage = bm * (bk + 16) + bk * (bn // 2 if packed else bn)
+    part = kw * bm * bn * 4 if c > 1 or kw > 1 else 0
+    red = bm * bn * 4 if c > 1 else 0
+    return (stages * stage + bk // 4 * (bn + 8) * 4 + (bm + bn) * 4 + part
+            + red)
+
+
+QMM_SHAPES = [(512, 512), (512, 2048), (2048, 512), (512, 32000),
+              (512, 544), (96, 36)]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("k,n", QMM_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 256, 2048])
+def test_quant_tile_choice(m, k, n, packed):
+    """A 16-row strip at M <= 16 and wider tiles above; K slices that
+    cover K once; every column of Y written by exactly one CTA of its
+    cluster (N 544 and 36 are ragged against every tile width); two CTAs'
+    shared memory on an SM; the decode shapes of the serving path fill
+    the card (132 SMs) by splitting K, the lm head needs no split."""
+    t = tqm.choose_tiles(m, k, n, packed, 132, quant_smem_bytes)
+    assert t.bm == (16 if m <= 16 else 64 if m <= 256 else 128)
+    assert t.bn in ((32, 64, 128) if t.bm == 16 else (64, 128))
+    assert t.cluster in (1, 2, 4, 8) and (t.bn // t.cluster) % 2 == 0
+    assert t.kslice % 32 == 0 and t.bk % 32 == 0
+    assert t.cluster * t.kslice >= k > (t.cluster - 1) * t.kslice
+    assert quant_smem_bytes(*t[:3], packed, t.cluster,
+                            t.kslice) <= tqm.SMEM_TWO_PER_SM
+    share = t.bn // t.cluster
+    cols = [x * t.bn + rank * share + c for x in range(-(-n // t.bn))
+            for rank in range(t.cluster) for c in range(share)]
+    assert sorted(c for c in cols if c < n) == list(range(n))
+    if m == 8 and n in (512, 2048) and k in (512, 2048):
+        assert t.cluster > 1 and 0.9 * 132 <= t.ctas(m, n) <= 132
+    if (m, n) == (8, 32000):
+        assert t.cluster == 1 and t.ctas(m, n) >= 132
+
+
+def test_quant_tile_choice_refuses():
+    with pytest.raises(ValueError, match="K % 16"):
+        tqm.choose_tiles(8, 500, 512, False, 132, quant_smem_bytes)
+    with pytest.raises(ValueError, match="N % 4"):
+        tqm.choose_tiles(8, 512, 510, False, 132, quant_smem_bytes)
+    with pytest.raises(ValueError, match="shared memory"):
+        tqm.choose_tiles(8, 512, 512, True, 132, lambda *tiles: 1 << 30)
 
 
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():

@@ -1,11 +1,14 @@
 """The CUDA kernels' partitions of work, mirrored in plain PyTorch on the CPU.
 
+`quant_matmul` splits each output tile's K over the CTAs of a cluster,
+whose int32 partial sums one CTA adds before the one float conversion.
 `lowrank_qmm` splits phase 1 of a row block over the CTAs of a cluster
 (each its own slice of R), combines the row absmax across them, lets each
 requantize its slice, and sums phase 2 over R groups. `paged_attention`
 cuts each row's keys into splits whose float64 partials (m, l, acc) are
 combined in split order. Each mirror below follows the kernel's partition
 (taken from the wrappers' own choosers) and is held to the reference: the
+split-K product bit for bit to `repro.kernels.ref.quant_matmul_ref`, the
 cascade bit for bit to `repro.kernels.ref.lowrank_qmm_ref`, the split
 softmax to `span_attend_gather` within one fp32 rounding.
 """
@@ -18,10 +21,61 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.core.quant import symmetric_scale
+from repro_torch.core.quant import pack_int4, symmetric_scale, unpack_int4
 from repro_torch.kernels import lowrank_qmm as tlr
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels.ref import int_matmul
+
+
+def _split_k_qmm(xq, sx, wq, sw, packed, tiles):
+    """quant_matmul.cu's arithmetic over its partition: for each bm x bn
+    tile, CTA r of its cluster multiplies K rows [r * kslice, (r + 1) *
+    kslice) (the last slice short or empty) into int32 partial sums, the
+    owner adds the cluster's partials in int32 (exact: every sum is below
+    K * 127 * 127 < 2**31) and converts once, ((float)acc * sx) * sw. A
+    packed weight is unpacked first, as the kernel does in shared memory."""
+    w = unpack_int4(wq) if packed else wq
+    m, k = xq.shape
+    n = w.shape[1]
+    y = torch.empty((m, n))
+    for m0 in range(0, m, tiles.bm):
+        rows = slice(m0, min(m, m0 + tiles.bm))
+        for n0 in range(0, n, tiles.bn):
+            cols = slice(n0, min(n, n0 + tiles.bn))
+            acc = torch.zeros((rows.stop - m0, cols.stop - n0),
+                              dtype=torch.int32)
+            for rank in range(tiles.cluster):
+                ks = slice(rank * tiles.kslice,
+                           min(k, (rank + 1) * tiles.kslice))
+                acc += (xq[rows, ks].long() @ w[ks, cols].long()).to(
+                    torch.int32)
+            y[rows, cols] = acc.float() * sx[rows] * sw[:, cols]
+    return y
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 512), (8, 2048, 544),
+                                   (37, 96, 36), (300, 512, 2080)])
+def test_split_k_quant_matmul_equals_reference(packed, m, k, n):
+    """Split-K clusters (8 CTAs at M 8), ragged N against every tile
+    width (544, 36, 2080) and K slices that end past K."""
+    rng = np.random.default_rng(m + k + n + packed)
+    qm = 7 if packed else 127
+    xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    sx = rng.uniform(0.01, 1, (m, 1)).astype(np.float32)
+    w = rng.integers(-qm, qm + 1, (k, n)).astype(np.int8)
+    sw = rng.uniform(0.001, 0.01, (1, n)).astype(np.float32)
+    # shared memory only caps bk, which the arithmetic ignores
+    tiles = tqm.choose_tiles(m, k, n, packed, 132, lambda *tiles: 0)
+    wq = pack_int4(torch.from_numpy(w)) if packed else torch.from_numpy(w)
+    y = _split_k_qmm(torch.from_numpy(xq), torch.from_numpy(sx), wq,
+                     torch.from_numpy(sw), packed, tiles)
+    ref = jax.jit(jref.quant_matmul_ref)(*(jnp.asarray(a)
+                                           for a in (xq, sx, w, sw)))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(ref))
+    if m == 8 and n == 512:
+        assert tiles.cluster == 8
 
 
 @functools.partial(jax.jit, static_argnums=6)

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Phase breakdown of the CUDA kernels `lowrank_qmm` and `paged_attention`
-on one NVIDIA GPU.
+"""Phase breakdown of the CUDA kernels `quant_matmul`, `lowrank_qmm` and
+`paged_attention` on one NVIDIA GPU.
 
     python3 tools/phase_probe.py [--src <root of a checkout>]
+                                 [--kernels quant_matmul,lowrank_qmm,...]
 
-It copies the two kernels' sources from the checkout (default: this one)
+It copies the kernels' sources from the checkout (default: this one)
 into `build/phase_probe/`, adds `%globaltimer` stamps taken by thread 0
 of every CTA, builds them with nvcc, launches each at the serving path's
 shapes (the L2 cache flushed first), and prints each phase's mean and
 slowest CTA in microseconds beside the launch's CUDA-event time, plus
-ptxas's register and spill lines. It knows two versions: the first
-(one CTA per row block and N tile; one CTA per attention tile) and the
-second (thread-block clusters; split-KV with tensor-core prefill tiles).
-The kernels of the main path carry no timing code: the stamps exist only
-in these copies.
+ptxas's register and spill lines. It knows two versions of each kernel:
+the first (one CTA per 64 x 128 output tile, single-buffered; one CTA
+per row block and N tile; one CTA per attention tile) and the second
+(split-K thread-block clusters and a cp.async ring; thread-block
+clusters; split-KV with tensor-core prefill tiles). The kernels of the
+main path carry no timing code: the stamps exist only in these copies.
 """
 from __future__ import annotations
 
@@ -178,6 +180,95 @@ PA2_PATCHES = [
      "  // ---- this split's result: the output, or a partial for the combine --\n"),
 ]
 
+# quant_matmul, first version (one CTA per 64 x 128 tile, single-buffered
+# K loop): per CTA, the loads (A and W, waited for), the transposed stores
+# of W (and the barrier), the products and the epilogue. The weight loads
+# are forced to land before the stamp by using their registers in an
+# empty asm statement, in a copy of common.cuh that only this kernel
+# includes.
+QMM1_COMMON_PATCHES = [
+    ("int n0) {\n  constexpr int NG = NT / 4",
+     "int n0, unsigned long long& tmid) {\n  constexpr int NG = NT / 4"),
+    ("#pragma unroll\n  for (int it = 0; it < ITEMS; ++it) {\n"
+     "    const int i = threadIdx.x + it * THREADS;\n    if (i >= N) continue;",
+     "#pragma unroll\n  for (int it = 0; it < ITEMS; ++it)\n"
+     "    asm volatile(\"\" ::\"r\"(r[it][0]), \"r\"(r[it][1]), \"r\"(r[it][2]),\n"
+     "                 \"r\"(r[it][3]));\n"
+     "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(tmid));\n"
+     "#pragma unroll\n  for (int it = 0; it < ITEMS; ++it) {\n"
+     "    const int i = threadIdx.x + it * THREADS;\n    if (i >= N) continue;"),
+]
+
+QMM1_PATCHES = [
+    ('#include "common.cuh"\n', '#include "qmm_common.cuh"\n'),
+    ("namespace {\n", STAMP),
+    ("  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;\n",
+     "  const unsigned long long t_in = gt();\n"
+     "  unsigned long long pl = 0, pt = 0, pm = 0, a0, a1, tm = 0;\n"
+     "  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;\n"),
+    ("    rt::load_rows<THREADS, BM, BK>(As, LDS, xq, K, m0, M, k0, K);\n",
+     "    a0 = gt();\n"
+     "    rt::load_rows<THREADS, BM, BK>(As, LDS, xq, K, m0, M, k0, K);\n"),
+    ("                                       n0);\n    __syncthreads();\n",
+     "                                       n0, tm);\n    __syncthreads();\n"
+     "    a1 = gt(); pl += tm - a0; pt += a1 - tm;\n"),
+    ("                     BK);\n    __syncthreads();\n  }\n",
+     "                     BK);\n    __syncthreads();\n    pm += gt() - a1;\n  }\n"
+     "  const unsigned long long te = gt();\n"),
+    ("      *reinterpret_cast<float2*>(y + (size_t)(m + 8) * N + n) = o;\n"
+     "    }\n  }\n}\n",
+     "      *reinterpret_cast<float2*>(y + (size_t)(m + 8) * N + n) = o;\n"
+     "    }\n  }\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    const int c = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     "    if (c < 8192) { g_st[8 * c] = pl; g_st[8 * c + 1] = pt;\n"
+     "      g_st[8 * c + 2] = pm; g_st[8 * c + 3] = gt() - te;\n"
+     "      g_st[8 * c + 4] = t_in; g_st[8 * c + 5] = gt(); }\n  }\n}\n"),
+]
+
+# quant_matmul, second version (split-K clusters, cp.async ring): per
+# CTA, the waits (ring and barrier at the head of each step), the
+# transpose/unpack into the mma layout and its barrier, the products,
+# the reductions (the warps' sums through shared memory, the DSMEM
+# pushes and the cluster barrier; 0 where a CTA writes its own sums) and
+# the epilogue.
+QMM2_END = ("  if (threadIdx.x == 0) {\n"
+            "    const int c = blockIdx.y * gridDim.x + blockIdx.x;\n"
+            "    if (c < 8192) { g_st[8 * c] = pw; g_st[8 * c + 1] = pt;\n"
+            "      g_st[8 * c + 2] = pm; g_st[8 * c + 3] = pr;\n"
+            "      g_st[8 * c + 4] = gt() - a0; g_st[8 * c + 5] = t_in;\n"
+            "      g_st[8 * c + 6] = gt(); }\n  }\n")
+
+QMM2_PATCHES = [
+    ("namespace {\n", STAMP),
+    ("  using W = Warps<BM, BN>;\n",
+     "  using W = Warps<BM, BN>;\n"
+     "  const unsigned long long t_in = gt();\n"
+     "  unsigned long long pw = 0, pt = 0, pm = 0, pr = 0, a0, a1;\n"),
+    ("  for (int s = 0; s < n_steps; ++s) {\n",
+     "  for (int s = 0; s < n_steps; ++s) {\n    a0 = gt();\n"),
+    ("    issue(s + STAGES - 1);\n",
+     "    issue(s + STAGES - 1);\n    a1 = gt(); pw += a1 - a0; a0 = a1;\n"),
+    ("                               BN);\n    __syncthreads();\n",
+     "                               BN);\n    __syncthreads();\n"
+     "    a1 = gt(); pt += a1 - a0; a0 = a1;\n"),
+    ("                                W::KW);\n  }\n",
+     "                                W::KW);\n    pm += gt() - a0;\n  }\n"
+     "  a0 = gt();\n"),
+    ("    return;\n  }\n\n  // ---- reductions",
+     QMM2_END + "    return;\n  }\n\n  // ---- reductions"),
+    ("  if (C == 1) {\n    for (int i = tid; i < rows * BN;",
+     "  a1 = gt(); pr = a1 - a0; a0 = a1;\n"
+     "  if (C == 1) {\n    for (int i = tid; i < rows * BN;"),
+    ("    return;\n  }\n  const int share",
+     QMM2_END + "    return;\n  }\n  const int share"),
+    ("  cluster.sync();  // every partial of this CTA's columns has arrived\n",
+     "  cluster.sync();  // every partial of this CTA's columns has arrived\n"
+     "  a1 = gt(); pr += a1 - a0; a0 = a1;\n"),
+    ("  // so each may leave on its own\n}\n",
+     "  // so each may leave on its own\n" + QMM2_END + "}\n"),
+]
+
 READ = '''
 extern "C" int probe_read(unsigned long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, g_st, sizeof(unsigned long long) * 8 * n);
@@ -190,24 +281,25 @@ extern "C" int probe_clear() {
 '''
 
 
-def instrument(src: pathlib.Path, patches, dst: pathlib.Path) -> bool:
-    """Write `src` with the stamps of `patches` to `dst`; False when a
-    patch finds no place in it (another version of the kernel)."""
+def instrument(src: pathlib.Path, patches, dst: pathlib.Path,
+               tail: str = READ) -> bool:
+    """Write `src` with the stamps of `patches` (and `tail`) to `dst`;
+    False when a patch finds no place in it (another version)."""
     text = src.read_text()
     for old, new in patches:
         if old not in text:
             return False
         text = text.replace(old, new, 1)
-    dst.write_text(text + READ)
+    dst.write_text(text + tail)
     return True
 
 
-def build_probes(csrc: pathlib.Path, build) -> None:
+def build_probes(csrc: pathlib.Path, build, names) -> None:
     nvcc = build._nvcc()
     procs = [(n, subprocess.Popen(
         [nvcc, *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(OUT / f"{n}.so"),
          str(OUT / f"{n}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)) for n in ("lrmm", "pa")]
+        stderr=subprocess.STDOUT, text=True)) for n in names]
     for n, p in procs:
         log, _ = p.communicate()
         if p.returncode:
@@ -217,35 +309,110 @@ def build_probes(csrc: pathlib.Path, build) -> None:
                 print(f"  {n}: {line.strip()}")
 
 
-def stamps(lib, ctas: int, torch):
-    """The (CTA, 8) stamps in microseconds of CTAs that wrote any: four
-    phase sums, then (second version) entry and exit times."""
+def stamps(lib, ctas: int, torch, nph: int = 4):
+    """The (CTA, 8) stamps of CTAs that wrote any: `nph` phase sums in
+    microseconds, then (where the version takes them) entry and exit
+    times in nanoseconds."""
     buf = (ctypes.c_ulonglong * (8 * ctas))()
     if lib.probe_read(ctypes.addressof(buf), ctas):
         raise RuntimeError("reading the stamps failed")
     a = torch.tensor(list(buf), dtype=torch.float64).reshape(ctas, 8)
-    a = a[a[:, :4].sum(1) > 0]
-    a[:, :4] /= 1e3
+    a = a[a[:, :nph].sum(1) > 0]
+    a[:, :nph] /= 1e3
     return a
 
 
-def report(res, key, a, ctas, us):
+def report(res, key, a, ctas, us, nph: int = 4):
     """Phase means [slowest CTA]; with entry/exit stamps, the span from
     the first CTA's entry to the last one's exit and the spread of the
     entries (CTAs that waited for a free SM)."""
     span = spread = None
-    if a[:, 4].min() > 0:
-        t0 = a[:, 4].min()
-        span = float(a[:, 5].max() - t0) / 1e3
-        spread = float(a[:, 4].max() - t0) / 1e3
+    if a[:, nph].min() > 0:
+        t0 = a[:, nph].min()
+        span = float(a[:, nph + 1].max() - t0) / 1e3
+        spread = float(a[:, nph].max() - t0) / 1e3
     print(f"  {key}: " + " ".join(
-        f"{a[:, i].mean():.2f} [{a[:, i].max():.2f}]" for i in range(4))
+        f"{a[:, i].mean():.2f} [{a[:, i].max():.2f}]" for i in range(nph))
         + f" | {len(a)} of {ctas} CTAs, {us:.1f} us"
         + ("" if span is None else
            f"; CTAs span {span:.1f} us, entries spread {spread:.1f} us"))
     res[key] = dict(us=us, ctas=ctas, live=len(a), span_us=span,
-                    entry_spread_us=spread, mean=a[:, :4].mean(0).tolist(),
-                    max=a[:, :4].max(0).values.tolist())
+                    entry_spread_us=spread, mean=a[:, :nph].mean(0).tolist(),
+                    max=a[:, :nph].max(0).values.tolist())
+
+
+def stamped_lib(name: str, so: str, mod):
+    """The stamped library `so` put in place of kernel `name`'s built one,
+    so that the wrapper `mod` launches it."""
+    from repro_torch.kernels import build
+
+    lib = ctypes.CDLL(str(OUT / f"{so}.so"))
+    for fn, (ret, args) in mod._SIGNATURES.items():
+        getattr(lib, fn).restype = ret
+        getattr(lib, fn).argtypes = list(args)
+    lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    build._LIBS[name] = lib
+    return lib
+
+
+# quant_matmul at the serving shapes: the quant-only plan's packed W4
+# linears at decode, the W8 lm head, and a prefill step's mlp/up
+QMM_SHAPES = ((8, 512, 512, True), (8, 512, 2048, True), (8, 2048, 512, True),
+              (8, 512, 32000, False), (2048, 512, 2048, True))
+
+
+def probe_qmm(torch, timer, res, version, nph, ctas_of, phases) -> None:
+    """quant_matmul through its wrapper, with the stamped library."""
+    from repro_torch.core.quant import pack_int4
+    from repro_torch.kernels import quant_matmul as qm
+
+    lib = stamped_lib("quant_matmul", "qmm", qm)
+    print(f"quant_matmul ({version} version), us per CTA, mean [slowest]: "
+          + ", ".join(phases))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for m, k, n, packed in QMM_SHAPES:
+        qmx = 7 if packed else 127
+        xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                           dtype=torch.int8)
+        sx = torch.rand((m, 1), generator=g, device="cuda") + 0.01
+        w = torch.randint(-qmx, qmx + 1, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8)
+        wq = pack_int4(w) if packed else w
+        sw = torch.rand((1, n), generator=g, device="cuda") * 0.01
+
+        def call():
+            return qm.quant_matmul(xq, sx, wq, sw, w_packed=packed)
+
+        us = timer(call) * 1e3
+        lib.probe_clear()
+        timer.flush.zero_()
+        call()
+        torch.cuda.synchronize()
+        ctas = ctas_of(qm, m, k, n, packed)
+        report(res, f"quant_matmul M{m} K{k} N{n} {'W4' if packed else 'W8'}",
+               stamps(lib, ctas, torch, nph), ctas, us, nph)
+
+
+def _qmm1_ctas(qm, m, k, n, packed):
+    return -(-n // 128) * -(-m // 64)
+
+
+def _qmm2_ctas(qm, m, k, n, packed):
+    from repro_torch.kernels import build
+
+    tl = qm.choose_tiles(m, k, n, packed, 132,
+                         build._LIBS["quant_matmul"].qmm_smem_bytes)
+    return tl.ctas(m, n)
+
+
+QMM_VERSIONS = (
+    ("first", QMM1_PATCHES, QMM1_COMMON_PATCHES, 4, _qmm1_ctas,
+     ("loads (waited)", "W transposed stores and barrier", "products",
+      "epilogue")),
+    ("second", QMM2_PATCHES, None, 5, _qmm2_ctas,
+     ("waits (ring, barriers)", "transpose/unpack and barrier",
+      "products", "reductions", "epilogue")),
+)
 
 
 LRMM_SHAPES = ((8, 512, 256, 512), (8, 512, 256, 2048), (8, 2048, 256, 512),
@@ -345,19 +512,11 @@ def probe_first(torch, cs, timer, res) -> None:
 def probe_second(torch, cs, timer, res) -> None:
     """The cluster / split-KV kernels, launched through the wrappers with
     the stamped libraries in place of the built ones."""
-    from repro_torch.kernels import build
     from repro_torch.kernels import lowrank_qmm as lrm
     from repro_torch.kernels import paged_attention as pa
 
-    libs = {}
-    for name, so, mod in (("lowrank_qmm", "lrmm", lrm),
-                          ("paged_attention", "pa", pa)):
-        lib = ctypes.CDLL(str(OUT / f"{so}.so"))
-        for fn, (ret, args) in mod._SIGNATURES.items():
-            getattr(lib, fn).restype = ret
-            getattr(lib, fn).argtypes = list(args)
-        lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        build._LIBS[name] = libs[name] = lib
+    libs = {"lowrank_qmm": stamped_lib("lowrank_qmm", "lrmm", lrm),
+            "paged_attention": stamped_lib("paged_attention", "pa", pa)}
 
     print(f"lowrank_qmm: {libs['lowrank_qmm'].probe_max_clusters()} clusters "
           "of 8 decode CTAs fit on the card at once")
@@ -406,6 +565,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=pathlib.Path, default=ROOT,
                     help="root of a checkout (default: this one)")
+    ap.add_argument("--kernels", default="quant_matmul,lowrank_qmm,"
+                    "paged_attention", help="comma-separated kernels to probe "
+                    "(lowrank_qmm and paged_attention go together)")
     args = ap.parse_args()
     import torch
 
@@ -419,26 +581,51 @@ def main() -> int:
 
     csrc = args.src / "src" / "repro_torch" / "kernels" / "csrc"
     OUT.mkdir(parents=True, exist_ok=True)
-    versions = (("first", LRMM_PATCHES, PA_PATCHES, probe_first),
-                ("second", LRMM2_PATCHES, PA2_PATCHES, probe_second))
-    for name, lp, ap_, run in versions:
-        if (instrument(csrc / "lowrank_qmm.cu", lp, OUT / "lrmm.cu")
-                and instrument(csrc / "paged_attention.cu", ap_,
-                               OUT / "pa.cu")):
-            break
-    else:
-        print(f"phase_probe: {csrc} holds neither known version",
-              file=sys.stderr)
-        return 1
-    print(f"phase_probe: {name} version of the kernels, from {csrc}")
-    build_probes(csrc, build)
+    wanted = set(args.kernels.split(","))
+    runs, sos, found = [], [], {}
+    if "quant_matmul" in wanted:
+        for name, patches, common, nph, ctas_of, phases in QMM_VERSIONS:
+            if ((not common or instrument(csrc / "common.cuh", common,
+                                          OUT / "qmm_common.cuh", tail=""))
+                    and instrument(csrc / "quant_matmul.cu", patches,
+                                   OUT / "qmm.cu")):
+                break
+        else:
+            print(f"phase_probe: {csrc} holds no known quant_matmul",
+                  file=sys.stderr)
+            return 1
+        found["quant_matmul"] = name
+        sos.append("qmm")
+        runs.append(lambda timer, res, a=(name, nph, ctas_of, phases):
+                    probe_qmm(torch, timer, res, *a))
+    if wanted & {"lowrank_qmm", "paged_attention"}:
+        versions = (("first", LRMM_PATCHES, PA_PATCHES, probe_first),
+                    ("second", LRMM2_PATCHES, PA2_PATCHES, probe_second))
+        for name, lp, ap_, run in versions:
+            if (instrument(csrc / "lowrank_qmm.cu", lp, OUT / "lrmm.cu")
+                    and instrument(csrc / "paged_attention.cu", ap_,
+                                   OUT / "pa.cu")):
+                break
+        else:
+            print(f"phase_probe: {csrc} holds neither known version of "
+                  "lowrank_qmm and paged_attention", file=sys.stderr)
+            return 1
+        found["lowrank_qmm, paged_attention"] = name
+        sos += ["lrmm", "pa"]
+        runs.append(lambda timer, res, run=run: run(torch, cs, timer, res))
+    print("phase_probe: " + "; ".join(f"{k}: {v} version"
+                                      for k, v in found.items())
+          + f", from {csrc}")
+    build_probes(csrc, build, sos)
     res: dict = {}
-    run(torch, cs, cs.Timer(torch), res)
+    timer = cs.Timer(torch)
+    for run in runs:
+        run(timer, res)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi)
-    print(json.dumps({"version": name, "device": smi, "phases": res}))
+    print(json.dumps({"versions": found, "device": smi, "phases": res}))
     return 0
 
 
