@@ -22,7 +22,9 @@ through four phases, and exits non-zero, printing no result, if any fails:
    zeroed just before, must be > 0 after; then the paper's quantization-
    only baseline (W4A8 for every attention and MLP linear, the same W8A8
    lm head) serving the same requests with an fp32 pool, every linear on
-   `quant_matmul`; each serve once more under torch.profiler;
+   `quant_matmul`; the two plans' serves side by side (A B B A) with the
+   host time of a linear call under each, then each serve once more
+   under torch.profiler;
 4. parity: the compressed weights of both plans, copied to the CPU, serve
    4 short requests there (the kernels' plain versions) and on the card;
    the greedy tokens must be identical.
@@ -484,6 +486,55 @@ def profile_serve(torch, eng, reqs, sp, label: str):
           f"launches in {res.steps} steps = {ms / res.steps:.4f} ms a step")
 
 
+def host_us_per_call(torch, fn, reps: int = 200) -> float:
+    """Wall time of one call of `fn` in microseconds, over `reps` calls
+    issued back to back: what the Python around a launch costs the serve
+    loop, since the card finishes each launch long before the host has
+    issued the next one (unless a call waits for the card, which then
+    counts too)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def compare_plans(torch, engines, reqs, sp):
+    """The two plans' fp32-KV serves side by side in one process, in the
+    order A B B A (so that drift over the run falls on both alike), and
+    the host time of one decode-step linear call under each plan
+    (`apply_linear` on 8 rows: quantize, pad, wrapper, launch). Printed
+    only: the end-to-end metrics users see, apart from the card time
+    `profile_serve` reads."""
+    from repro_torch.models.layers import apply_linear
+
+    names = list(engines)
+    for label in names + names[::-1]:
+        eng = engines[label]
+        res = eng.serve(reqs, sp)
+        torch.cuda.synchronize()
+        print(f"[compare] {label}: TPOT p50 {res.tpot_p50 * 1e3:.2f} ms, "
+              f"TTFT p50 {res.ttft_p50 * 1e3:.1f} ms, "
+              f"{res.tokens_per_second:.1f} tok/s, wall "
+              f"{res.seconds / res.steps * 1e3:.2f} ms a step over "
+              f"{res.steps} steps")
+    for label in names:
+        eng = engines[label]
+        layer = eng._step_params["layers"][0]
+        for what, w in (("attn/wq", layer["attn"]["wq"]),
+                        ("mlp/up", layer["mlp"]["up"]),
+                        ("mlp/down", layer["mlp"]["down"])):
+            x = torch.randn((8, getattr(w, "w1", w).shape[0]),
+                            device=eng.device)
+            us = host_us_per_call(torch, lambda: apply_linear(x, w))
+            print(f"[compare] {label}: host {us:.1f} us per {what} call "
+                  f"({type(w).__name__}, 8 rows)")
+
+
 def last_logits(torch, eng, toks):
     """Logits after `toks`, from one prefill step on a fresh pool."""
     from repro_torch.models.transformer import unified_step
@@ -619,7 +670,6 @@ def main() -> int:
         check(failures, mixed.get(name, 0) > 0,
               f"kernel {name} was not launched on the mixed path")
     end_phase("engine", failures)
-    profile_serve(torch, eng, reqs, sp, "mixed kv16")
 
     # the quant-only baseline: every linear on quant_matmul
     failures = []
@@ -647,6 +697,9 @@ def main() -> int:
     check(failures, sum(shapes.values()) == quant.get("quant_matmul", 0),
           "quant_matmul launches outside the plan's linears")
     end_phase("baseline", failures)
+    compare_plans(torch, {"mixed kv16": eng, "quant-only kv16": qeng}, reqs,
+                  sp)
+    profile_serve(torch, eng, reqs, sp, "mixed kv16")
     profile_serve(torch, qeng, reqs, sp, "quant-only kv16")
     launches = {name: mixed.get(name, 0) + quant.get(name, 0)
                 for name in build.SOURCES}

@@ -26,19 +26,23 @@
 // - BM 16 at M <= 16 (decode): one strip, no padding rows beyond the
 //   mma's 16. BN narrows to 32 and C grows to 8 until the launch fills the
 //   card: K 512 -> N 512 runs 16 column tiles x 8 CTAs, each a 64-deep K
-//   slice. 8 warps split a strip's 8-column groups; where there are fewer
-//   groups than warps, warps share a group's depth. Wider M takes BM 64 or
-//   128 with 4 x 2 warps. Every tile fits two CTAs an SM.
+//   slice. Each warp of a strip takes a slab of 32 columns and KW warps
+//   share its depth. Wider M takes BM 64 or 128 with 4 x 2 warps. Every
+//   tile fits two CTAs an SM.
 // - Every tile streams through a ring of 3 shared-memory stages filled with
 //   16-byte cp.async copies issued two steps ahead: raw Xq rows and raw
 //   weight rows as they lie, packed bytes included. A strip takes each K
 //   step up to 16 KB of weights deep (the lm head's 64 KB a CTA in 4),
-//   since a step costs two barriers however small it is.
-// - From the ring, `to_col_layout` (common.cuh, shared with lowrank_qmm)
-//   unpacks 8 codes a word by shift-and-mask and transposes 4x4 byte blocks
-//   by byte permutes into the mma's "col" operand, with no bank conflicts.
-//   Products are int8 mma.sync m16n8k32 with s32 sums in registers, each
-//   fragment read once per 32-deep slice for all the warp's tiles.
+//   since a step costs a barrier however small it is.
+// - A strip builds its B fragments in registers straight from the raw rows
+//   (`strip_b`): a lane reads 4 rows of 4 columns (2 packed bytes,
+//   unpacked with `spread4`), transposes them with byte permutes, and so
+//   holds one fragment of each of 4 mma tiles whose columns interleave by
+//   4. Its rows are padded so that those reads are free of bank conflicts.
+//   Wider tiles, whose fragments serve many rows, rewrite each stage once
+//   with `to_col_layout` (common.cuh, shared with lowrank_qmm) into the
+//   mma's "col" operand. Products are int8 mma.sync m16n8k32 with s32 sums
+//   in registers.
 // - Where warps or a cluster split K, the warps' s32 partial sums meet in
 //   shared memory and each CTA pushes its sums into the CTA of its cluster
 //   that owns those columns (DSMEM, one cluster barrier); the owner adds
@@ -57,36 +61,67 @@ namespace {
 
 constexpr int THREADS = 256, WARPS = THREADS / 32, STAGES = 3;
 
-// The warp grid of a BM x BN tile: WM warps along M, each MT 16-row
-// tiles; the other warps split the BN / 8 column groups (NT each), and
-// KW of them share a group's depth when there are fewer groups than warps.
+// A strip's lane (g, t) reads, for k-quad t of a 32-deep slice, 4 raw
+// weight rows of 4 columns (or 2 packed bytes), starting at the quad's row
+// t (rotated). The strip's raw rows are padded to `ws` bytes, a multiple
+// of 16: the least that puts the 4 quads a warp reads at once on disjoint
+// banks.
+__host__ __device__ constexpr bool strip_conflict_free(int ws, int packed) {
+  const int width = packed ? 4 : 8;  // words the 8 lanes of a quad read
+  for (int j = 0; j < 4; ++j)
+    for (int t1 = 0; t1 < 4; ++t1)
+      for (int t2 = t1 + 1; t2 < 4; ++t2) {
+        const int a = (4 * t1 + ((j + t1) & 3)) * (ws / 4) % 32;
+        const int b = (4 * t2 + ((j + t2) & 3)) * (ws / 4) % 32;
+        const int d = (a - b + 32) % 32;
+        if (d < width || 32 - d < width) return false;
+      }
+  return true;
+}
+
+__host__ __device__ constexpr int strip_ws(int rb, int packed) {
+  int s = rb;
+  while (!strip_conflict_free(s, packed)) s += 16;
+  return s;
+}
+
+// The warp grid of a BM x BN tile. A 16-row strip gives each warp a slab
+// of 32 columns (NT = 4 mma tiles) and lets KW warps share a slab's depth;
+// its raw weight rows lie WS bytes apart (WSP packed). Wider tiles take
+// WM = 4 warps along M, each MT 16-row tiles, and split the BN / 8 column
+// groups (NT each) between the other 2 warps.
 template <int BM, int BN>
 struct Warps {
-  static constexpr int WM = BM >= 64 ? 4 : 1, MT = BM / 16 / WM;
+  static constexpr bool STRIP = BM == 16;
+  static constexpr int WM = STRIP ? 1 : 4, MT = BM / 16 / WM;
   static constexpr int WNK = WARPS / WM;
-  static constexpr int WN = BN / 8 < WNK ? BN / 8 : WNK;
-  static constexpr int NT = BN / 8 / WN, KW = WNK / WN;
+  static constexpr int WN = STRIP ? BN / 32 : WNK;
+  static constexpr int NT = STRIP ? 4 : BN / 8 / WN, KW = WNK / WN;
+  static constexpr int WS = STRIP ? strip_ws(BN, 0) : BN;
+  static constexpr int WSP = STRIP ? strip_ws(BN / 2, 1) : BN / 2;
 };
 
 // Byte offsets of one CTA's dynamic shared memory: the ring (as many
-// stages as the CTA has steps, at most STAGES), the transposed weight
-// tile, the tile's scales, the warps' s32 partial sums when warps or a
-// cluster split K, and the cluster's partials pushed here.
+// stages as the CTA has steps, at most STAGES), the transposed weight tile
+// (wider tiles only), the tile's scales, the warps' s32 partial sums when
+// warps or a cluster split K, and the cluster's partials pushed here.
 struct Layout {
   size_t stage, bt, sc, part, red, total;
 };
 
-__host__ __device__ inline Layout layout(int bm, int bn, int bk, int packed,
-                                         int c, int kw, int kslice) {
+template <int BM, int BN>
+__host__ __device__ inline Layout layout(int bk, int packed, int c,
+                                         int kslice) {
+  using W = Warps<BM, BN>;
   Layout l;
   const int steps = (kslice + bk - 1) / bk;
-  const int stages = steps < STAGES ? (steps > 0 ? steps : 1) : STAGES;
-  l.stage = (size_t)bm * (bk + 16) + (size_t)bk * (packed ? bn / 2 : bn);
+  const int stages = steps < STAGES ? steps : STAGES;
+  l.stage = (size_t)BM * (bk + 16) + (size_t)bk * (packed ? W::WSP : W::WS);
   l.bt = stages * l.stage;
-  l.sc = l.bt + (size_t)(bk / 4) * (bn + 8) * 4;
-  l.part = l.sc + (size_t)(bm + bn) * 4;
-  l.red = l.part + (c > 1 || kw > 1 ? (size_t)kw * bm * bn * 4 : 0);
-  l.total = l.red + (c > 1 ? (size_t)bm * bn * 4 : 0);
+  l.sc = l.bt + (W::STRIP ? 0 : (size_t)(bk / 4) * (BN + 8) * 4);
+  l.part = l.sc + (size_t)(BM + BN) * 4;
+  l.red = l.part + (c > 1 || W::KW > 1 ? (size_t)W::KW * BM * BN * 4 : 0);
+  l.total = l.red + (c > 1 ? (size_t)BM * BN * 4 : 0);
   return l;
 }
 
@@ -98,14 +133,44 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// A strip's B fragments of one 32-deep slice, straight from the raw weight
+// rows (row stride ws bytes; 32 columns from column `col`, two a byte when
+// packed): lane (g, t) takes columns col + 4g .. col + 4g + 3, so column g
+// of mma tile c is column col + 4g + c, and b[c] holds its K-values 4t..
+// 4t+3 and 16+4t..16+4t+3. A quad's 4 rows are read rotated by t (see
+// `strip_ws`), transposed by byte permutes, and rotated back.
+__device__ __forceinline__ void strip_b(int (&b)[4][2], const int8_t* raw,
+                                        int ws, int col, bool packed) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int8_t* row = raw + (16 * h + 4 * t + ((j + t) & 3)) * ws;
+      r[j] = packed ? rt::spread4(*reinterpret_cast<const uint16_t*>(
+                          row + col / 2 + 2 * g))
+                    : *reinterpret_cast<const uint32_t*>(row + col + 4 * g);
+    }
+    const int4 q = rt::transpose4(r);
+    const uint32_t v[4] = {static_cast<uint32_t>(q.x),
+                           static_cast<uint32_t>(q.y),
+                           static_cast<uint32_t>(q.z),
+                           static_cast<uint32_t>(q.w)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      b[c][h] = static_cast<int>(__funnelshift_l(v[c], v[c], 8 * t));
+  }
+}
+
 // One CTA: output rows m0.., columns n0.. of its tile, K rows
 // [rank * kslice, (rank + 1) * kslice) of its cluster's K.
 template <int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 2)
 qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
            const int8_t* __restrict__ wq, const float* __restrict__ sw,
-           float* __restrict__ y, int M, int K, int N, int ldw, int packed,
-           int BK, int kslice) {
+           float* __restrict__ y, int M, int K, int N, int packed, int BK,
+           int kslice) {
   using W = Warps<BM, BN>;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -118,11 +183,13 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int wm = warp / W::WNK, wn = warp % W::WNK % W::WN,
             kw = warp % W::WNK / W::WN;
   const int m0 = blockIdx.y * BM, n0 = (blockIdx.x / C) * BN;
+  // the chooser gives every CTA a K slice that is not empty
   const int k_lo = rank * kslice, k_hi = min(K, k_lo + kslice);
-  const int n_steps = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+  const int n_steps = (k_hi - k_lo + BK - 1) / BK;
   const int bnb = packed ? BN / 2 : BN, n0b = packed ? n0 / 2 : n0;
+  const int rowb = packed ? N / 2 : N, ws = packed ? W::WSP : W::WS;
   const int lda = BK + 16;
-  const Layout L = layout(BM, BN, BK, packed, C, W::KW, kslice);
+  const Layout L = layout<BM, BN>(BK, packed, C, kslice);
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* ring = reinterpret_cast<int8_t*>(smem);
   uint32_t* BTw = reinterpret_cast<uint32_t*>(smem + L.bt);
@@ -133,7 +200,7 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
   // Issue the copies of step s into ring stage s % STAGES (one commit
   // group per call, empty past the last step, so group counts stay even).
-  // Chunks past M, past the slice's K or past the weight's row are zeros.
+  // Chunks past M, past the slice's K or past N are zeros.
   auto issue = [&](int s) {
     if (s < n_steps) {
       int8_t* stg = ring + (s % STAGES) * L.stage;
@@ -148,9 +215,9 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       // cw divides THREADS: each thread keeps one 16-byte column chunk
       const int c = (tid % cw) * 16;
       for (int r = tid / cw; r < BK; r += THREADS / cw) {
-        const bool ok = k0 + r < k_hi && n0b + c < ldw;
-        rt::cp_async16(wt + r * bnb + c,
-                       ok ? wq + (size_t)(k0 + r) * ldw + n0b + c : wq, ok);
+        const bool ok = k0 + r < k_hi && n0b + c < rowb;
+        rt::cp_async16(wt + r * ws + c,
+                       ok ? wq + (size_t)(k0 + r) * rowb + n0b + c : wq, ok);
       }
     }
     rt::cp_async_commit();
@@ -178,23 +245,36 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     __syncthreads();  // step s landed everywhere; step s-1 is consumed
     issue(s + STAGES - 1);
     const int8_t* stg = ring + (s % STAGES) * L.stage;
+    const int8_t* wt = stg + BM * lda;
     const int kd = min(BK, (k_hi - k_lo - s * BK + 31) / 32 * 32);
-    rt::to_col_layout<THREADS>(BTw, stg + BM * lda, bnb, packed != 0, BK,
-                               BN);
-    __syncthreads();
-    rt::mma_tiles<W::MT, W::NT>(acc, stg + wm * W::MT * 16 * lda, lda,
-                                BTw, BN + 8, wn * W::NT * 8, kd, 32 * kw,
-                                W::KW);
+    if constexpr (W::STRIP) {
+      for (int kk = 32 * kw; kk < kd; kk += 32 * W::KW) {
+        int a[4], b[4][2];
+        const int8_t* ar = stg + g * lda + kk + 4 * t;
+        a[0] = *reinterpret_cast<const int*>(ar);
+        a[1] = *reinterpret_cast<const int*>(ar + 8 * lda);
+        a[2] = *reinterpret_cast<const int*>(ar + 16);
+        a[3] = *reinterpret_cast<const int*>(ar + 8 * lda + 16);
+        strip_b(b, wt + kk * ws, ws, wn * 32, packed != 0);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) rt::mma_s8(acc[0][c], a, b[c]);
+      }
+    } else {
+      rt::to_col_layout<THREADS>(BTw, wt, bnb, packed != 0, BK, BN);
+      __syncthreads();
+      rt::mma_tiles<W::MT, W::NT>(acc, stg + wm * W::MT * 16 * lda, lda,
+                                  BTw, BN + 8, wn * W::NT * 8, kd);
+    }
   }
 
-  if (C == 1 && W::KW == 1) {
-    // ---- epilogue straight from the fragments ---------------------
+  if (!W::STRIP && C == 1) {
+    // ---- epilogue straight from the fragments (wider tiles) ----------
 #pragma unroll
     for (int i = 0; i < W::MT; ++i) {
 #pragma unroll
       for (int j = 0; j < W::NT; ++j) {
         const int n = n0 + (wn * W::NT + j) * 8 + 2 * t;
-        if (n >= N) continue;  // N % 4 == 0, so n + 1 < N too
+        if (n >= N) continue;  // N % 32 == 0, so n + 1 < N too
         const float sw0 = sws[n - n0], sw1 = sws[n - n0 + 1];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -224,13 +304,22 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       const int row = (wm * W::MT + i) * 16 + g + 8 * h;
       if (row >= rows) continue;
       int* p = part + (kw * BM + row) * BN;
+      if constexpr (W::STRIP) {
+        // lane (g, t) holds columns 8t..8t+7 of its slab: columns 2t + e
+        // of tile c are slab columns 8t + 4e + c
 #pragma unroll
-      for (int j = 0; j < W::NT; ++j)
-        *reinterpret_cast<int2*>(p + (wn * W::NT + j) * 8 + 2 * t) =
-            make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<int4*>(p + wn * 32 + 8 * t + 4 * e) =
+              make_int4(acc[i][0][2 * h + e], acc[i][1][2 * h + e],
+                        acc[i][2][2 * h + e], acc[i][3][2 * h + e]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < W::NT; ++j)
+          *reinterpret_cast<int2*>(p + (wn * W::NT + j) * 8 + 2 * t) =
+              make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
     }
   }
-  rt::cp_async_wait<0>();  // the scales, in a CTA whose K slice is empty
   __syncthreads();
   if (C == 1) {
     for (int i = tid; i < rows * BN; i += THREADS) {
@@ -269,9 +358,9 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
 template <int BM, int BN>
 int launch(const int8_t* xq, const float* sx, const int8_t* wq,
-           const float* sw, float* y, int M, int K, int N, int ldw,
-           int packed, int bk, int C, int kslice, cudaStream_t stream) {
-  const Layout L = layout(BM, BN, bk, packed, C, Warps<BM, BN>::KW, kslice);
+           const float* sw, float* y, int M, int K, int N, int packed,
+           int bk, int C, int kslice, cudaStream_t stream) {
+  const Layout L = layout<BM, BN>(bk, packed, C, kslice);
   auto kern = qmm_kernel<BM, BN>;
   // raise the kernel's dynamic shared memory limit once, to the most any
   // launch has asked for
@@ -296,7 +385,7 @@ int launch(const int8_t* xq, const float* sx, const int8_t* wq,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xq, sx, wq, sw, y, M, K, N,
-                                     ldw, packed, bk, kslice);
+                                     packed, bk, kslice);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -314,26 +403,29 @@ extern "C" long long qmm_smem_bytes(int bm, int bn, int bk, int packed,
 #define QMM_SMEM(BM, BN)                                                    \
   if (bm == BM && bn == BN)                                                 \
     return static_cast<long long>(                                          \
-        layout(BM, BN, bk, packed, c, Warps<BM, BN>::KW, kslice).total);
+        layout<BM, BN>(bk, packed, c, kslice).total);
   QMM_TILES(QMM_SMEM)
 #undef QMM_SMEM
   return -1;
 }
 
-// Shapes: K % 16 == 0, N % 4 == 0; weight rows of ldw bytes, ldw % 16 ==
-// 0 and ldw >= N (N / 2 packed), the bytes past N zero; xq and wq 16-byte
-// aligned. (bm, bn) one of QMM_TILES; bk % 32 == 0; kslice % 32 == 0 with
-// c * kslice >= K; c in {1, 2, 4, 8} with bn / c even. The grid is
-// c * ceil(N / bn) CTAs along x by ceil(M / bm) along y. Launches on
-// `stream`; returns the launch's CUDA error.
+// Shapes: K % 16 == 0, N % 32 == 0 (weight rows of N bytes, N / 2 packed:
+// whole 16-byte chunks); xq and wq 16-byte aligned. (bm, bn) one of
+// QMM_TILES; bk % 32 == 0; kslice % 32 == 0 with c * kslice >= K >
+// (c - 1) * kslice (no CTA's K slice is empty); c in {1, 2, 4, 8} with
+// bn / c even. The grid is c * ceil(N / bn) CTAs along x by ceil(M / bm)
+// along y. Launches on `stream`; returns the launch's CUDA error.
 extern "C" int qmm_launch(const int8_t* xq, const float* sx,
                           const int8_t* wq, const float* sw, float* y, int M,
-                          int K, int N, int ldw, int packed, int bm, int bn,
-                          int bk, int c, int kslice, void* stream) {
+                          int K, int N, int packed, int bm, int bn, int bk,
+                          int c, int kslice, void* stream) {
+  if (K % 16 || N % 32 || bk % 32 || kslice % 32 || c * kslice < K ||
+      (c - 1) * kslice >= K)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QMM_CASE(BM, BN)                                                    \
   if (bm == BM && bn == BN)                                                 \
-    return launch<BM, BN>(xq, sx, wq, sw, y, M, K, N, ldw, packed, bk, c,   \
+    return launch<BM, BN>(xq, sx, wq, sw, y, M, K, N, packed, bk, c,        \
                           kslice, s);
   QMM_TILES(QMM_CASE)
 #undef QMM_CASE

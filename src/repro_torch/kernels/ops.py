@@ -6,14 +6,12 @@ and call the kernel wrappers, which launch the CUDA kernel on CUDA tensors
 and run the plain version on CPU tensors.
 
 Padding: the CUDA kernels read activations 16 bytes at a time, so K pads
-to a multiple of 16. `quant_matmul` writes Y two columns at a time from
-4-column groups (N pads to 4; it pads weight rows to 16 bytes itself
-where needed); `lowrank_qmm` copies whole 16-byte rows of 32 packed
-columns with cp.async (R and N pad to 32). Padding is in the packed domain where
+to a multiple of 16. Both copy weight rows in whole 16-byte chunks with
+cp.async (16 int8 or 32 packed W4 columns), so `quant_matmul`'s N and
+`lowrank_qmm`'s R and N pad to 32. Padding is in the packed domain where
 a factor is packed (zero bytes are zero codes) with scale 1, so it is
 exact: a zero-code rank column adds 0 to T and to the row absmax. The
-TPU's 128/256 padding and its packed-axis demotion are not needed: the
-CUDA kernels take any packed axis of even width.
+TPU's 128/256 padding and its packed-axis demotion are not needed.
 """
 from __future__ import annotations
 
@@ -105,7 +103,7 @@ def _qmm_args(xq, sx, wv, sw, packed):
     """quant_matmul's arguments, padded for the CUDA kernel on CUDA."""
     if _on_cuda(xq):
         n = wv.shape[1] * 2 if packed else wv.shape[1]
-        kp, np_ = _up(xq.shape[1], 16), _up(n, 4)
+        kp, np_ = _up(xq.shape[1], 16), _up(n, 32)
         xq = _pad(xq, xq.shape[0], kp).contiguous()
         wv = _pad(wv, kp, np_ // 2 if packed else np_).contiguous()
         sw = _pad(sw, 1, np_, 1.0).contiguous()

@@ -12,7 +12,6 @@ import ctypes
 import typing
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import build
@@ -21,7 +20,7 @@ from repro_torch.kernels.ref import quant_matmul_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qmm_launch": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P)),
+                        _I, _P)),
     "qmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I, _I)),
 }
 CLUSTER = 8            # CTAs per cluster at most (the portable maximum)
@@ -61,11 +60,12 @@ def choose_tiles(m: int, k: int, n: int, packed: bool, num_sms: int,
     else 128. bn: 128 columns, halved (to 32 for a strip, 64 for wider
     tiles) while the tiles alone leave SMs idle. cluster: doubled (to 8)
     while twice the CTAs still fit one wave and each CTA keeps a K slice
-    of at least 64 rows. bk: a strip takes up to STRIP_STAGE weight bytes
-    of its slice a step (a step costs two barriers however small), wider
-    tiles 128 rows; bk halves until a CTA fits two to an SM."""
-    if k <= 0 or n <= 0 or m < 0 or k % 16 or n % 4:
-        raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 4 "
+    of at least 64 rows, then halved while the last CTA's slice would be
+    empty (K 528 at M 8). bk: a strip takes up to STRIP_STAGE weight
+    bytes of its slice a step (a step costs a barrier however small),
+    wider tiles 128 rows; bk halves until a CTA fits two to an SM."""
+    if k <= 0 or n <= 0 or m < 0 or k % 16 or n % 32:
+        raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 32 "
                          f"== 0, got K={k} N={n}")
     bm = 16 if m <= 16 else 64 if m <= 256 else 128
     rows = max(1, -(-m // bm))
@@ -78,6 +78,9 @@ def choose_tiles(m: int, k: int, n: int, packed: bool, num_sms: int,
            and k >= 2 * c * 64):
         c *= 2
     kslice = -(-k // (32 * c)) * 32
+    while (c - 1) * kslice >= k:    # no CTA's K slice may be empty
+        c //= 2
+        kslice = -(-k // (32 * c)) * 32
     bnb = bn // 2 if packed else bn
     bk = min(STRIP_STAGE // bnb, kslice) if bm == 16 else 128
     while smem_bytes(bm, bn, bk, int(packed), c, kslice) > SMEM_TWO_PER_SM:
@@ -110,38 +113,33 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
     """Y[M, N] f32 = (Xq @ Wq as f32) * sx * sw.
 
     xq (M, K) int8; sx (M, 1) f32; wq (K, N) int8, or (K, N/2) packed W4
-    nibbles along N when w_packed; sw (1, N) f32. The CUDA kernel needs
-    K % 16 == 0 and N % 4 == 0 (`ops.qmm` pads to that). It copies weight
-    rows 16 bytes at a time, so a weight whose rows are not a multiple of
-    16 bytes is copied here into zero-padded rows (no serving width of the
-    repository's models needs that)."""
+    nibbles along N when w_packed; sw (1, N) f32. The CUDA kernel copies
+    whole 16-byte chunks of weight rows, so it needs K % 16 == 0 and
+    N % 32 == 0 (`ops.qmm` pads to that)."""
     if xq.device.type == "cpu":
         return quant_matmul_plain(xq, sx, wq, sw, w_packed=w_packed)
     if xq.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cuda or cpu, not {xq.device}")
     m, k = xq.shape
     n = wq.shape[1] * 2 if w_packed else wq.shape[1]
-    if k % 16 or n % 4:
-        raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 4 "
+    if k % 16 or n % 32:
+        raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 32 "
                          f"== 0, got K={k} N={n}")
     dev = xq.device
     _check(xq, "xq", torch.int8, (m, k), dev, align=16)
     _check(sx, "sx", torch.float32, (m, 1), dev)
-    _check(wq, "wq", torch.int8, (k, wq.shape[1]), dev)
+    _check(wq, "wq", torch.int8, (k, wq.shape[1]), dev, align=16)
     _check(sw, "sw", torch.float32, (1, n), dev)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y
-    if wq.shape[1] % 16:
-        wq = F.pad(wq, (0, -wq.shape[1] % 16))
-    _check(wq, "wq", torch.int8, (k, wq.shape[1]), dev, align=16)
     lib = build.load("quant_matmul", _SIGNATURES)
     tl = choose_tiles(m, k, n, w_packed, build.sm_count(dev.index or 0),
                       lib.qmm_smem_bytes)
     err = lib.qmm_launch(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
-                         sw.data_ptr(), y.data_ptr(), m, k, n, wq.shape[1],
-                         int(w_packed), tl.bm, tl.bn, tl.bk, tl.cluster,
-                         tl.kslice, build.stream_handle(dev))
+                         sw.data_ptr(), y.data_ptr(), m, k, n, int(w_packed),
+                         tl.bm, tl.bn, tl.bk, tl.cluster, tl.kslice,
+                         build.stream_handle(dev))
     build.check(err, "quant_matmul")
     build.LAUNCHES["quant_matmul"] += 1
     build.LAUNCH_SHAPES["quant_matmul", k, n] += 1

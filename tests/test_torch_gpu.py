@@ -39,6 +39,14 @@ def _uniform(rng, shape, lo, hi):
     return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
 
 
+def _qmm_padded(xq, sx, wq, sw, packed):
+    """The kernel on the arguments `ops.qmm` gives it (K padded to 16, N
+    to 32, with zero codes and unit scales), cut back to N columns."""
+    n = sw.shape[1]
+    return qm.quant_matmul(*ops._qmm_args(xq, sx, wq, sw, packed),
+                           w_packed=packed)[:, :n]
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("m,k,n", [(8, 512, 2048), (100, 96, 36),
                                    (3, 16, 4)])
@@ -50,11 +58,21 @@ def test_quant_matmul_kernel_equals_plain(cuda, packed, m, k, n):
     wq = quant.pack_int4(w) if packed else w
     sw = _uniform(rng, (1, n), 0.01, 1).to(cuda)
     before = build.LAUNCHES["quant_matmul"]
-    y = qm.quant_matmul(xq, sx, wq, sw, w_packed=packed)
+    y = _qmm_padded(xq, sx, wq, sw, packed)
     torch.cuda.synchronize()
     assert build.LAUNCHES["quant_matmul"] == before + 1
     assert torch.equal(y, qm.quant_matmul_plain(xq, sx, wq, sw,
                                                 w_packed=packed))
+
+
+def test_quant_matmul_refuses_unpadded_rows(cuda):
+    """Weight rows that are not whole 16-byte chunks are refused, not
+    copied: padding is `ops.qmm`'s."""
+    xq = torch.zeros((8, 512), dtype=torch.int8, device=cuda)
+    w = torch.zeros((512, 36), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="N % 32"):
+        qm.quant_matmul(xq, torch.ones((8, 1), device=cuda), w,
+                        torch.ones((1, 36), device=cuda))
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -62,8 +80,9 @@ def test_quant_matmul_kernel_equals_plain(cuda, packed, m, k, n):
     (8, 512, 512),      # decode strip, K split over a cluster of 8 CTAs
     (8, 2048, 512),     # K 2048: 256-row slices
     (1, 512, 32000),    # the lm head: strip, no cluster, 250 column tiles
+    (8, 528, 512),      # K 528: the cluster shrinks so no slice is empty
     (16, 512, 2080),    # ragged N against the strip's tiles
-    (17, 96, 36),       # 64-row tile; rows of 36 (18 packed) bytes
+    (17, 96, 36),       # 64-row tile; N 36 launched padded to 64
     (256, 512, 512),    # 64-row tiles, K split over clusters of 4
     (2048, 512, 2048),  # wide prefill tile, 128 rows
     (300, 2048, 544),   # ragged M and N against 128 x 64 tiles
@@ -79,10 +98,11 @@ def test_quant_matmul_tiles_equal_plain(cuda, packed, m, k, n):
     w = _codes(rng, (k, n), 4 if packed else 8).to(cuda)
     wq = quant.pack_int4(w) if packed else w
     sw = _uniform(rng, (1, n), 0.001, 0.01).to(cuda)
-    before = build.LAUNCH_SHAPES["quant_matmul", k, n]
-    y = qm.quant_matmul(xq, sx, wq, sw, w_packed=packed)
+    np_ = -(-n // 32) * 32
+    before = build.LAUNCH_SHAPES["quant_matmul", k, np_]
+    y = _qmm_padded(xq, sx, wq, sw, packed)
     torch.cuda.synchronize()
-    assert build.LAUNCH_SHAPES["quant_matmul", k, n] == before + (m > 0)
+    assert build.LAUNCH_SHAPES["quant_matmul", k, np_] == before + (m > 0)
     assert tuple(y.shape) == (m, n)
     assert torch.equal(y, qm.quant_matmul_plain(xq, sx, wq, sw,
                                                 w_packed=packed))

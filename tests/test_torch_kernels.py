@@ -318,24 +318,46 @@ def test_quant_matmul_plain_matches_pallas_interpret(packed, m, k, n,
     np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
 
 
+def _strip_ws(rb, packed):
+    """quant_matmul.cu's `strip_ws`: a strip's raw weight rows padded (in
+    16-byte steps) until the 4 k-quads a warp reads at once, each starting
+    at its row t, fall on disjoint banks."""
+    width = 4 if packed else 8
+    s = rb
+    while True:
+        ok = True
+        for j in range(4):
+            for t1 in range(4):
+                for t2 in range(t1 + 1, 4):
+                    a = (4 * t1 + ((j + t1) & 3)) * (s // 4) % 32
+                    b = (4 * t2 + ((j + t2) & 3)) * (s // 4) % 32
+                    d = (a - b) % 32
+                    ok &= not (d < width or 32 - d < width)
+        if ok:
+            return s
+        s += 16
+
+
 def quant_smem_bytes(bm, bn, bk, packed, c, kslice):
     """Shared memory of one CTA: quant_matmul.cu's `layout` (a ring of as
     many stages as the CTA has K steps, at most 3, each an Xq tile with
-    rows padded by 16 bytes and a raw weight tile; the transposed tile;
-    the tile's scales; the warps' partial sums when warps or a cluster
-    split K; the cluster's pushed partials)."""
-    wnk = 8 // (4 if bm >= 64 else 1)
-    kw = wnk // (bn // 8) if bn // 8 < wnk else 1
-    stages = min(3, max(1, -(-kslice // bk)))
-    stage = bm * (bk + 16) + bk * (bn // 2 if packed else bn)
+    rows padded by 16 bytes and a raw weight tile, whose rows a strip pads
+    against bank conflicts; a wider tile's transposed copy; the tile's
+    scales; the warps' partial sums when warps or a cluster split K; the
+    cluster's pushed partials)."""
+    strip = bm == 16
+    kw = 8 // (bn // 32) if strip else 1
+    rb = bn // 2 if packed else bn
+    stages = min(3, -(-kslice // bk))
+    stage = bm * (bk + 16) + bk * (_strip_ws(rb, packed) if strip else rb)
+    bt = 0 if strip else bk // 4 * (bn + 8) * 4
     part = kw * bm * bn * 4 if c > 1 or kw > 1 else 0
     red = bm * bn * 4 if c > 1 else 0
-    return (stages * stage + bk // 4 * (bn + 8) * 4 + (bm + bn) * 4 + part
-            + red)
+    return stages * stage + bt + (bm + bn) * 4 + part + red
 
 
 QMM_SHAPES = [(512, 512), (512, 2048), (2048, 512), (512, 32000),
-              (512, 544), (96, 36)]
+              (512, 544), (96, 36), (528, 512)]
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -343,10 +365,13 @@ QMM_SHAPES = [(512, 512), (512, 2048), (2048, 512), (512, 32000),
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 256, 2048])
 def test_quant_tile_choice(m, k, n, packed):
     """A 16-row strip at M <= 16 and wider tiles above; K slices that
-    cover K once; every column of Y written by exactly one CTA of its
-    cluster (N 544 and 36 are ragged against every tile width); two CTAs'
-    shared memory on an SM; the decode shapes of the serving path fill
-    the card (132 SMs) by splitting K, the lm head needs no split."""
+    cover K once, none of them empty; every column of Y written by
+    exactly one CTA of its cluster (N 544 and 36, launched at the width
+    `ops.qmm` pads them to, 544 and 64, are ragged against the tile
+    widths); two CTAs' shared memory on an SM; the decode shapes of the
+    serving path fill the card (132 SMs) by splitting K, the lm head
+    needs no split."""
+    n = -(-n // 32) * 32
     t = tqm.choose_tiles(m, k, n, packed, 132, quant_smem_bytes)
     assert t.bm == (16 if m <= 16 else 64 if m <= 256 else 128)
     assert t.bn in ((32, 64, 128) if t.bm == 16 else (64, 128))
@@ -368,8 +393,10 @@ def test_quant_tile_choice(m, k, n, packed):
 def test_quant_tile_choice_refuses():
     with pytest.raises(ValueError, match="K % 16"):
         tqm.choose_tiles(8, 500, 512, False, 132, quant_smem_bytes)
-    with pytest.raises(ValueError, match="N % 4"):
+    with pytest.raises(ValueError, match="N % 32"):
         tqm.choose_tiles(8, 512, 510, False, 132, quant_smem_bytes)
+    with pytest.raises(ValueError, match="N % 32"):
+        tqm.choose_tiles(8, 512, 36, False, 132, quant_smem_bytes)
     with pytest.raises(ValueError, match="shared memory"):
         tqm.choose_tiles(8, 512, 512, True, 132, lambda *tiles: 1 << 30)
 

@@ -31,7 +31,7 @@ from repro_torch.kernels.ref import int_matmul
 def _split_k_qmm(xq, sx, wq, sw, packed, tiles):
     """quant_matmul.cu's arithmetic over its partition: for each bm x bn
     tile, CTA r of its cluster multiplies K rows [r * kslice, (r + 1) *
-    kslice) (the last slice short or empty) into int32 partial sums, the
+    kslice) (the last slice short, none empty) into int32 partial sums, the
     owner adds the cluster's partials in int32 (exact: every sum is below
     K * 127 * 127 < 2**31) and converts once, ((float)acc * sx) * sw. A
     packed weight is unpacked first, as the kernel does in shared memory."""
@@ -56,26 +56,32 @@ def _split_k_qmm(xq, sx, wq, sw, packed, tiles):
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("m,k,n", [(8, 512, 512), (8, 2048, 544),
-                                   (37, 96, 36), (300, 512, 2080)])
+                                   (37, 96, 36), (300, 512, 2080),
+                                   (8, 528, 512)])
 def test_split_k_quant_matmul_equals_reference(packed, m, k, n):
     """Split-K clusters (8 CTAs at M 8), ragged N against every tile
-    width (544, 36, 2080) and K slices that end past K."""
+    width (544, 36, 2080) and K slices that end past K (K 528: a cluster
+    of 4, since 8 would leave a CTA no rows)."""
     rng = np.random.default_rng(m + k + n + packed)
     qm = 7 if packed else 127
     xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
     sx = rng.uniform(0.01, 1, (m, 1)).astype(np.float32)
     w = rng.integers(-qm, qm + 1, (k, n)).astype(np.int8)
     sw = rng.uniform(0.001, 0.01, (1, n)).astype(np.float32)
-    # shared memory only caps bk, which the arithmetic ignores
-    tiles = tqm.choose_tiles(m, k, n, packed, 132, lambda *tiles: 0)
+    # shared memory only caps bk, which the arithmetic ignores; N is
+    # launched padded to 32, as `ops.qmm` pads it
+    tiles = tqm.choose_tiles(m, k, -(-n // 32) * 32, packed, 132,
+                             lambda *tiles: 0)
     wq = pack_int4(torch.from_numpy(w)) if packed else torch.from_numpy(w)
     y = _split_k_qmm(torch.from_numpy(xq), torch.from_numpy(sx), wq,
                      torch.from_numpy(sw), packed, tiles)
     ref = jax.jit(jref.quant_matmul_ref)(*(jnp.asarray(a)
                                            for a in (xq, sx, w, sw)))
     np.testing.assert_array_equal(y.numpy(), np.asarray(ref))
-    if m == 8 and n == 512:
+    if (m, k, n) == (8, 512, 512):
         assert tiles.cluster == 8
+    if k == 528:
+        assert tiles.cluster == 4
 
 
 @functools.partial(jax.jit, static_argnums=6)

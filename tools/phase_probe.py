@@ -228,8 +228,9 @@ QMM1_PATCHES = [
 
 # quant_matmul, second version (split-K clusters, cp.async ring): per
 # CTA, the waits (ring and barrier at the head of each step), the
-# transpose/unpack into the mma layout and its barrier, the products,
-# the reductions (the warps' sums through shared memory, the DSMEM
+# transpose/unpack into the mma layout and its barrier (wider tiles; a
+# strip builds its fragments in registers, inside the products), the
+# products, the reductions (the warps' sums through shared memory, the DSMEM
 # pushes and the cluster barrier; 0 where a CTA writes its own sums) and
 # the epilogue.
 QMM2_END = ("  if (threadIdx.x == 0) {\n"
@@ -241,19 +242,20 @@ QMM2_END = ("  if (threadIdx.x == 0) {\n"
 
 QMM2_PATCHES = [
     ("namespace {\n", STAMP),
-    ("  using W = Warps<BM, BN>;\n",
+    ("  using W = Warps<BM, BN>;\n  cg::cluster_group",
      "  using W = Warps<BM, BN>;\n"
      "  const unsigned long long t_in = gt();\n"
-     "  unsigned long long pw = 0, pt = 0, pm = 0, pr = 0, a0, a1;\n"),
+     "  unsigned long long pw = 0, pt = 0, pm = 0, pr = 0, a0, a1;\n"
+     "  cg::cluster_group"),
     ("  for (int s = 0; s < n_steps; ++s) {\n",
      "  for (int s = 0; s < n_steps; ++s) {\n    a0 = gt();\n"),
     ("    issue(s + STAGES - 1);\n",
      "    issue(s + STAGES - 1);\n    a1 = gt(); pw += a1 - a0; a0 = a1;\n"),
-    ("                               BN);\n    __syncthreads();\n",
-     "                               BN);\n    __syncthreads();\n"
-     "    a1 = gt(); pt += a1 - a0; a0 = a1;\n"),
-    ("                                W::KW);\n  }\n",
-     "                                W::KW);\n    pm += gt() - a0;\n  }\n"
+    ("packed != 0, BK, BN);\n      __syncthreads();\n",
+     "packed != 0, BK, BN);\n      __syncthreads();\n"
+     "      a1 = gt(); pt += a1 - a0; a0 = a1;\n"),
+    ("wn * W::NT * 8, kd);\n    }\n  }\n",
+     "wn * W::NT * 8, kd);\n    }\n    pm += gt() - a0;\n  }\n"
      "  a0 = gt();\n"),
     ("    return;\n  }\n\n  // ---- reductions",
      QMM2_END + "    return;\n  }\n\n  // ---- reductions"),
