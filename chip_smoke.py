@@ -6,13 +6,17 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It drives the port (`src/repro_torch`; nothing of jax or of the JAX package)
-through four phases, and exits non-zero, printing no result, if any fails:
+through these phases, and exits non-zero, printing no result, if any
+fails:
 
 1. build: compile every CUDA kernel from `src/repro_torch/kernels/csrc`
    (one nvcc per source, all started together);
 2. kernels: each kernel against its plain PyTorch version at the serving
    path's shapes -- the integer kernels bit-equal, paged attention within
-   1e-5, also with key splits that end mid-block -- timed beside its
+   1e-5, also with key splits that end mid-block; with the speculative
+   path's shapes: the draft's truncated cascades (R 128, 160, 192, and
+   A6), the verify pass's (M 64 at R 256, the lm head at M 48, attention
+   spans of 1-5 tokens in a W 8 bucket) -- timed beside its
    plain version, a PyTorch library yardstick and the least time the card
    could take (its bound);
 3. engine: opus-mt at full width, compressed by the port with a mixed plan
@@ -25,9 +29,21 @@ through four phases, and exits non-zero, printing no result, if any fails:
    `quant_matmul`; the two plans' serves side by side (A B B A) with the
    host time of a linear call under each, then each serve once more
    under torch.profiler;
+   sampling: the mixed plan serving the 16 requests sampled (temperature
+   0.8, top-k 50, top-p 0.9, seed 7; four at temperature 0, which must
+   give phase 3's tokens), again (identical), with the prefix cache off
+   (identical), and with eos ids and stop sequences on four requests
+   (each output `match_stop_host` of its untruncated run, and streamed
+   alike through on_token);
+   speculation: the mixed plan with DraftSpec(k=4, rank_fraction=0.5),
+   greedy, fp32 and int8 KV: phase 3's tokens, with the draft's R 128
+   cascades launched 4 x 72 times a drafting round; plain and speculative
+   serves timed A B B A; then the served model as its own draft (rank
+   fraction 1.0), which accepts its drafts: phase 3's tokens again;
 4. parity: the compressed weights of both plans, copied to the CPU, serve
    4 short requests there (the kernels' plain versions) and on the card;
-   the greedy tokens must be identical.
+   the greedy tokens must be identical, and so must the mixed plan's
+   seeded sampled and speculative tokens.
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -56,6 +72,9 @@ TOL_ATTN = 1e-5          # attention: fp32 inputs, sums in another order
 REPS = 20
 
 
+T_START = time.perf_counter()
+
+
 class PhaseFailed(Exception):
     pass
 
@@ -70,7 +89,7 @@ def end_phase(name: str, failures: list) -> None:
     if failures:
         raise PhaseFailed(f"phase {name}: {len(failures)} check(s) failed: "
                           + "; ".join(failures[:5]))
-    print(f"[{name}] ok")
+    print(f"[{name}] ok ({time.perf_counter() - T_START:.0f} s since start)")
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -151,43 +170,46 @@ def check_quant_matmul(torch, timer, failures):
     g = torch.Generator(device="cuda").manual_seed(1)
     rows, worst = [], 0.0
     print("  quant_matmul: M K N packed | kernel_ms plain_ms library_ms "
-          "bound_ms (bound by)")
-    for packed in (False, True):
-        for m in (8, 256, 2048):
-            for k, n in ((512, 512), (512, 2048), (2048, 512),
-                         (512, 32000)):
-                qm = 7 if packed else 127
-                xq = torch.randint(-127, 128, (m, k), generator=g,
-                                   device="cuda", dtype=torch.int8)
-                sx = torch.rand((m, 1), generator=g, device="cuda") + 0.01
-                w = torch.randint(-qm, qm + 1, (k, n), generator=g,
-                                  device="cuda", dtype=torch.int8)
-                wq = pack_int4(w) if packed else w
-                sw = torch.rand((1, n), generator=g, device="cuda") * 0.01
-                y = quant_matmul(xq, sx, wq, sw, w_packed=packed)
-                ref = quant_matmul_plain(xq, sx, wq, sw, w_packed=packed)
-                torch.cuda.synchronize()
-                err = float((y - ref).abs().max())
-                worst = max(worst, err)
-                check(failures, torch.equal(y, ref),
-                      f"quant_matmul M={m} K={k} N={n} packed={packed} "
-                      f"differs from plain (max abs {err})")
-                wc = unpack_int4(wq) if packed else wq
-                t_k = timer(lambda: quant_matmul(xq, sx, wq, sw,
-                                                 w_packed=packed))
-                t_p = timer(lambda: quant_matmul_plain(xq, sx, wq, sw,
-                                                       w_packed=packed))
-                t_l = library_ms(timer, lambda: int_mm(torch, xq, wc).float()
-                                 * sx * sw)
-                nbytes = qmm_hbm_bytes(m, QuantizedTensor(
-                    wq, sw, 4 if packed else 8, 0, packed=packed))
-                b_ms, b_by = bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
-                print(f"    {m:5d} {k:4d} {n:5d} {packed!s:5} | {t_k:.4f} "
-                      f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
-                      f"{b_ms:.4f} ({b_by})")
-                rows.append(dict(m=m, k=k, n=n, packed=packed, ms=t_k,
-                                 plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                                 bound_by=b_by))
+          "bound_us (bound by)")
+    cases = [(packed, m, k, n) for packed in (False, True)
+             for m in (8, 256, 2048)
+             for k, n in ((512, 512), (512, 2048), (2048, 512),
+                          (512, 32000))]
+    # the speculative verify's lm head: k + 2 = 6 positions of 8 rows
+    cases.append((False, 48, 512, 32000))
+    for packed, m, k, n in cases:
+        qm = 7 if packed else 127
+        xq = torch.randint(-127, 128, (m, k), generator=g,
+                           device="cuda", dtype=torch.int8)
+        sx = torch.rand((m, 1), generator=g, device="cuda") + 0.01
+        w = torch.randint(-qm, qm + 1, (k, n), generator=g,
+                          device="cuda", dtype=torch.int8)
+        wq = pack_int4(w) if packed else w
+        sw = torch.rand((1, n), generator=g, device="cuda") * 0.01
+        y = quant_matmul(xq, sx, wq, sw, w_packed=packed)
+        ref = quant_matmul_plain(xq, sx, wq, sw, w_packed=packed)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        worst = max(worst, err)
+        check(failures, torch.equal(y, ref),
+              f"quant_matmul M={m} K={k} N={n} packed={packed} "
+              f"differs from plain (max abs {err})")
+        wc = unpack_int4(wq) if packed else wq
+        t_k = timer(lambda: quant_matmul(xq, sx, wq, sw,
+                                         w_packed=packed))
+        t_p = timer(lambda: quant_matmul_plain(xq, sx, wq, sw,
+                                               w_packed=packed))
+        t_l = library_ms(timer, lambda: int_mm(torch, xq, wc).float()
+                         * sx * sw)
+        nbytes = qmm_hbm_bytes(m, QuantizedTensor(
+            wq, sw, 4 if packed else 8, 0, packed=packed))
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+        print(f"    {m:5d} {k:4d} {n:5d} {packed!s:5} | {t_k:.4f} "
+              f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
+              f"{b_ms * 1e3:.4f} ({b_by})")
+        rows.append(dict(m=m, k=k, n=n, packed=packed, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         bound_by=b_by))
     # the serving path's call: the W8 lm head, one row per batch slot
     main = next(r for r in rows if (r["m"], r["n"], r["packed"]) ==
                 (8, 32000, False))
@@ -196,8 +218,8 @@ def check_quant_matmul(torch, timer, failures):
 
 def check_lowrank_qmm(torch, timer, failures):
     from repro_torch.core.itera import LowRankQ
-    from repro_torch.core.quant import (QuantizedTensor, pack_int4, qmax,
-                                        unpack_int4)
+    from repro_torch.core.quant import (QuantizedTensor, pack_int4, packable,
+                                        qmax, unpack_int4)
     from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
                                                  lowrank_qmm_plain)
     from repro_torch.kernels.ops import lrmm_hbm_bytes, quantize_acts
@@ -206,71 +228,77 @@ def check_lowrank_qmm(torch, timer, failures):
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, worst = [], 0.0
     print("  lowrank_qmm: M K R N act_wl | kernel_ms plain_ms library_ms "
-          "bound_ms (bound by)")
-    for act_wl in (8, 4):
-        for m in (8, 2048):
-            for k, r, n in ((512, 256, 512), (512, 256, 2048),
-                            (2048, 256, 512)):
-                x = torch.randn((m, k), generator=g, device="cuda")
-                xq, sx = quantize_acts(x, qmax(act_wl))
-                w1 = pack_int4(torch.randint(-7, 8, (k, r), generator=g,
-                                             device="cuda",
-                                             dtype=torch.int8))
-                w2 = pack_int4(torch.randint(-7, 8, (r, n), generator=g,
-                                             device="cuda",
-                                             dtype=torch.int8))
-                s1 = torch.rand((1, r), generator=g, device="cuda") * 0.1
-                s2 = torch.rand((r, 1), generator=g, device="cuda") * 0.1
-                args = (xq, sx, w1, s1, w2, s2)
-                kw = dict(w1_packed=True, w2_packed=True,
-                          act_qmax=qmax(act_wl))
-                if m == 8:
-                    # the cascade property: no (M, R) buffer, only Y
-                    lowrank_qmm(*args, **kw)
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    base = torch.cuda.memory_allocated()
-                    y = lowrank_qmm(*args, **kw)
-                    torch.cuda.synchronize()
-                    grown = torch.cuda.max_memory_allocated() - base
-                    check(failures, grown <= -(-m * n * 4 // 512) * 512,
-                          f"lowrank_qmm allocated {grown} bytes beyond "
-                          f"Y ({m * n * 4})")
-                y = lowrank_qmm(*args, **kw)
-                ref = lowrank_qmm_plain(*args, **kw)
-                torch.cuda.synchronize()
-                err = float((y - ref).abs().max())
-                worst = max(worst, err)
-                check(failures, torch.equal(y, ref),
-                      f"lowrank_qmm M={m} K={k} R={r} N={n} A{act_wl} "
-                      f"differs from plain (max abs {err})")
-                w1c, w2c = unpack_int4(w1), unpack_int4(w2)
+          "bound_us (bound by)")
+    layer = ((512, 512), (512, 2048), (2048, 512))   # a layer's (K, N)
+    cases = [(act_wl, m, k, 256, n) for act_wl in (8, 4) for m in (8, 2048)
+             for k, n in layer]
+    # the speculative path: the draft's truncated cascades at decode (R
+    # 128 of rank fraction 0.5; R 160 and 192, where some CTAs of the
+    # cluster get no rank columns; the A6 draft's clamp at R 128), and
+    # the verify pass, 8 rows x a W 8 span at R 256
+    cases += [(8, 8, k, r, n) for r in (128, 160, 192) for k, n in layer]
+    cases += [(6, 8, k, 128, n) for k, n in layer]
+    cases += [(8, 64, k, 256, n) for k, n in layer]
+    for act_wl, m, k, r, n in cases:
+        x = torch.randn((m, k), generator=g, device="cuda")
+        xq, sx = quantize_acts(x, qmax(act_wl))
+        w1c = torch.randint(-7, 8, (k, r), generator=g, device="cuda",
+                            dtype=torch.int8)
+        w1p = packable(QuantizedTensor(w1c, None, 4, 0))
+        w1 = pack_int4(w1c) if w1p else w1c
+        w2 = pack_int4(torch.randint(-7, 8, (r, n), generator=g,
+                                     device="cuda",
+                                     dtype=torch.int8))
+        s1 = torch.rand((1, r), generator=g, device="cuda") * 0.1
+        s2 = torch.rand((r, 1), generator=g, device="cuda") * 0.1
+        args = (xq, sx, w1, s1, w2, s2)
+        kw = dict(w1_packed=w1p, w2_packed=True, act_qmax=qmax(act_wl))
+        if m == 8:
+            # the cascade property: no (M, R) buffer, only Y
+            lowrank_qmm(*args, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            y = lowrank_qmm(*args, **kw)
+            torch.cuda.synchronize()
+            grown = torch.cuda.max_memory_allocated() - base
+            check(failures, grown <= -(-m * n * 4 // 512) * 512,
+                  f"lowrank_qmm allocated {grown} bytes beyond "
+                  f"Y ({m * n * 4})")
+        y = lowrank_qmm(*args, **kw)
+        ref = lowrank_qmm_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        worst = max(worst, err)
+        check(failures, torch.equal(y, ref),
+              f"lowrank_qmm M={m} K={k} R={r} N={n} A{act_wl} "
+              f"differs from plain (max abs {err})")
+        w2c = unpack_int4(w2)
 
-                def chain():
-                    t = int_mm(torch, xq, w1c).float() * sx * s1 * \
-                        s2.reshape(1, -1)
-                    tq, st = requant_rows(t, qmax(act_wl))
-                    return int_mm(torch, tq, w2c).float() * st
+        def chain():
+            t = int_mm(torch, xq, w1c).float() * sx * s1 * \
+                s2.reshape(1, -1)
+            tq, st = requant_rows(t, qmax(act_wl))
+            return int_mm(torch, tq, w2c).float() * st
 
-                t_k = timer(lambda: lowrank_qmm(*args, **kw))
-                t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
-                t_l = library_ms(timer, chain)
-                nbytes = lrmm_hbm_bytes(m, LowRankQ(
-                    QuantizedTensor(w1, s1, 4, 0, packed=True),
-                    QuantizedTensor(w2, s2, 4, 1, packed=True)))
-                b_ms, b_by = bound(nbytes, 2 * m * r * (k + n),
-                                   INT8_OPS_PER_S)
-                print(f"    {m:5d} {k:4d} {r:3d} {n:4d} A{act_wl} | "
-                      f"{t_k:.4f} {t_p:.4f} "
-                      f"{t_l if t_l is None else round(t_l, 4)} "
-                      f"{b_ms:.4f} ({b_by})")
-                rows.append(dict(m=m, k=k, r=r, n=n, act_wl=act_wl, ms=t_k,
-                                 plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                                 bound_by=b_by))
+        t_k = timer(lambda: lowrank_qmm(*args, **kw))
+        t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
+        t_l = library_ms(timer, chain)
+        nbytes = lrmm_hbm_bytes(m, LowRankQ(
+            QuantizedTensor(w1, s1, 4, 0, packed=w1p),
+            QuantizedTensor(w2, s2, 4, 1, packed=True)))
+        b_ms, b_by = bound(nbytes, 2 * m * r * (k + n), INT8_OPS_PER_S)
+        print(f"    {m:5d} {k:4d} {r:3d} {n:4d} A{act_wl} | {t_k:.4f} "
+              f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
+              f"{b_ms * 1e3:.4f} ({b_by})")
+        rows.append(dict(m=m, k=k, r=r, n=n, act_wl=act_wl, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         bound_by=b_by))
     # the serving path's most frequent call: a decode step's attention
     # projection (wq/wk/wv/wo, K 512 -> N 512), 48 of its 72 launches
-    main = next(r for r in rows if (r["m"], r["k"], r["n"], r["act_wl"]) ==
-                (8, 512, 512, 8))
+    main = next(r for r in rows
+                if (r["m"], r["k"], r["r"], r["n"], r["act_wl"]) ==
+                (8, 512, 256, 512, 8))
     return {**main, "max_abs_err": worst}
 
 
@@ -293,10 +321,14 @@ def quant_launch_shapes(cfg) -> dict:
 
 def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
     """A span batch over a pool with random history: ragged contexts, one
-    idle row; decode (w == 1) or prefill chunks up to w tokens."""
+    idle row; decode (w == 1), speculative verify spans of 1 + 0-4
+    drafts (w == 8), or prefill chunks up to w tokens."""
     if w == 1:
         ctx = [40, 511, 0, 130, 300, 75, 220, 480]
         ql = [1, 1, 0, 1, 1, 1, 1, 1]
+    elif w == 8:
+        ctx = [40, 511, 0, 130, 300, 75, 220, 480]
+        ql = [5, 3, 0, 1, 5, 2, 4, 5]
     else:
         ctx = [0, 256, 0, 17, 256, 500, 128, 0]
         ql = [w, 200, 0, 37, w, 1, 128, 90]
@@ -336,9 +368,9 @@ def check_paged_attention(torch, timer, failures):
     g = torch.Generator(device="cuda").manual_seed(3)
     rows, worst = [], 0.0
     print("  paged_attention: W kv_bits | kernel_ms plain_ms library_ms "
-          "bound_ms (bound by) max_abs_err")
+          "bound_us (bound by) max_abs_err")
     for kv_bits in (16, 8):
-        for w in (1, 256):
+        for w in (1, 8, 256):
             q, pool, table, ctx_t, ql_t, ctx, ql = _span_batch(torch, g, w,
                                                                kv_bits)
             o = paged_attention(q, pool, table, ctx_t, ql_t)
@@ -395,7 +427,7 @@ def check_paged_attention(torch, timer, failures):
             b_ms, b_by = bound(nbytes, attention_flops(ctx, ql, h, dh),
                                FP32_FLOPS_PER_S)
             print(f"    {w:3d} kv{kv_bits} | {t_k:.4f} {t_p:.4f} "
-                  f"{t_l if t_l is None else round(t_l, 4)} {b_ms:.4f} "
+                  f"{t_l if t_l is None else round(t_l, 4)} {b_ms * 1e3:.4f} "
                   f"({b_by}) {err:.2e}")
             rows.append(dict(w=w, kv_bits=kv_bits, ms=t_k, plain_ms=t_p,
                              library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
@@ -601,6 +633,196 @@ def serve_checked(torch, eng, kv, reqs, sp, before, failures):
     return res
 
 
+SPEC = dict(k=4, rank_fraction=0.5)      # the speculation phase's draft
+
+
+def sampling_phase(torch, eng, reqs, greedy, failures):
+    """The mixed plan's fp32-KV engine serving `reqs` sampled
+    (temperature 0.8, top-k 50, top-p 0.9, seed 7), four requests
+    overriding to temperature 0: those must give `greedy`'s tokens (the
+    phase-3 serve); a second serve, and one with the prefix cache off,
+    must give the first's tokens; then four requests get an eos id or a
+    2-token stop sequence from their own run, and each output must be
+    `match_stop_host` of that run, streamed alike through on_token.
+    Returns the first serve's result and its kernel launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import SamplingParams
+    from repro_torch.kernels import build
+    from repro_torch.runtime.sampling import match_stop_host
+    from repro_torch.runtime.scheduler import Request
+
+    sp = SamplingParams(max_tokens=32, temperature=0.8, top_k=50, top_p=0.9,
+                        seed=7)
+    cold = (0, 4, 8, 12)
+
+    def requests(stops=None):
+        return [Request(tokens=t, temperature=0.0) if i in cold
+                else Request(tokens=t, **(stops or {}).get(i, {}))
+                for i, t in enumerate(reqs)]
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a.outputs, b.outputs))
+
+    build.reset_launches()                  # the sampling path's run starts
+    res = eng.serve(requests(), sp)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)         # ... and ends here
+    print(f"[sampling] {len(reqs)} requests, {len(cold)} at temperature 0: "
+          f"{res.total_tokens} tokens, TPOT p50 {res.tpot_p50 * 1e3:.2f} ms "
+          f"(greedy {greedy.tpot_p50 * 1e3:.2f}), "
+          f"{res.tokens_per_second:.1f} tok/s (greedy "
+          f"{greedy.tokens_per_second:.1f}), {res.steps} steps; launches "
+          f"{launches}")
+    for i in cold:
+        check(failures, np.array_equal(res.outputs[i], greedy.outputs[i]),
+              f"sampling: temperature-0 request {i} differs from greedy")
+    check(failures, any(not np.array_equal(res.outputs[i], greedy.outputs[i])
+                        for i in range(len(reqs)) if i not in cold),
+          "sampling: every sampled request gave the greedy tokens")
+    check(failures, same(res, eng.serve(requests(), sp)),
+          "sampling: a second seeded serve differs")
+    check(failures, same(res, eng.serve(requests(), sp, prefix_cache=False)),
+          "sampling: the serve with the prefix cache off differs")
+    out = res.outputs
+    stops = {1: {"eos_id": int(out[1][8])}, 6: {"eos_id": int(out[6][20])},
+             10: {"stop": ((int(out[10][5]), int(out[10][6])),)},
+             15: {"stop": ((int(out[15][25]), int(out[15][26])),)}}
+    events = []
+    st = eng.serve(requests(stops), sp, on_token=events.append)
+    early = 0
+    for i in range(len(reqs)):
+        stop = stops.get(i, {})
+        keep = match_stop_host(out[i], stop.get("eos_id"),
+                               stop.get("stop", ()), sp.max_tokens)
+        early += keep < sp.max_tokens
+        check(failures, np.array_equal(st.outputs[i], out[i][:keep]),
+              f"sampling: request {i} with stops {stop}: "
+              f"{st.outputs[i].size} tokens, match_stop_host gives {keep}")
+        evs = [e for e in events if e.rid == i]
+        check(failures, [e.token for e in evs] == st.outputs[i].tolist()
+              and [e.index for e in evs] == list(range(len(evs)))
+              and [e.final for e in evs] == [False] * (len(evs) - 1) + [True],
+              f"sampling: request {i}'s on_token events differ from its "
+              f"output")
+    check(failures, early == len(stops) and st.stopped_early == early,
+          f"sampling: {st.stopped_early} requests stopped early, "
+          f"{early} expected")
+    print(f"[sampling] with stops: lengths "
+          f"{[st.outputs[i].size for i in sorted(stops)]} of requests "
+          f"{sorted(stops)}; {st.steps} steps, {len(events)} events")
+    return res, launches
+
+
+def speculation_phase(torch, eng, eng8, reqs, greedy16, greedy8, failures):
+    """The mixed plan's engines with DraftSpec(**SPEC): greedy speculative
+    serves of `reqs` must give the plain serves' tokens (`greedy16`,
+    `greedy8`, phase 3), with the draft's truncated cascades (R 128 at
+    full width) launched 4 x 72 times a drafting round and the full ones (R 256) 72
+    times a step. Plain and speculative fp32-KV serves are timed A B B A.
+    Then the served model as its own draft (rank fraction 1.0), whose
+    drafts are accepted: phase 3's tokens again.
+    Returns the first speculative serve's launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.kernels import build
+    from repro_torch.runtime.speculation import DraftSpec, draft_rank
+
+    spec = DraftSpec(**SPEC)
+    seng, seng8 = (InferenceEngine(e.cfg, e.params, device=e.device,
+                                   plan=e.plan, max_batch=8, block_size=16,
+                                   speculate=spec) for e in (eng, eng8))
+    sp = SamplingParams(max_tokens=32)
+    seng.serve(reqs[:2], SamplingParams(max_tokens=3))      # warm-up
+    torch.cuda.synchronize()
+    runs = [("plain", eng.serve(reqs, sp))]
+    build.reset_launches()                  # the speculative path's run
+    res = seng.serve(reqs, sp)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)         # ... ends here
+    ranks = dict(build.LAUNCH_RANKS)
+    runs += [("speculative", res), ("speculative", seng.serve(reqs, sp)),
+             ("plain", eng.serve(reqs, sp))]
+    torch.cuda.synchronize()
+    for label, r in runs:
+        print(f"[speculation] {label}: TPOT p50 {r.tpot_p50 * 1e3:.2f} ms, "
+              f"{r.tokens_per_second:.1f} tok/s, {r.steps} steps, drafted "
+              f"{r.drafted}, accepted {r.accepted}, rounds {r.spec_rounds}, "
+              f"accept rate {r.accept_rate:.4f}")
+    per_pass = sum(lowrank_launch_shapes(eng.cfg).values())
+    # the plan's cascade rank (256 at full width) and the draft's (128),
+    # as the kernel takes them, padded to 32
+    full_r, = {lp.rank for lp in eng.plan.layers if lp.method == "itera"}
+    r_draft = -(-draft_rank(full_r, spec.rank_fraction) // 32) * 32
+    r_full = -(-full_r // 32) * 32
+    print(f"[speculation] launches {launches}; lowrank_qmm by rank {ranks} "
+          f"over {res.steps} steps, {res.spec_rounds} drafting rounds")
+    check(failures, ranks.get(r_draft, 0) > 0,
+          f"speculation: no lowrank_qmm launch at the draft's R {r_draft}")
+    check(failures, ranks.get(r_draft, 0) == SPEC["k"] * per_pass
+          * res.spec_rounds, f"speculation: {ranks.get(r_draft, 0)} R "
+          f"{r_draft} launches, expected {SPEC['k']} x {per_pass} a "
+          f"drafting round")
+    check(failures, ranks.get(r_full, 0) == per_pass * res.steps,
+          f"speculation: {ranks.get(r_full, 0)} R {r_full} launches, "
+          f"expected {per_pass} a step")
+    for label, r in runs:
+        check(failures, all(np.array_equal(a, b) for a, b in
+                            zip(r.outputs, greedy16.outputs)),
+              f"speculation: the {label} fp32-KV serve's tokens differ "
+              f"from phase 3's")
+    r8 = seng8.serve(reqs, sp)
+    print(f"[speculation] int8 KV: drafted {r8.drafted}, accepted "
+          f"{r8.accepted}, accept rate {r8.accept_rate:.4f}")
+    check(failures, all(np.array_equal(a, b) for a, b in
+                        zip(r8.outputs, greedy8.outputs)),
+          "speculation: the int8-KV speculative tokens differ from phase 3's")
+    # the served model as its own draft (rank fraction 1.0): drafts are
+    # accepted, so rounds emit up to k + 1 tokens and keep their draft
+    # blocks, the path random weights at rank fraction 0.5 rarely take
+    exact = InferenceEngine(eng.cfg, eng.params, device=eng.device,
+                            plan=eng.plan, max_batch=8, block_size=16,
+                            speculate=DraftSpec(k=SPEC["k"],
+                                                rank_fraction=1.0))
+    rx = exact.serve(reqs, sp)
+    torch.cuda.synchronize()
+    print(f"[speculation] exact draft: TPOT p50 {rx.tpot_p50 * 1e3:.2f} ms, "
+          f"{rx.tokens_per_second:.1f} tok/s, {rx.steps} steps, drafted "
+          f"{rx.drafted}, accepted {rx.accepted}, accept rate "
+          f"{rx.accept_rate:.4f}")
+    check(failures, all(np.array_equal(a, b) for a, b in
+                        zip(rx.outputs, greedy16.outputs)),
+          "speculation: the exact draft's tokens differ from phase 3's")
+    return launches
+
+
+def parity(torch, label, gpu, cpu, short, sp, failures) -> None:
+    """`short` served by the card's and the CPU's engine: the tokens must
+    be identical; at a difference, the logit margin is printed."""
+    import numpy as np
+
+    rg, rc = gpu.serve(short, sp), cpu.serve(short, sp)
+    same = True
+    for i, (a, b) in enumerate(zip(rg.outputs, rc.outputs)):
+        if np.array_equal(a, b):
+            continue
+        same = False
+        s = int(np.argmax(a != b))
+        seq = np.concatenate([short[i], a[:s]])
+        lg = last_logits(torch, gpu, seq)
+        lc = last_logits(torch, cpu, seq)
+        top = torch.topk(lc, 2)
+        print(f"  {label} request {i} differs at step {s}: card {a[s]} "
+              f"cpu {b[s]}; CPU top-2 {top.indices.tolist()} margin "
+              f"{float(top.values[0] - top.values[1]):.3e}; card logit gap "
+              f"{float(lg[a[s]] - lg[b[s]]):.3e}")
+        check(failures, False, f"{label} request {i}: card and CPU tokens "
+              f"differ")
+    print(f"[parity] {label}: {len(short)} requests x {sp.max_tokens} "
+          f"tokens, card == CPU: {same}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not under {SRC}; run "
@@ -619,6 +841,7 @@ def main() -> int:
                                         params_to)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.runtime.speculation import DraftSpec
 
     t_start = time.perf_counter()
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
@@ -656,11 +879,13 @@ def main() -> int:
     eng.serve(reqs[:2], SamplingParams(max_tokens=2))        # warm-up
     torch.cuda.synchronize()
     build.reset_launches()                  # the mixed path's run starts
+    greedy = {}
     for kv, e in (("kv16", eng), ("int8 KV", eng8)):
         before = dict(build.LAUNCHES)
         res = serve_checked(torch, e, kv, reqs, sp, before, failures)
         check(failures, res.cache_hit_blocks > 0,
               f"{kv}: the prefix cache found no shared block")
+        greedy[kv] = res
     mixed = dict(build.LAUNCHES)            # ... and ends here
     print(f"[engine] launches on the mixed path: {mixed}")
     print("[engine] lowrank_qmm launches per decode step by shape: "
@@ -701,7 +926,17 @@ def main() -> int:
                   sp)
     profile_serve(torch, eng, reqs, sp, "mixed kv16")
     profile_serve(torch, qeng, reqs, sp, "quant-only kv16")
-    launches = {name: mixed.get(name, 0) + quant.get(name, 0)
+
+    # ---- sampling and speculation on the mixed plan ----------------------
+    failures = []
+    _, sampled = sampling_phase(torch, eng, reqs, greedy["kv16"], failures)
+    end_phase("sampling", failures)
+    failures = []
+    speculated = speculation_phase(torch, eng, eng8, reqs, greedy["kv16"],
+                                   greedy["int8 KV"], failures)
+    end_phase("speculation", failures)
+    launches = {name: sum(path.get(name, 0)
+                          for path in (mixed, quant, sampled, speculated))
                 for name in build.SOURCES}
 
     # ---- 4. card vs CPU --------------------------------------------------
@@ -709,6 +944,7 @@ def main() -> int:
     rng = np.random.default_rng(1)
     short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
              for n in (16, 29, 47, 64)]
+    sp8 = SamplingParams(max_tokens=8)
     for e in (eng, qeng):
         cpu_params = params_to(e.params, "cpu")
         for kv in (16, 8):
@@ -716,27 +952,21 @@ def main() -> int:
             gpu = InferenceEngine(c, e.params, device=e.device, plan=e.plan)
             cpu = InferenceEngine(c, cpu_params, device=torch.device("cpu"),
                                   plan=e.plan)
-            sp8 = SamplingParams(max_tokens=8)
-            rg, rc = gpu.serve(short, sp8), cpu.serve(short, sp8)
-            same = True
-            for i, (a, b) in enumerate(zip(rg.outputs, rc.outputs)):
-                if np.array_equal(a, b):
-                    continue
-                same = False
-                s = int(np.argmax(a != b))
-                seq = np.concatenate([short[i], a[:s]])
-                lg = last_logits(torch, gpu, seq)
-                lc = last_logits(torch, cpu, seq)
-                top = torch.topk(lc, 2)
-                print(f"  {e.plan.label} kv{kv} request {i} differs at step "
-                      f"{s}: card {a[s]} cpu {b[s]}; CPU top-2 "
-                      f"{top.indices.tolist()} margin "
-                      f"{float(top.values[0] - top.values[1]):.3e}; card "
-                      f"logit gap {float(lg[a[s]] - lg[b[s]]):.3e}")
-                check(failures, False, f"{e.plan.label} kv{kv} request {i}: "
-                      f"card and CPU tokens differ")
-            print(f"[parity] {e.plan.label} kv{kv}: {len(short)} requests x "
-                  f"8 tokens, card == CPU: {same}")
+            parity(torch, f"{e.plan.label} kv{kv}", gpu, cpu, short, sp8,
+                   failures)
+            if e is eng and kv == 16:
+                parity(torch, f"{e.plan.label} kv{kv} sampled", gpu, cpu,
+                       short, SamplingParams(max_tokens=8, temperature=0.8,
+                                             top_k=50, top_p=0.9, seed=7),
+                       failures)
+                spec = DraftSpec(**SPEC)
+                parity(torch, f"{e.plan.label} kv{kv} speculative",
+                       InferenceEngine(c, e.params, device=e.device,
+                                       plan=e.plan, speculate=spec),
+                       InferenceEngine(c, cpu_params,
+                                       device=torch.device("cpu"),
+                                       plan=e.plan, speculate=spec),
+                       short, sp8, failures)
     end_phase("parity", failures)
 
     # ---- result ----------------------------------------------------------

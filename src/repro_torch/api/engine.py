@@ -1,14 +1,20 @@
-"""`InferenceEngine`: compress, then serve (port of the greedy serving half
-of `repro.api.engine`).
+"""`InferenceEngine`: compress, then serve (port of the serving half of
+`repro.api.engine`).
 
     eng = InferenceEngine.build("opus-mt", plan)          # on cuda
-    res = eng.serve(prompts, SamplingParams(max_tokens=32))
+    res = eng.serve(prompts, SamplingParams(max_tokens=32, top_k=40,
+                                            temperature=0.8, seed=7))
 
 `serve` is in-flight batching with chunked prefill: every forward pass is
 one token-budget step (`models.transformer.serve_step`) mixing prefill
 chunks of newly admitted prompts with in-flight decode rows over the
 blocked KV pool, scheduled by `runtime.scheduler.Scheduler` (FCFS,
 prefix-cache admission with copy-on-write, pool-pressure preemption).
+Sampling (temperature, top-k, top-p, seed) and stop criteria (eos, stop
+sequences, max_tokens) run on the device inside that step
+(`runtime.sampling`); tokens stream through `on_token`. With a draft
+(`build(speculate=...)` or `plan.draft`) greedy rows decode speculatively,
+the truncated ITERA cascade drafting (`runtime.speculation`).
 
 Devices: the engine runs on `cuda` unless the caller passes
 `device="cpu"` (as the tests do); with no GPU and no explicit CPU it
@@ -33,7 +39,9 @@ from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import kvblocks
+from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.scheduler import Request, Scheduler
+from repro_torch.runtime.speculation import DraftSpec, SpeculationController
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,14 +72,70 @@ def params_to(params, device):
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-call generation controls. Only greedy decoding is ported, so
-    the only control is the number of new tokens."""
+    """Per-call sampling / stop controls (a `runtime.scheduler.Request`
+    can override any of them per request). temperature <= 0 is greedy;
+    top_k == 0 and top_p == 1.0 truncate no tighter than the sampler's
+    top-`sampling.TOPK_CAP` window. `stop` is a tuple of token-id
+    sequences matched inclusively (generation stops after the token that
+    completes a match, which stays in the output); eos_id is a one-token
+    stop. Seeded runs replay token for token across repeats, prefix
+    cache on or off, and speculation (counter-based keys)."""
 
     max_tokens: int = 32
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    eos_id: int | None = None
+    stop: tuple = ()
 
     def __post_init__(self):
         if self.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {self.max_tokens}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.eos_id is not None and self.eos_id < 0:
+            raise ValueError(f"eos_id must be >= 0, got {self.eos_id}")
+        object.__setattr__(self, "stop", tuple(
+            tuple(int(t) for t in s) for s in self.stop))
+        if any(len(s) == 0 for s in self.stop):
+            raise ValueError("empty stop sequence")
+
+    def to_dict(self) -> dict:
+        d = {"max_tokens": self.max_tokens, "temperature": self.temperature,
+             "top_k": self.top_k, "top_p": self.top_p, "seed": self.seed}
+        if self.eos_id is not None:
+            d["eos_id"] = int(self.eos_id)
+        if self.stop:
+            d["stop"] = [list(s) for s in self.stop]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SamplingParams":
+        return cls(max_tokens=int(d.get("max_tokens", 32)),
+                   temperature=float(d.get("temperature", 0.0)),
+                   top_k=int(d.get("top_k", 0)),
+                   top_p=float(d.get("top_p", 1.0)),
+                   seed=int(d.get("seed", 0)),
+                   eos_id=(None if d.get("eos_id") is None
+                           else int(d["eos_id"])),
+                   stop=tuple(tuple(s) for s in d.get("stop", ())))
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One streamed token, delivered by serve(on_token=...) when the
+    readback confirms it (the time TTFT and TPOT use). `index` is its
+    position in the request's output; `final` marks the request's last
+    token."""
+
+    rid: int
+    token: int
+    index: int
+    time: float
+    final: bool
 
 
 def _percentile(xs, q) -> float:
@@ -81,8 +145,8 @@ def _percentile(xs, q) -> float:
 @dataclasses.dataclass
 class ServeResult:
     """Per-request continuations in submission order, plus step, chunk,
-    prefix-cache and latency accounting (seconds on the host clock; each
-    token is stamped when its readback completes)."""
+    speculation, prefix-cache and latency accounting (seconds on the
+    host clock; each token is stamped when its readback completes)."""
 
     outputs: list
     prompt_lens: list
@@ -98,6 +162,13 @@ class ServeResult:
     num_blocks: int
     ttft: list = dataclasses.field(default_factory=list)
     tpot: list = dataclasses.field(default_factory=list)
+    # speculation (0 when off): `drafted` draft tokens proposed, of which
+    # `accepted` survived verification, over `spec_rounds` drafting
+    # rounds of width spec_k
+    spec_k: int = 0
+    drafted: int = 0
+    accepted: int = 0
+    spec_rounds: int = 0
     prefix_cache: bool = False
     cache_lookup_blocks: int = 0
     cache_hit_blocks: int = 0
@@ -105,8 +176,12 @@ class ServeResult:
     cache_cow_blocks: int = 0
     cache_evictions: int = 0
     preemptions: int = 0
+    # queue_times[i]: request i's wait for admission; finish_times[i]:
+    # its completion, both from serve() start. `stopped_early` counts
+    # requests an eos / stop sequence finished before max_tokens.
     queue_times: list = dataclasses.field(default_factory=list)
     finish_times: list = dataclasses.field(default_factory=list)
+    stopped_early: int = 0
 
     @property
     def total_tokens(self) -> int:
@@ -117,17 +192,54 @@ class ServeResult:
         return self.total_tokens / max(self.seconds, 1e-9)
 
     @property
+    def accept_rate(self) -> float:
+        """Fraction of proposed draft tokens the full model kept."""
+        return self.accepted / self.drafted if self.drafted else 0.0
+
+    @property
     def ttft_p50(self) -> float:
         return _percentile(self.ttft, 50)
+
+    @property
+    def ttft_p95(self) -> float:
+        return _percentile(self.ttft, 95)
 
     @property
     def tpot_p50(self) -> float:
         return _percentile([t for t in self.tpot if t > 0], 50)
 
     @property
+    def tpot_p95(self) -> float:
+        return _percentile([t for t in self.tpot if t > 0], 95)
+
+    @property
+    def queue_p50(self) -> float:
+        return _percentile(self.queue_times, 50)
+
+    @property
+    def queue_p95(self) -> float:
+        return _percentile(self.queue_times, 95)
+
+    @property
     def cache_hit_rate(self) -> float:
         return (self.cache_hit_blocks / self.cache_lookup_blocks
                 if self.cache_lookup_blocks else 0.0)
+
+    def goodput(self, deadline_s: float) -> float:
+        """Tokens per second counting only requests that finished within
+        `deadline_s` of serve() start."""
+        good = sum(self.outputs[i].size for i, f in enumerate(
+            self.finish_times) if f <= deadline_s)
+        return good / max(self.seconds, 1e-9)
+
+    def slo_attainment(self, ttft_s: float, tpot_s: float) -> float:
+        """Fraction of requests meeting both a TTFT and a per-output-token
+        latency target."""
+        n = len(self.outputs)
+        if not n:
+            return 0.0
+        return sum(1 for i in range(n) if self.ttft[i] <= ttft_s
+                   and self.tpot[i] <= tpot_s) / n
 
 
 def _pow2_bucket(n: int) -> int:
@@ -148,12 +260,29 @@ def _upload(arr: np.ndarray, device) -> torch.Tensor:
     return t
 
 
+def _resolve_speculate(speculate, plan) -> DraftSpec | None:
+    """build(speculate=...): a DraftSpec as given; None defers to
+    `plan.draft`; True takes the plan's draft or the defaults; False or 0
+    is off; an int k is DraftSpec(k=k)."""
+    if isinstance(speculate, DraftSpec):
+        return speculate
+    if speculate is None:
+        return plan.draft if plan is not None else None
+    if speculate is True:
+        return (plan.draft if plan is not None and plan.draft is not None
+                else DraftSpec())
+    if not speculate:
+        return None
+    return DraftSpec(k=int(speculate))
+
+
 class InferenceEngine:
-    """Compressed model + greedy in-flight-batching server on one device."""
+    """Compressed model + in-flight-batching server on one device."""
 
     def __init__(self, cfg: ModelConfig, params, *, device, plan=None,
                  report=None, max_batch: int = 8, block_size: int = 16,
-                 chunk_tokens: int = 256, prefix_cache: bool = True):
+                 chunk_tokens: int = 256, prefix_cache: bool = True,
+                 speculate: DraftSpec | None = None):
         _full_fp32()
         self.cfg = cfg
         self.device = device
@@ -166,6 +295,9 @@ class InferenceEngine:
         self.prefix_cache = prefix_cache
         # per-layer views of the stacked weights, sliced once
         self._step_params = tfm.split_layers(params, cfg.num_layers)
+        # the draft shares every tensor it does not truncate with `params`
+        self.speculation = (SpeculationController(speculate, cfg, params)
+                            if speculate is not None else None)
         # seeds the prefix-cache content hashes: blocks are never shared
         # across engines whose K/V for the same tokens would differ
         plan_id = plan.dumps() if plan is not None else "dense"
@@ -192,12 +324,16 @@ class InferenceEngine:
               seed: int = 0, device=None, verbose: bool = False,
               max_batch: int = 8, block_size: int = 16,
               chunk_tokens: int = 256, prefix_cache: bool = True,
-              kv_bits: int | None = None) -> "InferenceEngine":
+              kv_bits: int | None = None, speculate=None
+              ) -> "InferenceEngine":
         """arch: config name or a ModelConfig. plan: CompressionPlan or
         None (serve `params` as given: dense, or already compressed, e.g.
         from `repro_torch.bridge`). params: weights; freshly initialised
         from `seed` when omitted. kv_bits: override cfg.kv_cache_bits
-        (8 = int8 KV codes with fp32 scales)."""
+        (8 = int8 KV codes with fp32 scales). speculate: None defers to
+        `plan.draft`; a DraftSpec, True (the plan's draft or the
+        defaults) or an int draft depth k turns speculation on; False or
+        0 turns it off."""
         dev = resolve_device(device)
         _full_fp32()                        # before compression runs
         cfg = get_config(arch, smoke=smoke) if isinstance(arch, str) else arch
@@ -220,41 +356,73 @@ class InferenceEngine:
                       f"s: {report.summary()}")
         return cls(cfg, params, device=dev, plan=plan, report=report,
                    max_batch=max_batch, block_size=block_size,
-                   chunk_tokens=chunk_tokens, prefix_cache=prefix_cache)
+                   chunk_tokens=chunk_tokens, prefix_cache=prefix_cache,
+                   speculate=_resolve_speculate(speculate, plan))
 
     # ------------------------------------------------------------- serve --
     def serve(self, requests, sampling: SamplingParams | None = None, *,
               max_batch: int | None = None, block_size: int | None = None,
               num_blocks: int | None = None,
               chunk_tokens: int | None = None,
-              prefix_cache: bool | None = None) -> ServeResult:
+              speculate: bool | None = None,
+              prefix_cache: bool | None = None,
+              on_token=None) -> ServeResult:
         """In-flight batching with chunked prefill: ragged prompts,
-        per-request max_tokens, one fused step per scheduler step.
+        per-request sampling and stops, one step per scheduler step.
 
-        requests: token sequences or `runtime.scheduler.Request`s. The
-        loop is pipelined two steps deep: scheduling depends only on
-        token counts, so later steps are dispatched (decode rows fed the
-        previous step's tokens on the device) before earlier steps' tokens
-        are read back with `.cpu()`. Each step uploads a fresh step buffer
-        and, when they changed, a fresh copy of the block tables, so no
-        host array a queued step may still read is ever mutated.
+        requests: token sequences or `runtime.scheduler.Request`s, whose
+        unset fields take `sampling`'s values. The loop is pipelined two
+        steps deep: scheduling depends only on token counts, so later
+        steps are dispatched (decode rows fed the previous step's tokens
+        on the device) before earlier steps' tokens are read back with
+        `.cpu()`. Each step uploads one fresh buffer (span tokens,
+        scheduling columns and each row's packed sampling metadata) and,
+        when they changed, fresh copies of the block tables and stop
+        sequences, so no host array a queued step may read is mutated.
 
-        prefix_cache shares full KV blocks between requests with equal
-        position-aligned prompt prefixes (greedy output is unchanged)."""
+        Sampling and stop evaluation run on the device in the same step.
+        The finished mask rides the pipelined readback, so a stop is
+        learned up to two steps late: those steps' tokens for the row are
+        discarded and the row's blocks freed. An all-greedy call with no
+        stop criteria runs the greedy step (no top-k, no PRNG, no ring).
+
+        With a draft (`build(speculate=...)` or `plan.draft`) the call
+        runs the synchronous speculative loop instead: greedy decode rows
+        draft and verify in one dispatch, with the plain serve's tokens;
+        sampled rows never draft but sample in the same dispatch.
+        `speculate=False` turns it off for this call, `speculate=True`
+        requires a draft.
+
+        on_token(TokenEvent) is called on the serving thread as each
+        token's readback confirms it. prefix_cache shares full KV blocks
+        between requests with equal position-aligned prompt prefixes
+        (the tokens are unchanged)."""
         sampling = sampling or SamplingParams()
+        ctl = self.speculation
+        if speculate is False:
+            ctl = None
+        elif speculate is True and ctl is None:
+            raise ValueError(
+                "speculate=True but the engine has no draft model: build "
+                "with speculate=DraftSpec(...) or a plan carrying .draft")
         reqs: list[Request] = []
         for i, r in enumerate(requests):
             if not isinstance(r, Request):
                 r = Request(tokens=r)
-            r = dataclasses.replace(
-                r, rid=i, max_tokens=(sampling.max_tokens
-                                      if r.max_tokens is None
-                                      else r.max_tokens))
-            reqs.append(r)
+            repl: dict = {"rid": i}
+            for f in ("max_tokens", "temperature", "top_k", "top_p", "seed",
+                      "eos_id"):
+                if getattr(r, f) is None:
+                    repl[f] = getattr(sampling, f)
+            if not r.stop:
+                repl["stop"] = sampling.stop
+            reqs.append(dataclasses.replace(r, **repl))
         if not reqs:
             raise ValueError("empty request batch")
         kvblocks.check_paged_support(self.cfg)
         dev = self.device
+        do_sample = any(r.temperature > 0.0 for r in reqs)
+        do_stop = any(r.eos_id is not None or r.stop for r in reqs)
 
         bs = block_size or self.block_size
         cap = min(max_batch or self.max_batch, len(reqs))
@@ -271,114 +439,289 @@ class InferenceEngine:
         for r in reqs:
             sched.submit(r)
 
-        pool = kvblocks.init_paged_cache(self.cfg, num_blocks, bs, dev)
-        tables = np.zeros((cap, mb), np.int32)
-        out_vals: list[list[int]] = [[] for _ in reqs]
-        first_tok_t = [None] * len(reqs)
-        finish_t = [0.0] * len(reqs)
-        queue_t = [0.0] * len(reqs)
-        steps = prefill_chunks = prefill_tokens = mixed_steps = 0
-        t0 = time.perf_counter()
-
-        def consume(emits, toks_dev):
-            """Read back one step's tokens (waits for that step) and credit
-            them to their requests."""
-            vals = toks_dev.cpu().numpy()
-            now = time.perf_counter()
-            for rid, r in emits:
-                out_vals[rid].append(int(vals[r, 0]))
-                if first_tok_t[rid] is None:
-                    first_tok_t[rid] = now
-                if len(out_vals[rid]) >= reqs[rid].max_tokens:
-                    finish_t[rid] = now
-
-        tables_dev = None
-        inflight = collections.deque()
-        prev_toks = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+        st = _ServeState(reqs, np.zeros((cap, mb), np.int32),
+                         kvblocks.init_paged_cache(self.cfg, num_blocks, bs,
+                                                   dev),
+                         on_token)
         with torch.inference_mode():
-            while sched.has_work():
-                plan = sched.schedule(budget)
-                for r in plan.preempted:    # victim rows: table to trash
-                    tables[r] = 0
-                    tables_dev = None
-                for seq in plan.admitted:
-                    tables[seq.row] = 0
-                    tables[seq.row, :len(seq.block_ids)] = seq.block_ids
-                    tables_dev = None
-                    queue_t[seq.req.rid] = time.perf_counter() - t0
-                    if seq.cow_dst is not None:
-                        # fully-cached prompt: a private copy of the last
-                        # matched block before this step rewrites its
-                        # final position
-                        kvblocks.copy_block(pool, seq.cow_src, seq.cow_dst)
-                        sched.release_cow(seq)
-                if not plan.prefill and not plan.decode:
-                    raise RuntimeError("scheduler returned an empty step "
-                                       "with work pending")
-                # ---- the (cap, W + 3) step buffer, fresh every step ------
-                w = _pow2_bucket(plan.max_span)
-                buf = np.zeros((cap, w + 3), np.int32)
-                for r, width in plan.prefill.items():
-                    seq = sched.rows[r]
-                    lo = seq.prefilled
-                    buf[r, :width] = seq.req.tokens[lo:lo + width]
-                    buf[r, -3] = lo
-                    buf[r, -2] = width
-                for r in plan.decode:
-                    seq = sched.rows[r]
-                    # the input token is last step's, still on the device
-                    buf[r, -3] = seq.prompt_len + seq.n_emitted - 1
-                    buf[r, -2] = 1
-                    buf[r, -1] = 1
-                if tables_dev is None:
-                    tables_dev = _upload(tables, dev)
-                toks_dev, pool = tfm.serve_step(
-                    self._step_params, pool, tables_dev, _upload(buf, dev),
-                    prev_toks, self.cfg)
-                steps += 1
-                prefill_chunks += len(plan.prefill)
-                prefill_tokens += sum(plan.prefill.values())
-                mixed_steps += plan.is_mixed
-                prev_toks = toks_dev
-                # ---- count-based bookkeeping at dispatch time ------------
-                emits = []
-                for r, width in plan.prefill.items():
-                    sched.advance_prefill(sched.rows[r], width)
-                for r in list(plan.prefill) + plan.decode:
-                    seq = sched.rows[r]
-                    if not seq.prefill_done:
-                        continue            # mid-prompt: logits unused
-                    seq.n_emitted += 1
-                    emits.append((seq.req.rid, r))
-                    if seq.done:
-                        sched.finish(seq)
-                        tables[r] = 0
-                        tables_dev = None
-                inflight.append((emits, toks_dev))
-                if len(inflight) > 2:
-                    consume(*inflight.popleft())
-            while inflight:
-                consume(*inflight.popleft())
+            if ctl is not None:
+                self._spec_loop(st, sched, cap, budget, ctl, do_sample)
+            else:
+                self._pipelined_loop(st, sched, cap, budget, do_sample,
+                                     do_stop)
         if pool_alloc.available != pool_alloc.capacity:
             raise RuntimeError(
                 f"leaked KV blocks: {pool_alloc.capacity - pool_alloc.available}"
                 f" of {pool_alloc.capacity} still allocated after drain")
-        outputs = [np.asarray(v, np.int32) for v in out_vals]
-        ttft = [first_tok_t[i] - t0 for i in range(len(reqs))]
-        tpot = [(finish_t[i] - first_tok_t[i]) / (len(out_vals[i]) - 1)
-                if len(out_vals[i]) > 1 else 0.0 for i in range(len(reqs))]
+        n = len(reqs)
+        outputs = [np.asarray(v, np.int32) for v in st.out]
+        ttft = [st.first_t[i] - st.t0 for i in range(n)]
+        tpot = [(st.finish_t[i] - st.first_t[i]) / (len(st.out[i]) - 1)
+                if len(st.out[i]) > 1 else 0.0 for i in range(n)]
         return ServeResult(
             outputs=outputs, prompt_lens=[r.tokens.size for r in reqs],
-            seconds=time.perf_counter() - t0, steps=steps,
-            prefill_chunks=prefill_chunks, prefill_tokens=prefill_tokens,
-            mixed_steps=mixed_steps, chunk_tokens=budget,
-            max_queue_depth=sched.max_queue_depth, max_batch=cap,
-            block_size=bs, num_blocks=num_blocks, ttft=ttft, tpot=tpot,
-            prefix_cache=use_cache,
+            seconds=time.perf_counter() - st.t0, steps=st.steps,
+            prefill_chunks=st.prefill_chunks,
+            prefill_tokens=st.prefill_tokens, mixed_steps=st.mixed_steps,
+            chunk_tokens=budget, max_queue_depth=sched.max_queue_depth,
+            max_batch=cap, block_size=bs, num_blocks=num_blocks, ttft=ttft,
+            tpot=tpot, spec_k=ctl.spec.k if ctl is not None else 0,
+            drafted=st.drafted, accepted=st.accepted,
+            spec_rounds=st.spec_rounds, prefix_cache=use_cache,
             cache_lookup_blocks=sched.cache_lookup_blocks,
             cache_hit_blocks=sched.cache_hit_blocks,
             cache_hit_tokens=sched.cache_hit_tokens,
             cache_cow_blocks=sched.cache_cow_blocks,
             cache_evictions=pool_alloc.evictions,
-            preemptions=sched.preemptions, queue_times=queue_t,
-            finish_times=[finish_t[i] - t0 for i in range(len(reqs))])
+            preemptions=sched.preemptions, queue_times=st.queue_t,
+            finish_times=[st.finish_t[i] - st.t0 for i in range(n)],
+            stopped_early=st.stopped_early)
+
+    def _admit(self, st, sched, plan, stop_buf=None) -> None:
+        """Install the step's preempted and admitted rows: block tables
+        (and stop sequences), queue times, copy-on-write copies."""
+        for r in plan.preempted:            # victim rows: table to trash
+            st.tables[r] = 0
+            st.tables_dev = None
+        for seq in plan.admitted:
+            st.tables[seq.row] = 0
+            st.tables[seq.row, :len(seq.block_ids)] = seq.block_ids
+            st.tables_dev = None
+            st.queue_t[seq.req.rid] = time.perf_counter() - st.t0
+            if stop_buf is not None:
+                stop_buf[seq.row] = smp.pack_stop_seqs(
+                    seq.req.stop, stop_buf.shape[1], stop_buf.shape[2])
+                st.stops_dev = None
+            if seq.cow_dst is not None:
+                # fully-cached prompt: a private copy of the last matched
+                # block before this step rewrites its final position
+                kvblocks.copy_block(st.pool, seq.cow_src, seq.cow_dst)
+                sched.release_cow(seq)
+        if not plan.prefill and not plan.decode:
+            raise RuntimeError("scheduler returned an empty step with work "
+                               "pending")
+
+    def _tables(self, st) -> torch.Tensor:
+        if st.tables_dev is None:
+            st.tables_dev = _upload(st.tables, self.device)
+        return st.tables_dev
+
+    def _count_step(self, st, plan) -> None:
+        st.steps += 1
+        st.prefill_chunks += len(plan.prefill)
+        st.prefill_tokens += sum(plan.prefill.values())
+        st.mixed_steps += plan.is_mixed
+
+    def _finish_row(self, st, sched, seq) -> None:
+        sched.finish(seq)
+        st.tables[seq.row] = 0
+        st.tables_dev = None
+
+    def _pipelined_loop(self, st, sched, cap, budget, do_sample,
+                        do_stop) -> None:
+        """The two-deep pipelined serve loop (see `serve`)."""
+        dev = self.device
+        m = smp.SAMP_COLS
+        reqs = st.reqs
+        n_stops = max([len(r.stop) for r in reqs] + [1])
+        stop_len = max([len(s) for r in reqs for s in r.stop] + [1])
+        stop_buf = (np.full((cap, n_stops, stop_len), -1, np.int32)
+                    if do_stop else None)
+        # rids whose stop fired before max_tokens, learned at consume
+        # time; the loop top frees their rows
+        stopped: set[int] = set()
+
+        def consume(emits, toks_dev, fin_dev):
+            """Read back one step's tokens and finished mask (waits for
+            that step) and credit them to their requests."""
+            vals = toks_dev.cpu().numpy()
+            fins = None if fin_dev is None else fin_dev.cpu().numpy()
+            now = time.perf_counter()
+            for rid, r in emits:
+                if rid in stopped:
+                    continue        # dispatched past the row's stop
+                done = st.emit(rid, [int(vals[r, 0])], now,
+                               fins is not None and bool(fins[r]))
+                if done and len(st.out[rid]) < reqs[rid].max_tokens:
+                    stopped.add(rid)
+
+        inflight = collections.deque()
+        prev_toks = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+        recent = torch.zeros((cap, stop_len), dtype=torch.int32, device=dev)
+        while sched.has_work():
+            if stopped:
+                for seq in list(sched.rows):
+                    if seq is not None and seq.req.rid in stopped:
+                        self._finish_row(st, sched, seq)
+                if not sched.has_work():
+                    break
+            plan = sched.schedule(budget)
+            self._admit(st, sched, plan, stop_buf)
+            # ---- the (cap, W + 3 + SAMP_COLS) step buffer, fresh --------
+            w = _pow2_bucket(plan.max_span)
+            buf = np.zeros((cap, w + 3 + m), np.int32)
+            for r, width in plan.prefill.items():
+                seq = sched.rows[r]
+                lo = seq.prefilled
+                buf[r, :width] = seq.req.tokens[lo:lo + width]
+                buf[r, -(m + 3)] = lo
+                buf[r, -(m + 2)] = width
+            for r in plan.decode:
+                seq = sched.rows[r]
+                # the input token is last step's, still on the device
+                buf[r, -(m + 3)] = seq.prompt_len + seq.n_emitted - 1
+                buf[r, -(m + 2)] = 1
+                buf[r, -(m + 1)] = 1
+            if do_sample or do_stop:        # the greedy step reads none
+                for r in list(plan.prefill) + plan.decode:
+                    seq = sched.rows[r]
+                    smp.write_row_meta(buf, r, seq.req, seq.n_emitted)
+            if do_stop and st.stops_dev is None:
+                st.stops_dev = _upload(stop_buf, dev)
+            toks_dev, fin_dev, recent, st.pool = tfm.serve_step(
+                self._step_params, st.pool, self._tables(st),
+                _upload(buf, dev), prev_toks, recent, st.stops_dev,
+                self.cfg, sample=do_sample, stop=do_stop)
+            self._count_step(st, plan)
+            prev_toks = toks_dev
+            # ---- count-based bookkeeping at dispatch time ---------------
+            emits = []
+            for r, width in plan.prefill.items():
+                sched.advance_prefill(sched.rows[r], width)
+            for r in list(plan.prefill) + plan.decode:
+                seq = sched.rows[r]
+                if not seq.prefill_done:
+                    continue                # mid-prompt: logits unused
+                seq.n_emitted += 1
+                emits.append((seq.req.rid, r))
+                if seq.done:
+                    self._finish_row(st, sched, seq)
+            inflight.append((emits, toks_dev, fin_dev))
+            if len(inflight) > 2:
+                consume(*inflight.popleft())
+        while inflight:
+            consume(*inflight.popleft())
+        st.stopped_early += len(stopped)
+
+    def _spec_loop(self, st, sched, cap, budget, ctl, do_sample) -> None:
+        """The speculative serve loop: one draft -> verify -> accept
+        dispatch a step (`runtime.speculation.speculative_step`).
+
+        Synchronous: how far a row advanced depends on the accept count,
+        so the next schedule waits for this step's readback. A step
+        drafts at width spec.k when any row drafts and at 0 otherwise.
+        Sampled rows never draft but sample in the same dispatch. Stops
+        are matched on the host with `sampling.match_stop_host`, since
+        every token is read back here anyway."""
+        dev = self.device
+        m = smp.SAMP_COLS
+        prev_toks = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
+        while sched.has_work():
+            plan = sched.schedule(budget, spec_k=ctl.spec.k)
+            self._admit(st, sched, plan)
+            # a draft reservation can grow a row's table mid-flight
+            for r in plan.spec:
+                seq = sched.rows[r]
+                if seq.draft_blocks:
+                    st.tables[r, :len(seq.block_ids)] = seq.block_ids
+                    st.tables_dev = None
+            # ---- (cap, W + 4 + SAMP_COLS): the meta gains spec_lens ----
+            k_step = ctl.spec.k if plan.spec else 0
+            w = _pow2_bucket(max(plan.max_span, k_step + 1))
+            buf = np.zeros((cap, w + 4 + m), np.int32)
+            for r, width in plan.prefill.items():
+                seq = sched.rows[r]
+                lo = seq.prefilled
+                buf[r, :width] = seq.req.tokens[lo:lo + width]
+                buf[r, -(m + 4)] = lo
+                buf[r, -(m + 3)] = width
+            for r in plan.decode:
+                seq = sched.rows[r]
+                kr = plan.spec.get(r, 0)
+                # span: [prev (spliced on the device), kr draft slots]
+                buf[r, -(m + 4)] = seq.prompt_len + seq.n_emitted - 1
+                buf[r, -(m + 3)] = 1 + kr
+                buf[r, -(m + 2)] = 1
+                buf[r, -(m + 1)] = kr
+            for r in list(plan.prefill) + plan.decode:
+                seq = sched.rows[r]
+                smp.write_row_meta(buf, r, seq.req, seq.n_emitted)
+            full_toks, n_acc, prev_toks, st.pool = ctl.step(
+                self._step_params, st.pool, self._tables(st),
+                _upload(buf, dev), prev_toks, k_step, sample=do_sample)
+            self._count_step(st, plan)
+            st.spec_rounds += bool(plan.spec)
+            # the accept counts decide how far each row advanced
+            back = torch.cat([full_toks, n_acc[:, None]], dim=1).cpu()
+            fv, na = back[:, :-1].numpy(), back[:, -1].numpy()
+            now = time.perf_counter()
+            for r, width in plan.prefill.items():
+                sched.advance_prefill(sched.rows[r], width)
+            for r in list(plan.prefill) + plan.decode:
+                seq = sched.rows[r]
+                if not seq.prefill_done:
+                    continue                # mid-prompt: logits unused
+                if r in plan.prefill:       # prompt done: last position
+                    toks = fv[r, k_step + 1:k_step + 2]
+                else:                       # accepted drafts + 1
+                    toks = fv[r, :int(na[r]) + 1]
+                seq.n_emitted += len(toks)
+                kr = plan.spec.get(r, 0)
+                if kr:
+                    st.drafted += kr
+                    st.accepted += len(toks) - 1
+                    if sched.commit_speculation(seq):
+                        # rollback released tail blocks: rewind the table
+                        st.tables[r] = 0
+                        st.tables[r, :len(seq.block_ids)] = seq.block_ids
+                        st.tables_dev = None
+                rid = seq.req.rid
+                got = st.out[rid] + [int(t) for t in toks]
+                keep = smp.match_stop_host(got, seq.req.eos_id,
+                                           seq.req.stop, seq.max_tokens)
+                new = got[len(st.out[rid]):keep]
+                st.emit(rid, new, now, keep is not None)
+                if keep is not None:
+                    st.stopped_early += keep < seq.max_tokens
+                    self._finish_row(st, sched, seq)
+
+
+class _ServeState:
+    """One serve call's mutable state: the request table, outputs and
+    their timestamps, the block tables and pool, and the counters."""
+
+    def __init__(self, reqs, tables, pool, on_token):
+        n = len(reqs)
+        self.reqs = reqs
+        self.tables = tables
+        self.tables_dev = None
+        self.stops_dev = None
+        self.pool = pool
+        self.on_token = on_token
+        self.out: list[list[int]] = [[] for _ in range(n)]
+        self.first_t = [None] * n
+        self.finish_t = [0.0] * n
+        self.queue_t = [0.0] * n
+        self.steps = self.prefill_chunks = self.prefill_tokens = 0
+        self.mixed_steps = self.drafted = self.accepted = 0
+        self.spec_rounds = self.stopped_early = 0
+        self.t0 = time.perf_counter()
+
+    def emit(self, rid: int, toks, now: float, stop: bool) -> bool:
+        """Credit `toks` to request `rid` at time `now` and stream them to
+        `on_token`; returns whether the request is now finished
+        (max_tokens reached, or `stop`: its stop criterion fired)."""
+        out = self.out[rid]
+        start = len(out)
+        out.extend(toks)
+        if self.first_t[rid] is None:
+            self.first_t[rid] = now
+        done = stop or len(out) >= self.reqs[rid].max_tokens
+        if done:
+            self.finish_t[rid] = now
+        if self.on_token is not None:
+            for j in range(start, len(out)):
+                self.on_token(TokenEvent(rid=rid, token=out[j], index=j,
+                                         time=now,
+                                         final=done and j == len(out) - 1))
+        return done

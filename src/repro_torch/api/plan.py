@@ -1,13 +1,15 @@
 """Per-layer compression plans (port of `repro.api.plan`).
 
 The same JSON schema as the reference, so a `plan.json` written by either
-package loads in the other. The speculative-draft settings (`draft`) are
-kept as plain data: they round-trip but the port does not speculate yet.
+package loads in the other, speculative-draft settings (`draft`, a
+`runtime.speculation.DraftSpec`) included.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+
+from repro_torch.runtime.speculation import DraftSpec
 
 METHODS = ("none", "quant", "svd", "itera")
 _LOWRANK = ("svd", "itera")
@@ -46,7 +48,11 @@ class CompressionPlan:
     power_iters: int = 24
     label: str = ""
     pack: bool = True
-    draft: dict | None = None
+    # self-speculative decoding: the draft is this plan's own cascade
+    # truncated per the spec (the useful depth depends on the plan's
+    # ranks). None serves without speculation unless build(speculate=)
+    # asks for it.
+    draft: DraftSpec | None = None
     meta: dict = dataclasses.field(default_factory=dict)
 
     def active_layers(self) -> tuple:
@@ -63,7 +69,7 @@ class CompressionPlan:
              "layers": [lp.to_dict() for lp in self.layers],
              "meta": self.meta}
         if self.draft is not None:
-            d["draft"] = dict(self.draft)
+            d["draft"] = self.draft.to_dict()
         return d
 
     @classmethod
@@ -77,7 +83,8 @@ class CompressionPlan:
             act_wl=int(d.get("act_wl", 8)), pack=bool(d.get("pack", True)),
             power_iters=int(d.get("power_iters", 24)),
             label=str(d.get("label", "")),
-            draft=None if d.get("draft") is None else dict(d["draft"]),
+            draft=(None if d.get("draft") is None
+                   else DraftSpec.from_dict(d["draft"])),
             meta=dict(d.get("meta", {})))
 
     def dumps(self, *, indent: int | None = 2) -> str:
@@ -174,5 +181,9 @@ class CompressionPlan:
         groups = Counter(f"{lp.method}_W{lp.wl}" for lp in self.layers)
         body = " ".join(f"{k}x{v}" for k, v in sorted(groups.items()))
         resid = "packed" if self.pack else "carrier"
+        spec = ""
+        if self.draft is not None:
+            spec = (f", draft k={self.draft.k} "
+                    f"r×{self.draft.rank_fraction:g}")
         return (f"plan[{self.label or 'unlabeled'}] {len(self.layers)} "
-                f"layers: {body} (A{self.act_wl}, {resid})")
+                f"layers: {body} (A{self.act_wl}, {resid}{spec})")

@@ -133,3 +133,10 @@ def pack_weights(q: QuantizedTensor) -> QuantizedTensor:
     if not packable(q):
         return q
     return dataclasses.replace(q, values=pack_int4(q.values), packed=True)
+
+
+def unpack_weights(q: QuantizedTensor) -> QuantizedTensor:
+    """Inverse of pack_weights: back to the int8-carrier layout."""
+    if not q.packed:
+        return q
+    return dataclasses.replace(q, values=unpack_int4(q.values), packed=False)

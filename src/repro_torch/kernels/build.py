@@ -10,7 +10,9 @@ missing library, all at once; `load()` builds on first use.
 Every wrapper counts its launches in `LAUNCHES` (one per kernel launch,
 nowhere else), which is how a run shows that the serving path went
 through the kernels; `quant_matmul` also counts them by (K, N) in
-`LAUNCH_SHAPES`, which shows which linears a plan sent through it.
+`LAUNCH_SHAPES`, which shows which linears a plan sent through it, and
+`lowrank_qmm` by its (padded) rank R in `LAUNCH_RANKS`, which shows the
+speculative draft's truncated cascades ran.
 """
 from __future__ import annotations
 
@@ -42,12 +44,14 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
+LAUNCH_RANKS: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
     LAUNCH_SHAPES.clear()
+    LAUNCH_RANKS.clear()
 
 
 def _nvcc() -> str:

@@ -142,4 +142,5 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
                           tl.cluster, tl.cn, tl.ncl, build.stream_handle(dev))
     build.check(err, "lowrank_qmm")
     build.LAUNCHES["lowrank_qmm"] += 1
+    build.LAUNCH_RANKS[r] += 1
     return y

@@ -17,6 +17,7 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_linear, apply_norm, dtype_of,
                                        mlp_apply, sinusoidal_emb, softcap)
+from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.kvblocks import check_paged_support
 
 
@@ -103,14 +104,21 @@ def logits_for(params, h, cfg):
     return softcap(out, cfg.final_softcap)
 
 
-def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg):
+def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg,
+                 verify_width: int = 0):
     """ONE token-budget serving step over the blocked KV pool: row r
     advances by a span of q_lens[r] tokens (a prefill chunk, one decode
     token, or nothing). inputs (B, W) int tokens; block_tables (B, MB)
     int32; ctx_lens, q_lens (B,) int32; pool from
     `runtime.kvblocks.init_paged_cache`, updated in place. Returns
     (logits (B, 1, V) f32 at each row's last valid span position, pool).
-    Idle rows compute garbage the caller discards."""
+    Idle rows compute garbage the caller discards.
+
+    verify_width > 0 is the speculative verify mode
+    (`runtime.speculation`): the logits of span positions
+    0..verify_width-1 come first, then each row's last valid position,
+    (B, verify_width + 1, V), so the lm head runs on verify_width + 1
+    positions whatever W is."""
     check_paged_support(cfg)
     layers = params["layers"]
     if isinstance(layers, dict):
@@ -127,24 +135,52 @@ def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg):
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     last = torch.clamp(q_lens.long() - 1, min=0)
     h1 = h[torch.arange(h.shape[0], device=h.device), last][:, None]
+    if verify_width:
+        if verify_width > h.shape[1]:
+            raise ValueError(f"verify_width {verify_width} exceeds span "
+                             f"width {h.shape[1]}")
+        h1 = torch.cat([h[:, :verify_width], h1], dim=1)
     return logits_for(params, h1, cfg), pool
 
 
-def serve_step(params, pool, block_tables, step_buf, prev, cfg):
-    """One greedy serving dispatch: `unified_step` plus the argmax.
+def serve_step(params, pool, block_tables, step_buf, prev, recent,
+               stop_seqs, cfg, *, sample: bool = False, stop: bool = False):
+    """One serving dispatch: `unified_step`, then the token and the stop
+    mask (`runtime.sampling`).
 
-    step_buf (B, W + 3) int32: span tokens (B, W), then the scheduling
-    columns (ctx_lens, q_lens, use_prev). Decode rows take their first
-    token from `prev`, the previous step's device-resident tokens, so
-    token values never round-trip through the host. Returns (toks (B, 1)
-    int32, pool). The argmax keeps the first maximum."""
-    tokens = step_buf[:, :-3]
-    ctx_lens = step_buf[:, -3].contiguous()
-    q_lens = step_buf[:, -2].contiguous()
-    use_prev = step_buf[:, -1].bool()
+    step_buf (B, W + 3 + SAMP_COLS) int32: span tokens (B, W), the
+    scheduling columns (ctx_lens, q_lens, use_prev), then each row's
+    packed sampling/stop metadata. Decode rows take their first token
+    from `prev`, the previous step's device-resident tokens, so token
+    values never round-trip through the host. `recent` (B, S) is the
+    ring of each row's last S tokens and `stop_seqs` (B, NS, S) its stop
+    sequences, both on the device.
+
+    `sample` and `stop` are fixed for a serve call: with neither, this
+    is the greedy step (argmax, the first maximum; no top-k, no PRNG, no
+    ring), with the same launches. With `sample`, rows with temperature
+    <= 0 still take the argmax. Returns (toks (B, 1) int32, finished
+    (B,) int32 or None without `stop`, recent, pool)."""
+    m = smp.SAMP_COLS
+    tokens = step_buf[:, :-(3 + m)]
+    ctx_lens = step_buf[:, -(3 + m)].contiguous()
+    q_lens = step_buf[:, -(2 + m)].contiguous()
+    use_prev = step_buf[:, -(1 + m)].bool()
     first = torch.where(use_prev, prev[:, 0], tokens[:, 0])
     tokens = torch.cat([first[:, None], tokens[:, 1:]], dim=1)
     logits, pool = unified_step(params, pool, block_tables, ctx_lens, q_lens,
                                 tokens, cfg)
-    toks = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-    return toks, pool
+    last = logits[:, -1]
+    if sample:
+        sp = smp.unpack_meta(step_buf)
+        keys = smp.row_keys(sp["seed"], sp["rid"], sp["counter"])
+        toks = smp.sample_tokens(last, sp["temperature"], sp["top_k"],
+                                 sp["top_p"], keys)[:, None]
+    else:
+        toks = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    fin = None
+    if stop:
+        sp = smp.unpack_meta(step_buf)
+        recent = smp.push_recent(recent, toks)
+        fin = smp.finished_mask(toks[:, 0], recent, sp, stop_seqs)
+    return toks, fin, recent, pool

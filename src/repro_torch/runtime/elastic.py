@@ -4,7 +4,8 @@ comes with the port's multi-device work).
 
   * newest request first (max rid): least sunk prefill work;
   * only sequences that have emitted nothing, so no user-visible output
-    is lost and the engine's count-based pipeline stays exact;
+    is lost and the engine's count-based pipeline stays exact, and that
+    hold no speculative draft blocks;
   * each request yields at most once (`Request.requeued`).
 """
 from __future__ import annotations
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 def preemption_victims(live_seqs):
     """Live sequences eligible for pool-pressure preemption, in eviction
-    order (newest request first). Eligibility: zero emitted tokens, not
-    already requeued once."""
+    order (newest request first). Eligibility: zero emitted tokens, no
+    in-flight speculative draft, not already requeued once."""
     eligible = [s for s in live_seqs
                 if s is not None and s.n_emitted == 0
+                and not s.draft_blocks
                 and not getattr(s.req, "requeued", False)]
     return sorted(
         eligible,

@@ -1,0 +1,82 @@
+"""Counter-based random numbers for the sampler: the port's copy of the
+three `jax.random` functions the reference's sampler calls, bit for bit
+(threefry2x32, with `jax_threefry_partitionable` on, as jax 0.9 has it by
+default).
+
+    key = prng_key(seed)          # jax.random.PRNGKey(seed)
+    key = fold_in(key, data)      # jax.random.fold_in(key, data)
+    u = uniform(key, minval)      # jax.random.uniform(key, (), minval=minval)
+
+A key is an int64 tensor (..., 2) holding two uint32 words; every word is
+kept in an int64 and masked to 32 bits after each add and shift, so the
+same integer code runs on the CPU and on CUDA (torch has no uint32
+arithmetic on either) and gives the same bits on both. All three
+functions broadcast over leading dimensions: one call draws a whole
+(rows, candidates) grid of keys.
+"""
+from __future__ import annotations
+
+import torch
+
+MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA                 # threefry's key-schedule constant
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_ONE_F32_BITS = 0x3F800000           # float32 1.0
+
+
+def _rotl(x, d: int):
+    return ((x << d) | (x >> (32 - d))) & MASK
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 block cipher (20 rounds) of words (k1, k2) over
+    counter words (x1, x2): int64 tensors of uint32 values, broadcast
+    together. Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x = [(x1 + ks[0]) & MASK, (x2 + ks[1]) & MASK]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x[0] = (x[0] + x[1]) & MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & MASK
+    return x[0], x[1]
+
+
+def _words(x) -> torch.Tensor:
+    """An int tensor as uint32 words in int64 (two's complement wrap)."""
+    return torch.as_tensor(x).to(torch.int64) & MASK
+
+
+def prng_key(seed) -> torch.Tensor:
+    """jax.random.PRNGKey of an int32 seed (scalar or tensor): the words
+    (0, seed mod 2^32), so a negative seed keys as its uint32 pattern."""
+    s = _words(seed)
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """jax.random.fold_in: the cipher of the counter (0, data) under
+    `key`. `data` (int, wrapped to uint32) broadcasts against key[..., 0]."""
+    d = _words(data).to(key.device)
+    o1, o2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def random_bits(key: torch.Tensor) -> torch.Tensor:
+    """32 random bits of a scalar draw: the partitionable layout takes
+    the counter (0, 0) for shape () and xors the two output words."""
+    z = torch.zeros_like(key[..., 0])
+    o1, o2 = threefry2x32(key[..., 0], key[..., 1], z, z)
+    return o1 ^ o2
+
+
+def uniform(key: torch.Tensor, minval: float = 0.0) -> torch.Tensor:
+    """jax.random.uniform(key, (), float32, minval, 1.0) per key: the top
+    23 bits as the mantissa of a float in [1, 2), less 1, scaled to
+    [minval, 1) and floored at minval, each step in float32 as jax does."""
+    bits = (random_bits(key) >> 9) | _ONE_F32_BITS
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    span = torch.tensor(1.0, dtype=torch.float32, device=key.device) - lo
+    return torch.maximum(lo, f * span + lo)

@@ -49,7 +49,8 @@ Two relaxations of plain FCFS-with-worst-case-reservation:
     `advance_prefill` as chunked prefill crosses each block boundary.
     Shared blocks are always the leading `n_shared` table entries and
     writes only ever target positions >= prefilled >= n_shared*bs, so
-    no sequence can touch a block another sequence holds.
+    no sequence -- speculative rollback included -- can touch a block
+    another sequence holds.
 
   * Pool-pressure preemption: when the head request cannot be admitted
     even though a row is free (the pool cannot give enough blocks after
@@ -68,8 +69,8 @@ import dataclasses
 import numpy as np
 
 from repro_torch.runtime import elastic
-from repro_torch.runtime.kvblocks import (BlockPool, blocks_needed,
-                                          prefix_digests)
+from repro_torch.runtime.kvblocks import (BlockPool, blocks_for_positions,
+                                          blocks_needed, prefix_digests)
 
 
 @dataclasses.dataclass
@@ -77,13 +78,24 @@ class Request:
     """One generation request. max_tokens=None defers to the engine-level
     SamplingParams; rid is assigned by the engine (submission order).
     `requeued` is set by pool-pressure preemption — a request yields its
-    blocks at most once. Decoding is greedy: sampling and stop criteria
-    come with a later slice of the port."""
+    blocks at most once.
+
+    Per-request sampling / stop controls are plain fields, None meaning
+    "defer to the engine-level SamplingParams"; `engine.serve` resolves
+    every field to a concrete value before `submit`. temperature <= 0 is
+    greedy; `stop` is a tuple of token-id tuples matched inclusively
+    (the matching tokens stay in the output)."""
 
     tokens: np.ndarray
     max_tokens: int | None = None
     rid: int | None = None
     requeued: bool = False
+    temperature: float | None = None
+    top_k: int | None = None
+    top_p: float | None = None
+    seed: int | None = None
+    eos_id: int | None = None
+    stop: tuple = ()
 
     def __post_init__(self):
         self.tokens = np.asarray(self.tokens, np.int32).reshape(-1)
@@ -91,6 +103,15 @@ class Request:
             raise ValueError("empty prompt")
         if self.max_tokens is not None and self.max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {self.max_tokens}")
+        if self.top_k is not None and self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.eos_id is not None and self.eos_id < 0:
+            raise ValueError(f"eos_id must be >= 0, got {self.eos_id}")
+        self.stop = tuple(tuple(int(t) for t in s) for s in self.stop)
+        if any(len(s) == 0 for s in self.stop):
+            raise ValueError("empty stop sequence")
 
 
 @dataclasses.dataclass
@@ -124,6 +145,11 @@ class Sequence:
     cow_dst: int | None = None
     # next full prompt-block index advance_prefill may register
     reg_next: int = 0
+    # KV blocks provisionally allocated for a speculative draft span
+    # beyond the row's committed holdings (tail of block_ids, position
+    # order). Rolled back by commit_speculation after verify; empty
+    # whenever admission reserved the worst case up front.
+    draft_blocks: list[int] = dataclasses.field(default_factory=list)
 
     @property
     def prompt_len(self) -> int:
@@ -141,6 +167,14 @@ class Sequence:
     def done(self) -> bool:
         return self.n_emitted >= self.max_tokens
 
+    @property
+    def sampled(self) -> bool:
+        """True when this row decodes with temperature > 0. Sampled rows
+        never draft: greedy speculative acceptance verifies an argmax
+        chain."""
+        t = self.req.temperature
+        return t is not None and t > 0.0
+
 
 @dataclasses.dataclass
 class ScheduleOutput:
@@ -156,16 +190,24 @@ class ScheduleOutput:
     # the engine must reset their block tables to trash before the next
     # dispatch (then install any admitted sequence that reuses the row)
     preempted: list[int] = dataclasses.field(default_factory=list)
+    # row -> draft tokens to speculate this step (subset of decode rows;
+    # the row's verify span is 1 + spec[row] wide). Empty when
+    # speculation is off or no budget was left for it.
+    spec: dict[int, int] = dataclasses.field(default_factory=dict)
 
     @property
     def total_tokens(self) -> int:
-        return sum(self.prefill.values()) + len(self.decode)
+        return (sum(self.prefill.values()) + len(self.decode)
+                + sum(self.spec.values()))
 
     @property
     def max_span(self) -> int:
         """Widest per-row span this step (the forward pass's W)."""
-        return max(max(self.prefill.values(), default=0),
-                   1 if self.decode else 0)
+        d = 0
+        if self.decode:
+            d = 1 + max((self.spec.get(r, 0) for r in self.decode),
+                        default=0)
+        return max(max(self.prefill.values(), default=0), d)
 
     @property
     def is_mixed(self) -> bool:
@@ -318,7 +360,7 @@ class Scheduler:
             seq.cow_src = None
 
     # ---------------------------------------------------------- schedule --
-    def schedule(self, token_budget: int) -> ScheduleOutput:
+    def schedule(self, token_budget: int, spec_k: int = 0) -> ScheduleOutput:
         """Plan one unified step: admit FCFS, then split `token_budget`
         tokens across the active rows. Decode rows (prompt fully in the
         pool, request unfinished) always advance — one token each, even
@@ -330,7 +372,13 @@ class Scheduler:
         other row's padding, while even chunks keep the span — and the
         step's compute — near the useful-token count. Budget a
         short-remaining row leaves unused simply idles this step; the
-        next step re-budgets from scratch."""
+        next step re-budgets from scratch.
+
+        spec_k > 0 offers each greedy decode row up to spec_k speculative
+        draft tokens out of whatever budget prefill chunks left over, so
+        speculation ramps up when the batch turns decode-bound. Per-row
+        grants are clamped by `reserve_speculation` (never past the
+        request's final token, never past the block pool)."""
         if token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         admitted = []
@@ -357,8 +405,20 @@ class Scheduler:
                 if chunk > 0:
                     prefill[seq.row] = chunk
                     budget -= chunk
+        spec: dict[int, int] = {}
+        if spec_k > 0:
+            for seq in decoding:
+                if budget <= 0:
+                    break
+                if seq.sampled:
+                    continue
+                kr = self.reserve_speculation(seq, min(spec_k, budget))
+                if kr > 0:
+                    spec[seq.row] = kr
+                    budget -= kr
         return ScheduleOutput(admitted=admitted, prefill=prefill,
-                              decode=decode, preempted=preempted_rows)
+                              decode=decode, spec=spec,
+                              preempted=preempted_rows)
 
     # --------------------------------------------------------- preemption --
     def _preempt_for_head(self) -> list[int]:
@@ -411,6 +471,51 @@ class Scheduler:
         self.waiting.insert(min(1, len(self.waiting)), seq.req)
         self.max_queue_depth = max(self.max_queue_depth, len(self.waiting))
         self.preemptions += 1
+
+    # ------------------------------------------------------- speculation --
+    def reserve_speculation(self, seq: Sequence, k: int) -> int:
+        """Clamp a draft offer to what the row can legally speculate and
+        provisionally allocate the KV blocks the draft span needs beyond
+        the row's holdings. `k <= remaining - 1` keeps the (k+1)-wide
+        verify span inside the admission-time reservation and the block
+        table's width. Returns the granted k (shrunk to what the pool can
+        back); new blocks go to `seq.draft_blocks`, the rollback mark of
+        `commit_speculation`."""
+        k = max(0, min(int(k), seq.max_tokens - seq.n_emitted - 1))
+        while k > 0:
+            # last pool position the verify span writes: it covers
+            # [C, C + k] and caches all but its newest token
+            end = seq.prompt_len + seq.n_emitted - 1 + k
+            need = (blocks_for_positions(end + 1, self.pool.block_size)
+                    - len(seq.block_ids))
+            if need <= 0:
+                return k
+            if self.pool.can_alloc(need):
+                got = self.pool.alloc(need)
+                seq.block_ids.extend(got)
+                seq.draft_blocks.extend(got)
+                return k
+            k -= 1          # shrink the draft until the pool can back it
+        return 0
+
+    def commit_speculation(self, seq: Sequence) -> list[int]:
+        """Rollback after a verify, with `seq.n_emitted` already advanced
+        by the accepted tokens: free every provisional draft block the
+        committed context does not reach (never below the row's pre-draft
+        holdings, never the trash block 0). Returns the released ids.
+        Rejected positions need no data rewind: reads mask to
+        `slot <= position`, and the next span overwrites them."""
+        if not seq.draft_blocks:
+            return []
+        base = len(seq.block_ids) - len(seq.draft_blocks)
+        committed = max(seq.prompt_len + seq.n_emitted - 1, 0)
+        keep = max(blocks_for_positions(committed, self.pool.block_size),
+                   base)
+        released = seq.block_ids[keep:]
+        seq.block_ids = seq.block_ids[:keep]
+        seq.draft_blocks = []
+        self.pool.free(released)
+        return released
 
     # ---------------------------------------------------------- eviction --
     def finish(self, seq: Sequence) -> None:

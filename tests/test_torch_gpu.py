@@ -272,3 +272,138 @@ def test_paged_attention_splits(cuda, kv_bits, kps, ctx, ql):
         torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
                                    atol=1e-5)
         assert not o[r, ql[r]:].any()
+
+
+# ---------------------------------------------- sampling on the card --
+
+def test_threefry_on_cuda_equals_cpu(cuda):
+    """prng_key, fold_in and uniform give the CPU's bits on the card (the
+    int64-masked words make no use of unsigned or float arithmetic
+    beyond the last float32 steps, which are exact on both)."""
+    from repro_torch.runtime import prng
+
+    rng = np.random.default_rng(0)
+    seed = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 4096)
+                            .astype(np.int32))
+    data = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 4096)
+                            .astype(np.int32))
+    for dev in ("cpu", cuda):
+        k = prng.fold_in(prng.fold_in(prng.prng_key(seed.to(dev)),
+                                      data.to(dev)), 7)
+        u = prng.uniform(k, float(np.finfo(np.float32).tiny))
+        if dev == "cpu":
+            k_cpu, u_cpu = k, u
+    torch.cuda.synchronize()
+    assert torch.equal(k.cpu(), k_cpu)
+    assert torch.equal(u.cpu().view(torch.int32), u_cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("vocab", [32000, 100])
+def test_sample_tokens_on_cuda_equal_cpu(cuda, vocab):
+    """The sampler's tokens on the card equal the CPU's, on rows mixing
+    temperature, top-k and top-p, one of them with integer logits (ties
+    at the 256-wide window's edge), over several key sets."""
+    from repro_torch.runtime import sampling as smp
+
+    rng = np.random.default_rng(vocab)
+    b = 12
+    logits = (rng.standard_normal((b, vocab)) * 3).astype(np.float32)
+    logits[-1] = np.round(logits[-1])
+    temp = torch.tensor([0, .7, 1.5, .7, 1.5, .7, 1.5, .7, 1.5, .7, 1.5, .9],
+                        dtype=torch.float32)
+    topk = torch.tensor([0, 0, 1, 40, 256, 300, 0, 40, 256, 0, 300, 0],
+                        dtype=torch.int32)
+    topp = torch.tensor([1, .3, .9, 1, .3, .9, 1, .9, .9, .3, 1, 1],
+                        dtype=torch.float32)
+    x = torch.from_numpy(logits)
+    for trial in range(8):
+        seed = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, b)
+                                .astype(np.int32))
+        rid = torch.from_numpy(rng.integers(0, 100, b).astype(np.int32))
+        ctr = torch.from_numpy(rng.integers(0, 50, b).astype(np.int32))
+        want = smp.sample_tokens(x, temp, topk, topp,
+                                 smp.row_keys(seed, rid, ctr))
+        got = smp.sample_tokens(
+            x.to(cuda), temp.to(cuda), topk.to(cuda), topp.to(cuda),
+            smp.row_keys(seed.to(cuda), rid.to(cuda), ctr.to(cuda)))
+        assert torch.equal(got.cpu(), want), f"trial {trial}"
+
+
+# ------------------------------------ the speculative path's new shapes --
+
+@pytest.mark.parametrize("act_qmax", [127, 31])
+@pytest.mark.parametrize("r", [128, 160, 192])
+@pytest.mark.parametrize("k,n", [(512, 512), (512, 2048), (2048, 512)])
+def test_lowrank_qmm_draft_ranks_equal_plain(cuda, act_qmax, r, k, n):
+    """The draft pass's cascades: a decode step (M 8) at the truncated
+    ranks of rank fractions 0.5, 0.625 and 0.75 of R 256 -- at R 160 and
+    192 the cluster of 8 CTAs of 32 rank columns has CTAs with no rank
+    columns -- and at the A6 draft's clamp (act_qmax 31). W1 is packed
+    where the packing rule admits R (160, 192), W2 always."""
+    rng = np.random.default_rng(r + k + n + act_qmax)
+    xq = _codes(rng, (8, k), 6 if act_qmax == 31 else 8).to(cuda)
+    sx = _uniform(rng, (8, 1), 0.01, 1).to(cuda)
+    w1 = _codes(rng, (k, r), 4)
+    w1p = quant.packable(quant.QuantizedTensor(w1, None, 4, 0))
+    w1 = (quant.pack_int4(w1) if w1p else w1).to(cuda)
+    w2 = quant.pack_int4(_codes(rng, (r, n), 4)).to(cuda)
+    s1 = _uniform(rng, (1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (r, 1), 0.01, 0.1).to(cuda)
+    kw = dict(w1_packed=w1p, w2_packed=True, act_qmax=act_qmax)
+    before = build.LAUNCHES["lowrank_qmm"], build.LAUNCH_RANKS[r]
+    y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["lowrank_qmm"], build.LAUNCH_RANKS[r]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2, **kw))
+
+
+def test_lowrank_qmm_verify_span_equals_plain(cuda):
+    """The verify pass: M 64 rows (8 rows x a W 8 span) at R 256."""
+    rng = np.random.default_rng(64)
+    m, r = 64, 256
+    for k, n in ((512, 512), (512, 2048), (2048, 512)):
+        xq = _codes(rng, (m, k), 8).to(cuda)
+        sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+        w1 = quant.pack_int4(_codes(rng, (k, r), 4)).to(cuda)
+        w2 = quant.pack_int4(_codes(rng, (r, n), 4)).to(cuda)
+        s1 = _uniform(rng, (1, r), 0.01, 0.1).to(cuda)
+        s2 = _uniform(rng, (r, 1), 0.01, 0.1).to(cuda)
+        kw = dict(w1_packed=True, w2_packed=True)
+        y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2,
+                                                   **kw)), (k, n)
+
+
+def test_quant_matmul_verify_lm_head_equals_plain(cuda):
+    """The W8 lm head over k + 2 = 6 positions of 8 rows at verify."""
+    rng = np.random.default_rng(48)
+    xq = _codes(rng, (48, 512), 8).to(cuda)
+    sx = _uniform(rng, (48, 1), 0.01, 1).to(cuda)
+    w = _codes(rng, (512, 32000), 8).to(cuda)
+    sw = _uniform(rng, (1, 32000), 0.001, 0.01).to(cuda)
+    y = qm.quant_matmul(xq, sx, w, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, qm.quant_matmul_plain(xq, sx, w, sw))
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_paged_attention_verify_spans(cuda, kv_bits):
+    """Verify spans of 1 + drafts tokens (q_lens 1-5) in a W 8 bucket,
+    G = 1 as in opus-mt, with an idle row."""
+    rng = np.random.default_rng(kv_bits)
+    ctx = [40, 511, 0, 130, 300, 75, 220, 17]
+    ql = [5, 3, 0, 1, 5, 2, 4, 5]
+    q, pool, table, ctx, ql = _pa_case(rng, ctx, ql, kv_bits, hk=8, g=1)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 8 - q.shape[1]))
+    pool = {key: v.to(cuda) for key, v in pool.items()}
+    q = q.to(cuda)
+    tab, ctx_t, ql_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx, ql))
+    o = pa.paged_attention(q, pool, tab, ctx_t, ql_t)
+    torch.cuda.synchronize()
+    ref = pa.span_attend_gather(q, pool, tab, ctx_t)
+    for r in range(len(ctx)):
+        torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
+                                   atol=1e-5)
+        assert not o[r, ql[r]:].any()
