@@ -16,9 +16,15 @@ fails:
    1e-5, also with key splits that end mid-block; with the speculative
    path's shapes: the draft's truncated cascades (R 128, 160, 192, and
    A6), the verify pass's (M 64 at R 256, the lm head at M 48, attention
-   spans of 1-5 tokens in a W 8 bucket) -- timed beside its
-   plain version, a PyTorch library yardstick and the least time the card
-   could take (its bound);
+   spans of 1-5 tokens in a W 8 bucket); with the compression phase's:
+   unpacked W8 factors at R 192, 256, 320 and 384 for every linear and
+   the lm head as a cascade at decode (M 8) and in the calibration
+   forward (M 2048), and the svd plan's verify pass (M 64, the lm head
+   at M 48) -- timed beside its plain version, a PyTorch library
+   yardstick and the least time the card could take (its bound), with a
+   warning line wherever the kernel is slower than its plain version.
+   Every later path checks that each of its lowrank_qmm launches took a
+   code path (tile rows, K, R, N, packing) that this phase compared;
 3. engine: opus-mt at full width, compressed by the port with a mixed plan
    (ITERA W4A8 at rank fraction 0.5 for every attention and MLP linear,
    W8A8 quantization for the lm head), serving 16 ragged requests with an
@@ -40,10 +46,24 @@ fails:
    cascades launched 4 x 72 times a drafting round; plain and speculative
    serves timed A B B A; then the served model as its own draft (rank
    fraction 1.0), which accepts its drafts: phase 3's tokens again;
-4. parity: the compressed weights of both plans, copied to the CPU, serve
-   4 short requests there (the kernels' plain versions) and on the card;
-   the greedy tokens must be identical, and so must the mixed plan's
-   seeded sampled and speculative tokens.
+   compression: weights from seed 0 shaped to s_i ~ i^-2
+   (`shape_spectra`); the paper's SVD-then-quantize baseline as fig13
+   serves it (W8A8 at rank fraction 0.75 for every linear, the lm head
+   included: R 384) compressed on the card, with each leaf's error and
+   ITERA W4 against SVD W4 at the same rank (ITERA's must be no larger);
+   served greedy (73 lowrank_qmm launches a step, all at R 384, 12 of
+   paged_attention, none of quant_matmul) and speculatively with a rank
+   0.5 draft (the plain serve's tokens); SRA over the calibration forward
+   (greedy agreement with the uncompressed model on 2 x 8 x 256 tokens,
+   half the summed maximum ranks, at most 2 iterations; its launches by
+   rank checked against the allocations it evaluated) and a greedy serve
+   of its allocation, and of its last move when it kept equal ranks,
+   with each plan's launches a step by rank checked;
+4. parity: the compressed weights of the phase-3 plans, of the svd plan
+   and of the SRA plans (each compressed once on the card), copied to the
+   CPU, serve 4 short requests there (the kernels' plain versions) and on
+   the card; the greedy tokens must be identical, and so must the mixed
+   plan's seeded sampled and speculative tokens.
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -51,6 +71,7 @@ card's name and power limit as nvidia-smi gives them, and
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import pathlib
@@ -210,6 +231,7 @@ def check_quant_matmul(torch, timer, failures):
         rows.append(dict(m=m, k=k, n=n, packed=packed, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          bound_by=b_by))
+    slower_than_plain("quant_matmul", rows, ("m", "k", "n", "packed"))
     # the serving path's call: the W8 lm head, one row per batch slot
     main = next(r for r in rows if (r["m"], r["n"], r["packed"]) ==
                 (8, 32000, False))
@@ -219,7 +241,7 @@ def check_quant_matmul(torch, timer, failures):
 def check_lowrank_qmm(torch, timer, failures):
     from repro_torch.core.itera import LowRankQ
     from repro_torch.core.quant import (QuantizedTensor, pack_int4, packable,
-                                        qmax, unpack_int4)
+                                        qmax)
     from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
                                                  lowrank_qmm_plain)
     from repro_torch.kernels.ops import lrmm_hbm_bytes, quantize_acts
@@ -227,32 +249,48 @@ def check_lowrank_qmm(torch, timer, failures):
 
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, worst = [], 0.0
-    print("  lowrank_qmm: M K R N act_wl | kernel_ms plain_ms library_ms "
+    print("  lowrank_qmm: M K R N WxAy | kernel_ms plain_ms library_ms "
           "bound_us (bound by)")
     layer = ((512, 512), (512, 2048), (2048, 512))   # a layer's (K, N)
-    cases = [(act_wl, m, k, 256, n) for act_wl in (8, 4) for m in (8, 2048)
-             for k, n in layer]
+    head = (512, 32000)                              # the lm head's
+    cases = [(4, act_wl, m, k, 256, n) for act_wl in (8, 4)
+             for m in (8, 2048) for k, n in layer]
     # the speculative path: the draft's truncated cascades at decode (R
     # 128 of rank fraction 0.5; R 160 and 192, where some CTAs of the
     # cluster get no rank columns; the A6 draft's clamp at R 128), and
     # the verify pass, 8 rows x a W 8 span at R 256
-    cases += [(8, 8, k, r, n) for r in (128, 160, 192) for k, n in layer]
-    cases += [(6, 8, k, 128, n) for k, n in layer]
-    cases += [(8, 64, k, 256, n) for k, n in layer]
-    for act_wl, m, k, r, n in cases:
+    cases += [(4, 8, 8, k, r, n) for r in (128, 160, 192) for k, n in layer]
+    cases += [(4, 6, 8, k, 128, n) for k, n in layer]
+    cases += [(4, 8, 64, k, 256, n) for k, n in layer]
+    # the compression phase, unpacked W8 factors everywhere: at decode the
+    # svd plan's R 384 (2 of 8 CTAs without rank columns), its draft's R
+    # 192 and the SRA plans' 192 / 256 / 320, every linear and the lm
+    # head as a cascade; the svd plan's speculative verify (64 rows, 48
+    # at the lm head); the calibration forward's 8 x 256 rows at every
+    # rank SRA probes (256 -+ its step of 64) and at the svd plan's 384
+    full = layer + (head,)
+    cases += [(8, 8, 8, k, r, n) for r in (192, 256, 320, 384)
+              for k, n in full]
+    cases += [(8, 8, 64, k, 384, n) for k, n in layer]
+    cases += [(8, 8, 48, 512, 384, 32000)]
+    cases += [(8, 8, 2048, k, r, n) for r in (192, 256, 320, 384)
+              for k, n in full]
+    for wl, act_wl, m, k, r, n in cases:
         x = torch.randn((m, k), generator=g, device="cuda")
         xq, sx = quantize_acts(x, qmax(act_wl))
-        w1c = torch.randint(-7, 8, (k, r), generator=g, device="cuda",
+        qw = qmax(wl)
+        w1c = torch.randint(-qw, qw + 1, (k, r), generator=g, device="cuda",
                             dtype=torch.int8)
-        w1p = packable(QuantizedTensor(w1c, None, 4, 0))
+        w2c = torch.randint(-qw, qw + 1, (r, n), generator=g, device="cuda",
+                            dtype=torch.int8)
+        w1p = packable(QuantizedTensor(w1c, None, wl, 0))
+        w2p = packable(QuantizedTensor(w2c, None, wl, 1))
         w1 = pack_int4(w1c) if w1p else w1c
-        w2 = pack_int4(torch.randint(-7, 8, (r, n), generator=g,
-                                     device="cuda",
-                                     dtype=torch.int8))
+        w2 = pack_int4(w2c) if w2p else w2c
         s1 = torch.rand((1, r), generator=g, device="cuda") * 0.1
         s2 = torch.rand((r, 1), generator=g, device="cuda") * 0.1
         args = (xq, sx, w1, s1, w2, s2)
-        kw = dict(w1_packed=w1p, w2_packed=True, act_qmax=qmax(act_wl))
+        kw = dict(w1_packed=w1p, w2_packed=w2p, act_qmax=qmax(act_wl))
         if m == 8:
             # the cascade property: no (M, R) buffer, only Y
             lowrank_qmm(*args, **kw)
@@ -271,9 +309,8 @@ def check_lowrank_qmm(torch, timer, failures):
         err = float((y - ref).abs().max())
         worst = max(worst, err)
         check(failures, torch.equal(y, ref),
-              f"lowrank_qmm M={m} K={k} R={r} N={n} A{act_wl} "
+              f"lowrank_qmm M={m} K={k} R={r} N={n} W{wl}A{act_wl} "
               f"differs from plain (max abs {err})")
-        w2c = unpack_int4(w2)
 
         def chain():
             t = int_mm(torch, xq, w1c).float() * sx * s1 * \
@@ -285,21 +322,52 @@ def check_lowrank_qmm(torch, timer, failures):
         t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
         t_l = library_ms(timer, chain)
         nbytes = lrmm_hbm_bytes(m, LowRankQ(
-            QuantizedTensor(w1, s1, 4, 0, packed=w1p),
-            QuantizedTensor(w2, s2, 4, 1, packed=True)))
+            QuantizedTensor(w1, s1, wl, 0, packed=w1p),
+            QuantizedTensor(w2, s2, wl, 1, packed=w2p)))
         b_ms, b_by = bound(nbytes, 2 * m * r * (k + n), INT8_OPS_PER_S)
-        print(f"    {m:5d} {k:4d} {r:3d} {n:4d} A{act_wl} | {t_k:.4f} "
+        print(f"    {m:5d} {k:4d} {r:3d} {n:5d} W{wl}A{act_wl} | {t_k:.4f} "
               f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
               f"{b_ms * 1e3:.4f} ({b_by})")
-        rows.append(dict(m=m, k=k, r=r, n=n, act_wl=act_wl, ms=t_k,
+        rows.append(dict(m=m, k=k, r=r, n=n, wl=wl, act_wl=act_wl, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                          bound_by=b_by))
+    slower_than_plain("lowrank_qmm", rows, ("m", "k", "r", "n", "wl",
+                                             "act_wl"))
     # the serving path's most frequent call: a decode step's attention
     # projection (wq/wk/wv/wo, K 512 -> N 512), 48 of its 72 launches
     main = next(r for r in rows
-                if (r["m"], r["k"], r["r"], r["n"], r["act_wl"]) ==
-                (8, 512, 256, 512, 8))
+                if (r["m"], r["k"], r["r"], r["n"], r["wl"], r["act_wl"]) ==
+                (8, 512, 256, 512, 4, 8))
     return {**main, "max_abs_err": worst}
+
+
+def slower_than_plain(name, rows, keys) -> None:
+    """A warning line for every shape where the kernel took longer than
+    its plain version."""
+    for r in rows:
+        if r["ms"] > r["plain_ms"]:
+            print(f"  WARNING: {name} "
+                  + " ".join(f"{k}={r[k]}" for k in keys)
+                  + f" is slower than its plain version: {r['ms']:.4f} ms "
+                  f"against {r['plain_ms']:.4f} ms")
+
+
+# lowrank_qmm's code paths that phase 2 held bit for bit to the plain
+# version, as (bm, K, R, N, w1_packed, w2_packed): the keys of its
+# launches in build.LAUNCH_SHAPES
+COMPARED: set = set()
+
+
+def check_compared(failures, label) -> None:
+    """Every lowrank_qmm launch counted since the last reset went through
+    a code path that phase 2 compared with the plain version."""
+    from repro_torch.kernels import build
+
+    seen = {key[1:] for key in build.LAUNCH_SHAPES if key[0] == "lowrank_qmm"}
+    check(failures, seen <= COMPARED,
+          f"{label}: lowrank_qmm launched at (bm, K, R, N, w1_packed, "
+          f"w2_packed) {sorted(seen - COMPARED)}, which phase 2 did not "
+          f"compare with the plain version")
 
 
 def lowrank_launch_shapes(cfg) -> dict:
@@ -668,6 +736,7 @@ def sampling_phase(torch, eng, reqs, greedy, failures):
     res = eng.serve(requests(), sp)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)         # ... and ends here
+    check_compared(failures, "sampling")
     print(f"[sampling] {len(reqs)} requests, {len(cold)} at temperature 0: "
           f"{res.total_tokens} tokens, TPOT p50 {res.tpot_p50 * 1e3:.2f} ms "
           f"(greedy {greedy.tpot_p50 * 1e3:.2f}), "
@@ -742,6 +811,7 @@ def speculation_phase(torch, eng, eng8, reqs, greedy16, greedy8, failures):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)         # ... ends here
     ranks = dict(build.LAUNCH_RANKS)
+    check_compared(failures, "speculation")
     runs += [("speculative", res), ("speculative", seng.serve(reqs, sp)),
              ("plain", eng.serve(reqs, sp))]
     torch.cuda.synchronize()
@@ -797,6 +867,240 @@ def speculation_phase(torch, eng, eng8, reqs, greedy16, greedy8, failures):
     return launches
 
 
+SRA_BOUND = dict(max_iters=2, patience=1)   # keeps SRA near a minute
+CALIB = (2, 8, 256)         # calibration batches x rows x tokens
+
+
+def svd_plan(params):
+    """The paper's SVD-then-quantize baseline as fig13 serves it: every
+    eligible linear (the lm head included) W8A8 at rank fraction 0.75,
+    R 384 at full width."""
+    from repro_torch.api.plan import CompressionPlan
+
+    return CompressionPlan.uniform(params, method="svd", weight_wl=8,
+                                   rank_fraction=0.75)
+
+
+def ranks_per_step(cfg, plan) -> dict:
+    """lowrank_qmm launches of one forward pass (a serving step) under
+    `plan`, by rank padded to 32 as the kernel takes it: one per layer for
+    each low-rank stacked leaf, one for each other low-rank leaf."""
+    per = collections.Counter()
+    for lp in plan.layers:
+        if lp.method in ("svd", "itera"):
+            per[-(-lp.rank // 32) * 32] += (cfg.num_layers if
+                                             lp.path.startswith("layers/")
+                                             else 1)
+    return dict(per)
+
+
+def check_plan_launches(failures, label, res, counts, ranks, per_rank,
+                        n_layers):
+    """Every linear of the plan on `lowrank_qmm`, `per_rank` launches a
+    step at each rank, one attention launch a layer, no `quant_matmul`,
+    and every cascade on a code path phase 2 compared."""
+    per_step = sum(per_rank.values())
+    check(failures, counts.get("lowrank_qmm", 0) == per_step * res.steps,
+          f"{label}: {counts.get('lowrank_qmm', 0)} lowrank_qmm launches, "
+          f"expected {per_step} a step x {res.steps} steps")
+    check(failures, ranks == {r: c * res.steps for r, c in per_rank.items()},
+          f"{label}: lowrank_qmm launches by rank {ranks}, expected "
+          f"{per_rank} a step x {res.steps} steps")
+    check(failures, counts.get("paged_attention", 0) == n_layers * res.steps,
+          f"{label}: {counts.get('paged_attention', 0)} paged_attention "
+          f"launches, expected {n_layers} a step")
+    check(failures, counts.get("quant_matmul", 0) == 0,
+          f"{label}: quant_matmul launched")
+    check_compared(failures, label)
+
+
+def compression_phase(torch, cfg, reqs, failures):
+    """The paper's compression flow on the card, on full-width weights
+    from seed 0 whose spectra are shaped to s_i ~ i^-2: the svd W8 plan
+    (ratio, each leaf's reconstruction error, ITERA W4 against SVD W4 at
+    the same rank, which it must not exceed), served greedy with its 73
+    R-384 lowrank_qmm launches a step checked, and speculatively with a
+    rank-0.5 draft (the plain serve's tokens); then SRA over the
+    calibration forward (greedy next-token agreement with the
+    uncompressed model on CALIB tokens, half the summed maximum ranks,
+    SRA_BOUND iterations, launches by rank checked against the
+    allocations it evaluated) and a greedy serve of its allocation -- and
+    of its last move when it kept equal ranks, so unequal ranks run on the
+    card too. Returns ({label: engine} for parity, {path: launches} of the
+    kernel runs)."""
+    import numpy as np
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.core.compress import (CompressionConfig, flatten,
+                                           shape_spectra, sra_eval_closure)
+    from repro_torch.core.itera import (itera_decompose,
+                                        reconstruction_error, svd_decompose)
+    from repro_torch.core.sra import sra_allocate
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import (forward, init_params,
+                                                logits_for)
+    from repro_torch.runtime.speculation import DraftSpec, draft_rank
+
+    sp = SamplingParams(max_tokens=32)
+    t0 = time.perf_counter()
+    shaped = shape_spectra(init_params(cfg, seed=0, device="cuda"), 2.0)
+    torch.cuda.synchronize()
+    print(f"[compression] shape_spectra(alpha 2.0) on the host: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    plan = svd_plan(shaped)
+    t0 = time.perf_counter()
+    eng = InferenceEngine.build(cfg, plan, params=shaped, device="cuda",
+                                max_batch=8, block_size=16)
+    torch.cuda.synchronize()
+    print(f"[compression] {plan.summary()}: compressed on the card in "
+          f"{time.perf_counter() - t0:.2f} s, ratio "
+          f"{eng.report.compression_ratio:.3f}x; {eng.report.summary()}")
+    (rank,) = {lp.rank for lp in plan.layers}
+    leaves, nodes = flatten(shaped), flatten(eng.params)
+    t0 = time.perf_counter()
+    for lp in plan.layers:
+        w = leaves[lp.path]
+        e8 = float(reconstruction_error(w, nodes[lp.path]))
+        e_it = float(reconstruction_error(w, itera_decompose(w, rank, 4)))
+        e_sv = float(reconstruction_error(w, svd_decompose(w, rank, 4)))
+        print(f"  {lp.path:18s} {tuple(w.shape)} R {rank}: svd W8 error "
+              f"{e8:.5f}; W4 itera {e_it:.5f} vs svd {e_sv:.5f}")
+        check(failures, e_it <= e_sv, f"{lp.path}: ITERA W4 error {e_it} "
+              f"exceeds SVD W4's {e_sv} at R {rank}")
+    print(f"[compression] ITERA and SVD W4 of every leaf on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    launches = {}
+    eng.serve(reqs[:2], SamplingParams(max_tokens=2))        # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()                  # the svd plan's serve starts
+    plain = serve_checked(torch, eng, "kv16", reqs, sp, {}, failures)
+    launches["svd"] = dict(build.LAUNCHES)  # ... and ends here
+    per_rank = ranks_per_step(cfg, plan)
+    (rp, per_step), = per_rank.items()      # every cascade at R 384
+    check_plan_launches(failures, "svd plan", plain, launches["svd"],
+                        dict(build.LAUNCH_RANKS), per_rank, cfg.num_layers)
+
+    spec = DraftSpec(**SPEC)
+    seng = InferenceEngine(cfg, eng.params, device=eng.device, plan=eng.plan,
+                           max_batch=8, block_size=16, speculate=spec)
+    seng.serve(reqs[:2], SamplingParams(max_tokens=3))       # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()                  # the speculative serve starts
+    sres = seng.serve(reqs, sp)
+    torch.cuda.synchronize()
+    launches["svd speculative"] = dict(build.LAUNCHES)      # ... ends here
+    ranks = dict(build.LAUNCH_RANKS)
+    rd = -(-draft_rank(rank, spec.rank_fraction) // 32) * 32
+    print(f"[compression] svd plan: plain TPOT p50 "
+          f"{plain.tpot_p50 * 1e3:.2f} ms, {plain.tokens_per_second:.1f} "
+          f"tok/s, {plain.steps} steps; speculative (k {spec.k}, draft R "
+          f"{rd}) TPOT p50 {sres.tpot_p50 * 1e3:.2f} ms, "
+          f"{sres.tokens_per_second:.1f} tok/s, {sres.steps} steps, "
+          f"accepted {sres.accepted} of {sres.drafted} drafts = accept rate "
+          f"{sres.accept_rate:.4f} over {sres.spec_rounds} rounds; "
+          f"lowrank_qmm by rank {ranks}")
+    check(failures, all(np.array_equal(a, b) for a, b in
+                        zip(sres.outputs, plain.outputs)),
+          "svd plan: the speculative tokens differ from the plain serve's")
+    check(failures, ranks.get(rd, 0) == spec.k * per_step * sres.spec_rounds,
+          f"svd plan: {ranks.get(rd, 0)} R {rd} launches, expected "
+          f"{spec.k} x {per_step} a drafting round")
+    check(failures, ranks.get(rp, 0) == per_step * sres.steps,
+          f"svd plan: {ranks.get(rp, 0)} R {rp} launches, expected "
+          f"{per_step} a step")
+    check_compared(failures, "svd plan speculative")
+
+    # SRA: next-token agreement with the uncompressed model on CALIB
+    g = torch.Generator().manual_seed(0)
+    nb, rows, seq = CALIB
+    calib = [torch.randint(1, cfg.vocab_size, (rows, seq), generator=g,
+                           dtype=torch.int32).cuda() for _ in range(nb)]
+
+    def greedy(p, toks):
+        with torch.inference_mode():
+            return logits_for(p, forward(p, toks, cfg)[0], cfg).argmax(-1)
+
+    ref = [greedy(shaped, t) for t in calib]
+
+    def quality(cp) -> float:
+        return float(sum((greedy(cp, t) == r).float().mean()
+                         for t, r in zip(calib, ref)) / nb)
+
+    scfg = CompressionConfig(method="svd", weight_wl=8)
+    eval_fn, paths, max_ranks = sra_eval_closure(shaped, scfg, quality)
+    evaluated = []
+
+    def recorded(alloc):
+        evaluated.append(list(alloc))
+        return eval_fn(alloc)
+
+    def config(alloc):
+        return dataclasses.replace(scfg, ranks=dict(zip(paths, alloc)))
+
+    budget = sum(max_ranks) // 2
+    t0 = time.perf_counter()
+    build.reset_launches()                  # SRA's calibration starts
+    res = sra_allocate(recorded, len(paths), budget, max_ranks, **SRA_BOUND)
+    torch.cuda.synchronize()
+    launches["sra calibration"] = dict(build.LAUNCHES)      # ... ends here
+    ranks = dict(build.LAUNCH_RANKS)
+    expect = collections.Counter()
+    for alloc in evaluated:                 # one forward pass a batch
+        for r, c in ranks_per_step(cfg, config(alloc).to_plan(shaped)).items():
+            expect[r] += nb * c
+    print(f"[sra] {len(paths)} layers, budget {budget} of {sum(max_ranks)} "
+          f"ranks, {SRA_BOUND}: {res.evals} evaluations (each compresses "
+          f"the model and runs {nb} x {rows} x {seq} tokens) in "
+          f"{time.perf_counter() - t0:.1f} s; launches "
+          f"{launches['sra calibration']}; lowrank_qmm by rank {ranks}")
+    check(failures, len(evaluated) == res.evals,
+          f"sra: {len(evaluated)} evaluations ran, the result counts "
+          f"{res.evals}")
+    check(failures, ranks == dict(expect),
+          f"sra: calibration launches by rank {ranks}, the evaluated "
+          f"allocations give {dict(expect)}")
+    check_compared(failures, "sra calibration")
+    for it, (alloc, acc) in enumerate(res.history):
+        print(f"  iteration {it}: {alloc} agreement {acc:.5f}")
+    print(f"[sra] allocation {dict(zip(paths, res.ranks))}, agreement "
+          f"{res.accuracy:.5f}")
+    check(failures, sum(res.ranks) == budget,
+          f"sra: allocation sums to {sum(res.ranks)}, budget {budget}")
+    check(failures, launches["sra calibration"].get("lowrank_qmm", 0) > 0,
+          "sra: the calibration forward launched no lowrank_qmm")
+
+    served = {"sra": res.ranks}
+    if len(set(res.ranks)) == 1:
+        # SRA kept the equal split: its last move is served too, so an
+        # allocation with unequal ranks runs on the card
+        moved = next((a for a, _ in reversed(res.history)
+                      if len(set(a)) > 1), None)
+        check(failures, moved is not None,
+              "sra: no allocation with unequal ranks in the history")
+        if moved is not None:
+            served["sra move"] = moved
+    engines = {"svd": eng}
+    for label, alloc in served.items():
+        e = InferenceEngine.build(cfg, config(alloc), params=shaped,
+                                  device="cuda", max_batch=8, block_size=16)
+        per_rank = ranks_per_step(cfg, e.plan)
+        print(f"[sra] {label} {e.plan.summary()}: ranks "
+              f"{[lp.rank for lp in e.plan.layers]}, lowrank_qmm launches "
+              f"a step by rank {per_rank}; {e.report.summary()}")
+        e.serve(reqs[:2], SamplingParams(max_tokens=2))     # warm-up
+        torch.cuda.synchronize()
+        build.reset_launches()              # the allocation's serve starts
+        r = serve_checked(torch, e, "kv16", reqs, sp, {}, failures)
+        launches[label] = dict(build.LAUNCHES)  # ... and ends here
+        check_plan_launches(failures, label, r, launches[label],
+                            dict(build.LAUNCH_RANKS), per_rank,
+                            cfg.num_layers)
+        engines[label] = e
+    return engines, launches
+
+
 def parity(torch, label, gpu, cpu, short, sp, failures) -> None:
     """`short` served by the card's and the CPU's engine: the tokens must
     be identical; at a difference, the logit margin is printed."""
@@ -843,7 +1147,6 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.runtime.speculation import DraftSpec
 
-    t_start = time.perf_counter()
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -861,9 +1164,12 @@ def main() -> int:
     # ---- 2. kernels vs their plain versions ----------------------------
     timer = Timer(torch)
     failures: list = []
+    build.reset_launches()
     kern = {"quant_matmul": check_quant_matmul(torch, timer, failures),
             "lowrank_qmm": check_lowrank_qmm(torch, timer, failures),
             "paged_attention": check_paged_attention(torch, timer, failures)}
+    COMPARED.update(key[1:] for key in build.LAUNCH_SHAPES
+                    if key[0] == "lowrank_qmm")
     end_phase("kernels", failures)
     del timer
 
@@ -887,6 +1193,7 @@ def main() -> int:
               f"{kv}: the prefix cache found no shared block")
         greedy[kv] = res
     mixed = dict(build.LAUNCHES)            # ... and ends here
+    check_compared(failures, "mixed path")
     print(f"[engine] launches on the mixed path: {mixed}")
     print("[engine] lowrank_qmm launches per decode step by shape: "
           + ", ".join(f"K{k}->N{n} x{c}"
@@ -904,8 +1211,8 @@ def main() -> int:
     build.reset_launches()                  # the quant-only path's run starts
     res = serve_checked(torch, qeng, "kv16", reqs, sp, {}, failures)
     quant = dict(build.LAUNCHES)            # ... and ends here
-    shapes = {(k, n): c for (name, k, n), c in build.LAUNCH_SHAPES.items()
-              if name == "quant_matmul"}
+    shapes = {key[1:]: c for key, c in build.LAUNCH_SHAPES.items()
+              if key[0] == "quant_matmul"}
     print(f"[baseline] launches on the quant-only path: {quant}")
     print("[baseline] quant_matmul launches by shape over "
           f"{res.steps} steps: " + ", ".join(
@@ -935,8 +1242,12 @@ def main() -> int:
     speculated = speculation_phase(torch, eng, eng8, reqs, greedy["kv16"],
                                    greedy["int8 KV"], failures)
     end_phase("speculation", failures)
+    failures = []
+    compressed, paths = compression_phase(torch, cfg, reqs, failures)
+    end_phase("compression", failures)
     launches = {name: sum(path.get(name, 0)
-                          for path in (mixed, quant, sampled, speculated))
+                          for path in (mixed, quant, sampled, speculated,
+                                       *paths.values()))
                 for name in build.SOURCES}
 
     # ---- 4. card vs CPU --------------------------------------------------
@@ -967,6 +1278,14 @@ def main() -> int:
                                        device=torch.device("cpu"),
                                        plan=e.plan, speculate=spec),
                        short, sp8, failures)
+    # the compression phase's models, compressed once on the card: the
+    # CPU serves the same compressed tensors (cuSOLVER and LAPACK give
+    # other singular vectors, so compressing twice would give two models)
+    for label, e in compressed.items():
+        cpu = InferenceEngine(cfg, params_to(e.params, "cpu"),
+                              device=torch.device("cpu"), plan=e.plan)
+        parity(torch, f"{label} {e.plan.label} kv16", e, cpu, short, sp8,
+               failures)
     end_phase("parity", failures)
 
     # ---- result ----------------------------------------------------------
@@ -984,7 +1303,7 @@ def main() -> int:
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         for name, k in kern.items()]}
     print(f"kernels checked: {', '.join(kern)} "
-          f"({time.perf_counter() - t_start:.0f} s in all)")
+          f"(the whole script: {time.perf_counter() - T_START:.1f} s)")
     print(json.dumps(line))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

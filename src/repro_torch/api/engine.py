@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.api.plan import CompressionPlan
 from repro_torch.configs import ModelConfig, get_config
-from repro_torch.core.compress import compress_params, flatten, map_with_path
+from repro_torch.core.compress import (CompressionConfig, compress_params,
+                                       flatten, map_with_path)
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import transformer as tfm
@@ -326,14 +327,16 @@ class InferenceEngine:
               chunk_tokens: int = 256, prefix_cache: bool = True,
               kv_bits: int | None = None, speculate=None
               ) -> "InferenceEngine":
-        """arch: config name or a ModelConfig. plan: CompressionPlan or
-        None (serve `params` as given: dense, or already compressed, e.g.
-        from `repro_torch.bridge`). params: weights; freshly initialised
-        from `seed` when omitted. kv_bits: override cfg.kv_cache_bits
-        (8 = int8 KV codes with fp32 scales). speculate: None defers to
-        `plan.draft`; a DraftSpec, True (the plan's draft or the
-        defaults) or an int draft depth k turns speculation on; False or
-        0 turns it off."""
+        """arch: config name or a ModelConfig. plan: CompressionPlan, a
+        uniform `CompressionConfig` (lowered to a plan against the
+        weights; its per-layer `ranks`, e.g. from SRA, go through
+        `rank_for`), or None (serve `params` as given: dense, or already
+        compressed, e.g. from `repro_torch.bridge`). params: weights;
+        freshly initialised from `seed` when omitted. kv_bits: override
+        cfg.kv_cache_bits (8 = int8 KV codes with fp32 scales).
+        speculate: None defers to `plan.draft`; a DraftSpec, True (the
+        plan's draft or the defaults) or an int draft depth k turns
+        speculation on; False or 0 turns it off."""
         dev = resolve_device(device)
         _full_fp32()                        # before compression runs
         cfg = get_config(arch, smoke=smoke) if isinstance(arch, str) else arch
@@ -344,6 +347,8 @@ class InferenceEngine:
         else:
             params = params_to(params, dev)
         report = None
+        if isinstance(plan, CompressionConfig):
+            plan = None if plan.method == "none" else plan.to_plan(params)
         if plan is not None:
             if not isinstance(plan, CompressionPlan):
                 raise TypeError(f"plan must be a CompressionPlan, got "

@@ -1,9 +1,11 @@
 """Model configuration schema (the port's copy of `repro.configs.base`).
 
-Only the fields the port's serving path reads are kept: dense layouts with
-global causal attention, the MLP and norm flavors, and the KV-cache word
-length. Field names and defaults match the reference, so a config reads
-the same in both packages.
+Only the fields the port reads are kept: dense layouts with causal
+attention (optionally windowed; `local_global_period` only so that the
+port can refuse the local/global pairing), the whole-sequence attention's
+implementation, the MLP and norm flavors, and the KV-cache word length.
+Field names and defaults match the reference, so a config reads the same
+in both packages.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rotary_pct: float = 1.0
     pos_emb: str = "rope"                   # rope | sinusoidal | none
+    attn_impl: str = "auto"                 # auto | full | chunked
+    attn_chunk: int = 1024                  # KV block for chunked attention
 
     # MLP flavor
     mlp_act: str = "swiglu"                 # swiglu | relu2 | gelu | geglu

@@ -143,4 +143,6 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
     build.check(err, "lowrank_qmm")
     build.LAUNCHES["lowrank_qmm"] += 1
     build.LAUNCH_RANKS[r] += 1
+    build.LAUNCH_SHAPES["lowrank_qmm", tl.bm, k, r, n, bool(w1_packed),
+                        bool(w2_packed)] += 1
     return y

@@ -1,7 +1,8 @@
 """Serving CLI: a thin front end over `repro_torch.api.engine`.
 
-Builds the engine (random weights from --seed, compressed per --plan when
-given), then serves --batch requests of random tokens with ragged prompt
+Builds the engine (random weights from --seed, compressed per --plan
+when given, else per the uniform --compression / --wl / --rank-fraction),
+then serves --batch requests of random tokens with ragged prompt
 lengths (--prompt-len, less 0, 4, 8 or 12 tokens by row) through the
 in-flight batching scheduler, and prints throughput and latency. Requests
 are greedy unless --temperature > 0 (with --top-k / --top-p, seeded by
@@ -10,6 +11,8 @@ tokens a round with the plan's cascade truncated to
 --draft-rank-fraction; --stream prints tokens as they complete through
 `serve_stream`.
 
+  python -m repro_torch.launch.serve --arch opus-mt --compression svd \
+      --wl 8 --rank-fraction 0.75
   python -m repro_torch.launch.serve --arch opus-mt --plan plan.json \
       --prompt-len 128 --gen 32 --batch 16 --max-batch 8 --kv-bits 8 \
       --temperature 0.8 --top-k 50 --top-p 0.9 --speculate 4
@@ -25,6 +28,7 @@ import numpy as np
 
 from repro_torch.api.engine import InferenceEngine, SamplingParams, TokenEvent
 from repro_torch.api.plan import CompressionPlan
+from repro_torch.core.compress import CompressionConfig
 from repro_torch.runtime.speculation import DraftSpec
 
 
@@ -100,7 +104,15 @@ def main(argv=None):
                     help="the architecture's small test configuration")
     ap.add_argument("--plan", default=None,
                     help="CompressionPlan JSON (either package writes it); "
-                         "without it the weights are served uncompressed")
+                         "overrides --compression/--wl/--rank-fraction")
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "quant", "svd", "itera"],
+                    help="uniform compression of every eligible linear "
+                         "(none: serve the weights uncompressed)")
+    ap.add_argument("--wl", type=int, default=8,
+                    help="weight word length of --compression")
+    ap.add_argument("--rank-fraction", type=float, default=0.5,
+                    help="rank of svd / itera as a fraction of min(K, N)")
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4, help="number of requests")
@@ -141,9 +153,14 @@ def main(argv=None):
                          "tokens as they complete")
     args = ap.parse_args(argv)
 
-    plan = CompressionPlan.load(args.plan) if args.plan else None
-    if plan is not None:
+    if args.plan is not None:
+        plan = CompressionPlan.load(args.plan)
         print(f"[serve] {plan.summary()}")
+    elif args.compression != "none":
+        plan = CompressionConfig(method=args.compression, weight_wl=args.wl,
+                                 rank_fraction=args.rank_fraction)
+    else:
+        plan = None
     speculate = None
     if args.speculate > 0:
         speculate = DraftSpec(k=args.speculate,
@@ -154,6 +171,8 @@ def main(argv=None):
         device=args.device, verbose=True, max_batch=args.max_batch,
         block_size=args.block_size, kv_bits=args.kv_bits,
         speculate=speculate)
+    if args.plan is None and engine.plan is not None:
+        print(f"[serve] {engine.plan.summary()}")
     rng = np.random.default_rng(args.seed)
     lens = [max(4, args.prompt_len - 4 * (i % 4)) for i in range(args.batch)]
     prompts = [rng.integers(1, engine.cfg.vocab_size, size=n).astype(np.int32)

@@ -1,5 +1,17 @@
-"""Serving attention over the blocked KV pool (port of the paged half of
-`repro.models.attention`).
+"""Attention (port of `repro.models.attention`): causal self-attention over
+whole sequences for the calibration forward, and serving attention over
+the blocked KV pool.
+
+`attention` is the reference's monolithic causal attention (GQA grouped,
+RoPE, sliding window, logit soft-capping): "full" takes one masked
+softmax over the sequence, "chunked" a q-block loop that materializes
+only the kv blocks each q block can see; "auto" picks chunked above 2048
+tokens, as the reference. The reference computes it in jnp outside any
+kernel, so it is plain PyTorch here, in float64 (scores, softmax and the
+weighted sum), as the paged oracle and the norms are: the card and the
+CPU then very likely round to the same float32, where float32 sums in
+different orders would flip int8 activation codes of the next linear.
+The reference takes it in float32, within about 1e-5 of this.
 
 `span_attention_paged` scatters each row's span K/V into the pool FIRST,
 then attends over the row's block-table view under the causal mask
@@ -12,12 +24,101 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import symmetric_scale
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import NEG, paged_attention
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (re-export)
     span_attend_gather as _span_attend_gather,
 )
-from repro_torch.models.layers import apply_linear, apply_rope
+from repro_torch.models.layers import apply_linear, apply_rope, softcap
 from repro_torch.runtime.kvblocks import span_slots
+
+
+def _group_q(q, hk):
+    """(B, S, H, Dh) -> (B, S, Hk, G, Dh): group q heads by kv head (K/V
+    are never repeated to H heads)."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, hk, h // hk, d)
+
+
+def _scores(q, k, cap):
+    """q: (B, Sq, Hk, G, Dh); k: (B, Sk, Hk, Dh) -> (B, Hk, G, Sq, Sk)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q, k) * (q.shape[-1] ** -0.5)
+    return softcap(s, cap)
+
+
+def _attend_block(q, k, v, mask, cap):
+    """q grouped (B, Sq, Hk, G, Dh); k/v (B, Sk, Hk, Dh); mask (..., Sq,
+    Sk) -> (B, Sq, H, Dh), in the inputs' dtype (float64 here)."""
+    s = torch.where(mask, _scores(q, k, cap), NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    b, sq, hk, g, d = o.shape
+    return o.reshape(b, sq, hk * g, d)
+
+
+def _causal_mask(q_pos, k_pos, window):
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def attention(params, x, cfg, *, window=None, positions=None,
+              return_kv=False):
+    """Causal self-attention over whole sequences. x: (B, S, D) -> (B, S,
+    D). `window` bounds how far back a query sees (sliding window);
+    `positions` (S,) defaults to 0..S-1. The return_kv path (prefill's
+    cache) is not ported yet."""
+    if return_kv:
+        raise NotImplementedError("attention(return_kv=True) comes with "
+                                  "prefill")
+    b, s, _ = x.shape
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+
+    q = apply_linear(x, params["wq"]).reshape(b, s, h, hd)
+    k = apply_linear(x, params["wk"]).reshape(b, s, hk, hd)
+    v = apply_linear(x, params["wv"]).reshape(b, s, hk, hd)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    qg = _group_q(q.to(torch.float64), hk)
+    k, v = k.to(torch.float64), v.to(torch.float64)
+
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "chunked" if s > 2048 else "full"
+    if impl == "full":
+        mask = _causal_mask(positions, positions, window)[None, None, None]
+        o = _attend_block(qg, k, v, mask, cfg.logit_softcap)
+    elif impl == "chunked":
+        o = _chunked_causal(qg, k, v, positions, window, cfg)
+    else:
+        raise ValueError(f"attn_impl must be auto|full|chunked, got {impl!r}")
+    return apply_linear(o.to(x.dtype).reshape(b, s, h * hd), params["wo"])
+
+
+def _chunked_causal(q, k, v, positions, window, cfg):
+    """Flash-style q-block loop with static block skipping: q block i
+    attends only to kv blocks [lo_i, i], lo_i 0 (causal) or the first
+    block inside the window, so the work is triangular (or banded), not
+    rectangular. q is grouped (B, S, Hk, G, Dh); k/v are (B, S, Hk,
+    Dh)."""
+    s = q.shape[1]
+    c = min(cfg.attn_chunk, s)
+    nb = (s + c - 1) // c
+    outs = []
+    for i in range(nb):
+        q_sl = slice(i * c, min((i + 1) * c, s))
+        lo = 0
+        if window is not None:
+            lo = max(0, (i * c - window) // c)
+        k_sl = slice(lo * c, min((i + 1) * c, s))
+        mask = _causal_mask(positions[q_sl], positions[k_sl],
+                            window)[None, None, None]
+        outs.append(_attend_block(q[:, q_sl], k[:, k_sl], v[:, k_sl], mask,
+                                  cfg.logit_softcap))
+    return torch.cat(outs, dim=1)
 
 
 def _quant_kv(x):

@@ -1,4 +1,6 @@
-"""Decoder-only LM, serving half (port of `repro.models.transformer`).
+"""Decoder-only LM (port of `repro.models.transformer`): the whole-sequence
+`forward` of the dense layout (the calibration pass SRA runs) and the
+serving step over the blocked KV pool.
 
 Parameters are a plain dict of tensors with the reference's tree layout
 and path names ("layers/attn/wq", "lm_head", ...): per-layer weights are
@@ -95,6 +97,47 @@ def embed(params, tokens, cfg, pos0):
     return h
 
 
+def _window_for_layer(cfg, which):
+    """The attention window of a `which` ("local" or "global") layer: the
+    config's `attn_window` in every layer. The local/global pairing is not
+    ported yet."""
+    if cfg.local_global_period:
+        raise NotImplementedError("local/global attention pairs are not "
+                                  "ported yet")
+    return cfg.attn_window
+
+
+def _layer_list(params, cfg) -> list:
+    """Per-layer trees, from the stacked tree or an engine's split one."""
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        layers = split_layers(params, cfg.num_layers)["layers"]
+    return layers
+
+
+def _dense_body(cfg, h, lp, *, window):
+    hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+    h = h + attn.attention(lp["attn"], hn, cfg, window=window)
+    hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+    return h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+
+
+def forward(params, tokens, cfg):
+    """Whole sequences through the dense layout: tokens (B, S) int ->
+    (final-normed hidden (B, S, D), aux loss 0.0). Layers attend causally
+    within `cfg.attn_window`. The local/global pairing and the moe, ssm
+    and hybrid layouts are not ported yet."""
+    if cfg.layout != "dense":
+        raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
+    window = _window_for_layer(cfg, "global")
+    h = embed(params, tokens, cfg,
+              torch.zeros(tokens.shape[0], dtype=torch.long,
+                          device=tokens.device))
+    for lp in _layer_list(params, cfg):
+        h = _dense_body(cfg, h, lp, window=window)
+    return apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps), 0.0
+
+
 def lm_head_weight(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -120,11 +163,8 @@ def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg,
     (B, verify_width + 1, V), so the lm head runs on verify_width + 1
     positions whatever W is."""
     check_paged_support(cfg)
-    layers = params["layers"]
-    if isinstance(layers, dict):
-        layers = split_layers(params, cfg.num_layers)["layers"]
     h = embed(params, inputs, cfg, ctx_lens)
-    for i, lp in enumerate(layers):
+    for i, lp in enumerate(_layer_list(params, cfg)):
         pl = {k: v[i] for k, v in pool.items()}
         hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
         a, _ = attn.span_attention_paged(lp["attn"], hn, pl, block_tables,

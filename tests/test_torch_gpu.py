@@ -407,3 +407,76 @@ def test_paged_attention_verify_spans(cuda, kv_bits):
         torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
                                    atol=1e-5)
         assert not o[r, ql[r]:].any()
+
+
+# ------------------------- the compression slice: svd plans, calibration --
+
+_LAYER_KN = ((512, 512), (512, 2048), (2048, 512))
+
+
+@pytest.mark.parametrize("m,k,r,n", [
+    (8, 512, 384, 512),       # the svd plan's decode: 2 of 8 CTAs empty
+    (8, 512, 384, 2048),
+    (8, 2048, 384, 512),
+    (8, 512, 384, 32000),     # the lm head as a cascade
+    (48, 512, 384, 32000),    # ... at the speculative verify's rows
+    (2048, 512, 384, 512),    # the calibration forward, M = 8 x 256
+    (2048, 512, 384, 32000),
+    (8, 512, 96, 512),        # R 96: one of 4 CTAs without rank columns
+    # the svd plan's draft (R 192) and the SRA plans (R 256, and 320,
+    # where 3 of 8 CTAs get no rank columns) at decode
+    *[(8, k, r, n) for r in (192, 256, 320) for k, n in _LAYER_KN],
+    *[(8, 512, r, 32000) for r in (192, 256, 320)],
+    # the svd plan's speculative verify: 8 rows x a span of 8
+    *[(64, k, 384, n) for k, n in _LAYER_KN],
+    # the calibration forward at the ranks SRA probes (256 -+ 64)
+    *[(2048, k, r, n) for r in (192, 256, 320)
+      for k, n in _LAYER_KN + ((512, 32000),)],
+    (2048, 512, 384, 2048),
+    (2048, 2048, 384, 512),
+])
+def test_lowrank_qmm_unpacked_w8_equals_plain(cuda, m, k, r, n):
+    """W8 factors stay int8 carriers (no packing): both of them unpacked,
+    codes over the whole +-127 range, bit-equal to the plain version; one
+    launch counted at its rank."""
+    rng = np.random.default_rng(m + k + r + n)
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w1 = _codes(rng, (k, r), 8).to(cuda)
+    w2 = _codes(rng, (r, n), 8).to(cuda)
+    s1 = _uniform(rng, (1, r), 0.001, 0.01).to(cuda)
+    s2 = _uniform(rng, (r, 1), 0.001, 0.01).to(cuda)
+    before = build.LAUNCHES["lowrank_qmm"], build.LAUNCH_RANKS[r]
+    y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["lowrank_qmm"], build.LAUNCH_RANKS[r]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2))
+
+
+def test_forward_on_the_card_gives_the_cpu_greedy_tokens(cuda):
+    """The calibration forward of an svd W8 model (shaped spectra,
+    compressed once on the CPU and copied to the card): the card's
+    greedy token equals the CPU's at every position."""
+    from repro_torch.api.engine import params_to
+    from repro_torch.api.plan import CompressionPlan
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import compress_params, shape_spectra
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("opus-mt", smoke=True)
+    params = shape_spectra(tfm.init_params(cfg, seed=0), alpha=2.0)
+    plan = CompressionPlan.uniform(params, method="svd", weight_wl=8,
+                                   rank_fraction=0.75)
+    cpu, _ = compress_params(params, plan)
+    gpu = params_to(cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    before = build.LAUNCHES["lowrank_qmm"]
+    with torch.inference_mode():
+        lc = tfm.logits_for(cpu, tfm.forward(cpu, toks, cfg)[0], cfg)
+        lg = tfm.logits_for(gpu, tfm.forward(gpu, toks.to(cuda), cfg)[0],
+                            cfg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lowrank_qmm"] == before + 6 * cfg.num_layers + 1
+    assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
