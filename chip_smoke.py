@@ -20,7 +20,8 @@ fails:
    unpacked W8 factors at R 192, 256, 320 and 384 for every linear and
    the lm head as a cascade at decode (M 8) and in the calibration
    forward (M 2048), and the svd plan's verify pass (M 64, the lm head
-   at M 48) -- timed beside its plain version, a PyTorch library
+   at M 48); with the rectangular phase's prefill (M 1024, both plans'
+   layer linears) -- timed beside its plain version, a PyTorch library
    yardstick and the least time the card could take (its bound), with a
    warning line wherever the kernel is slower than its plain version.
    Every later path checks that each of its lowrank_qmm launches took a
@@ -59,11 +60,25 @@ fails:
    rank checked against the allocations it evaluated) and a greedy serve
    of its allocation, and of its last move when it kept equal ranks,
    with each plan's launches a step by rank checked;
+   rectangular: `InferenceEngine.generate` on 8 Markov-task prompts of
+   128 tokens, 32 tokens a row: one prefill (every layer linear at M
+   1024, the lm head at the last position only), then lockstep decode
+   steps over a contiguous KV cache. The mixed plan, fp32 and int8 KV:
+   launches exactly 72 lowrank_qmm and 1 quant_matmul a pass, no paged
+   attention, the tokens `serve` gives the same prompts, the prompts cut
+   to 100 tokens (bucket 128) as an unbucketed engine gives them; the
+   quant-only plan: 73 quant_matmul launches a pass by (K, N); sampled
+   (seed 7) twice and against serve; a sampled stop run against
+   `match_stop_host`; then generate's prefill and decode step and serve's
+   TTFT and TPOT, three interleaved rounds, median and spread, and one
+   generate under torch.profiler;
 4. parity: the compressed weights of the phase-3 plans, of the svd plan
    and of the SRA plans (each compressed once on the card), copied to the
    CPU, serve 4 short requests there (the kernels' plain versions) and on
    the card; the greedy tokens must be identical, and so must the mixed
-   plan's seeded sampled and speculative tokens.
+   plan's seeded sampled and speculative tokens; the phase-3 plans also
+   generate from 4 prompts of 29 tokens (bucket 32) on both, greedy at
+   kv 16 and 8 and, for the mixed plan, sampled: identical tokens.
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -94,6 +109,14 @@ REPS = 20
 
 
 T_START = time.perf_counter()
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 class PhaseFailed(Exception):
@@ -198,6 +221,9 @@ def check_quant_matmul(torch, timer, failures):
                           (512, 32000))]
     # the speculative verify's lm head: k + 2 = 6 positions of 8 rows
     cases.append((False, 48, 512, 32000))
+    # the quant-only plan's rectangular prefill: 8 prompts x a 128 bucket
+    cases += [(True, 1024, k, n) for k, n in ((512, 512), (512, 2048),
+                                               (2048, 512))]
     for packed, m, k, n in cases:
         qm = 7 if packed else 127
         xq = torch.randint(-127, 128, (m, k), generator=g,
@@ -262,6 +288,8 @@ def check_lowrank_qmm(torch, timer, failures):
     cases += [(4, 8, 8, k, r, n) for r in (128, 160, 192) for k, n in layer]
     cases += [(4, 6, 8, k, 128, n) for k, n in layer]
     cases += [(4, 8, 64, k, 256, n) for k, n in layer]
+    # the rectangular path's prefill: 8 prompts x a 128-token bucket
+    cases += [(4, 8, 1024, k, 256, n) for k, n in layer]
     # the compression phase, unpacked W8 factors everywhere: at decode the
     # svd plan's R 384 (2 of 8 CTAs without rank columns), its draft's R
     # 192 and the SRA plans' 192 / 256 / 320, every linear and the lm
@@ -547,19 +575,19 @@ def workload(vocab: int, seed: int = 0):
     return reqs
 
 
-def profile_serve(torch, eng, reqs, sp, label: str):
-    """The fp32-KV serve once more under torch.profiler: the card's busy
-    share of the wall time, its time by kernel, and the linears' kernels'
-    (quant_matmul's and lowrank_qmm's) card time per step. Informational,
-    nothing is checked; a profiler that cannot trace the card is reported
-    and skipped."""
+def profile_run(torch, run, label: str):
+    """`run()` (a serve or a generate, returning its number of steps) once
+    more under torch.profiler: the card's busy share of the wall time,
+    its time by kernel, and the linears' kernels' (quant_matmul's and
+    lowrank_qmm's) card time per step. Informational, nothing is checked;
+    a profiler that cannot trace the card is reported and skipped."""
     from torch.profiler import ProfilerActivity, profile
 
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = eng.serve(reqs, sp)
+            steps = run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device-side events only (kernels, copies, memsets): the host ops
@@ -573,7 +601,7 @@ def profile_serve(torch, eng, reqs, sp, label: str):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"[profile] {label} serve: wall {wall_ms:.1f} ms, card busy "
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, card busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy / wall_ms):.1f}%")
     for ms, n, key in rows[:10]:
@@ -583,7 +611,7 @@ def profile_serve(torch, eng, reqs, sp, label: str):
     ms = sum(r[0] for r in lin)
     print(f"[profile] {label}: linears (quant_matmul, lowrank_qmm) "
           f"{ms:.3f} ms of card time over {sum(r[1] for r in lin)} "
-          f"launches in {res.steps} steps = {ms / res.steps:.4f} ms a step")
+          f"launches in {steps} steps = {ms / steps:.4f} ms a step")
 
 
 def host_us_per_call(torch, fn, reps: int = 200) -> float:
@@ -609,7 +637,7 @@ def compare_plans(torch, engines, reqs, sp):
     the host time of one decode-step linear call under each plan
     (`apply_linear` on 8 rows: quantize, pad, wrapper, launch). Printed
     only: the end-to-end metrics users see, apart from the card time
-    `profile_serve` reads."""
+    `profile_run` reads."""
     from repro_torch.models.layers import apply_linear
 
     names = list(engines)
@@ -668,8 +696,8 @@ def build_engine(torch, cfg, make_plan):
                                 max_batch=8, block_size=16)
     torch.cuda.synchronize()
     print(f"[engine] compressed in {time.perf_counter() - t0:.1f} s: "
-          f"{eng.report.summary()}; weights {eng.weight_bytes() / 2**20:.1f} "
-          f"MiB on the card")
+          f"{eng.report.summary()}; weights "
+          f"{eng.weight_hbm_bytes() / 2**20:.1f} MiB on the card")
     return eng
 
 
@@ -1101,6 +1129,210 @@ def compression_phase(torch, cfg, reqs, failures):
     return engines, launches
 
 
+RECT = (8, 128, 100)     # rows, prompt tokens, and the cut to 100 tokens
+
+
+def first_difference(torch, eng, prompts, a, b):
+    """(row, position, top-2 margin) of the first token where outputs `a`
+    and `b` (rows of tokens) differ, the margin from the logits `eng`
+    computes after that row's prompt and its common tokens; None where
+    they agree."""
+    import numpy as np
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            p = int(np.argmax(x != y))
+            lg = last_logits(torch, eng, np.concatenate([prompts[i], x[:p]]))
+            top = torch.topk(lg, 2).values
+            return i, p, float(top[0] - top[1])
+    return None
+
+
+def rectangular_phase(torch, cfg, eng, eng8, qeng, failures):
+    """`InferenceEngine.generate` on a rectangular batch: the RECT prompts
+    of the seeded Markov task through one prefill (a 128-token bucket,
+    M 1024 for every layer linear, the lm head at the last position only)
+    and 31 lockstep decode steps (M 8) over a contiguous KV cache, 32
+    tokens a row.
+
+    Mixed plan, fp32 and int8 KV, greedy: launches exactly 72 lowrank_qmm
+    and 1 quant_matmul a pass, no paged attention; the tokens of `serve`
+    on the same prompts (a difference is allowed only as the one flipped
+    position, margin < 0.1, that tests/test_torch_forward.py allows); the
+    100-token cut (bucket 128, last_pos 99) as an unbucketed engine
+    gives. The quant-only plan: 73 quant_matmul launches a pass, by (K, N),
+    and its serve's tokens. Sampled (temperature 0.8, top-k 50, top-p 0.9,
+    seed 7): the same tokens twice, and serve's. A sampled stop run (an
+    eos id and a stop sequence taken from two rows of that run): each row
+    is `match_stop_host` of its untruncated run. Every lowrank_qmm launch
+    on a code path phase 2 compared. Then three interleaved rounds of
+    prefill (generate of one token), generate of 32 and serve, timed on
+    the host clock, and one generate under torch.profiler. Returns the
+    launches of the generate runs."""
+    import numpy as np
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.data.pipeline import MarkovTask
+    from repro_torch.kernels import build
+    from repro_torch.runtime.sampling import match_stop_host
+
+    rows, seq, cut_len = RECT
+    prompts = MarkovTask(cfg.vocab_size, seed=0).batch(0, rows, seq)[
+        "tokens"].numpy()
+    cut = np.ascontiguousarray(prompts[:, :cut_len])
+    n = 32
+    sp = SamplingParams(max_tokens=n)
+    per_pass = sum(lowrank_launch_shapes(cfg).values())
+    launches = collections.Counter()
+
+    def run(e, p, s, label):
+        """generate, its launches added to the phase's and checked against
+        the compared code paths."""
+        build.reset_launches()
+        res = e.generate(p, s)
+        torch.cuda.synchronize()
+        launches.update(build.LAUNCHES)
+        check_compared(failures, f"rectangular {label}")
+        return res, dict(build.LAUNCHES)
+
+    def same_as_serve(e, res, s, label):
+        srv = e.serve(list(prompts), s)
+        torch.cuda.synchronize()
+        diff = first_difference(torch, e, prompts, res.tokens, srv.outputs)
+        if diff is None:
+            print(f"[rectangular] {label}: generate == serve")
+            return srv
+        n_rows = sum(not np.array_equal(x, y)
+                     for x, y in zip(res.tokens, srv.outputs))
+        i, p, margin = diff
+        print(f"[rectangular] {label}: generate and serve differ in "
+              f"{n_rows} row(s), first at row {i} position {p}, top-2 "
+              f"margin {margin:.3e}")
+        check(failures, n_rows <= 1 and margin < 0.1,
+              f"rectangular {label}: generate differs from serve beyond one "
+              f"flipped position at a margin < 0.1")
+        return srv
+
+    eng.generate(cut, SamplingParams(max_tokens=2))          # warm-up
+    torch.cuda.synchronize()
+    greedy = {}
+    for kv, e in (("kv16", eng), ("int8 KV", eng8)):
+        res, counts = run(e, prompts, sp, kv)
+        print(f"[rectangular] {e.plan.label} {kv}: {rows} x {seq} prompt "
+              f"tokens, {res.tokens.size} tokens in {res.seconds:.3f} s = "
+              f"{res.tokens_per_second:.1f} tok/s; launches {counts}")
+        check(failures, counts == {"lowrank_qmm": per_pass * n,
+                                   "quant_matmul": n},
+              f"rectangular {kv}: launches {counts}, expected "
+              f"{per_pass} lowrank_qmm and 1 quant_matmul a pass x {n}")
+        check(failures, res.tokens.shape == (rows, n) and bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+            f"rectangular {kv}: tokens {res.tokens.shape} or out of range")
+        same_as_serve(e, res, sp, f"{e.plan.label} {kv}")
+        bucketed, _ = run(e, cut, sp, f"{kv} cut")
+        flat = InferenceEngine(e.cfg, e.params, device=e.device, plan=e.plan,
+                               bucket_prompts=False)
+        unbucketed, _ = run(flat, cut, sp, f"{kv} cut unbucketed")
+        check(failures, np.array_equal(bucketed.tokens, unbucketed.tokens),
+              f"rectangular {kv}: the {cut_len}-token cut's bucketed tokens "
+              f"differ from the unbucketed engine's")
+        greedy[kv] = res
+
+    res, counts = run(qeng, prompts, sp, "quant-only")
+    shapes = {key[1:]: c for key, c in build.LAUNCH_SHAPES.items()
+              if key[0] == "quant_matmul"}
+    print(f"[rectangular] {qeng.plan.label} kv16: launches {counts}; "
+          f"quant_matmul by (K, N) {shapes}")
+    check(failures, set(counts) == {"quant_matmul"},
+          f"rectangular quant-only: launches {counts}")
+    for (k, nn), per in quant_launch_shapes(cfg).items():
+        check(failures, shapes.get((k, nn), 0) == per * n,
+              f"rectangular quant-only K{k}->N{nn}: {shapes.get((k, nn), 0)} "
+              f"launches, expected {per} a pass x {n}")
+    check(failures, sum(shapes.values()) == counts.get("quant_matmul"),
+          "rectangular quant-only: quant_matmul launches outside the plan")
+    same_as_serve(qeng, res, sp, f"{qeng.plan.label} kv16")
+
+    sps = SamplingParams(max_tokens=n, temperature=0.8, top_k=50, top_p=0.9,
+                         seed=7)
+    first, _ = run(eng, prompts, sps, "sampled")
+    again, _ = run(eng, prompts, sps, "sampled again")
+    check(failures, np.array_equal(first.tokens, again.tokens),
+          "rectangular sampled: a second seeded generate differs")
+    check(failures, not np.array_equal(first.tokens, greedy["kv16"].tokens),
+          "rectangular sampled: the sampled tokens are the greedy ones")
+    srv = eng.serve(list(prompts), sps)
+    check(failures, all(np.array_equal(a, b)
+                        for a, b in zip(first.tokens, srv.outputs)),
+          "rectangular sampled: generate differs from serve")
+
+    # stops taken from two rows of the sampled run (random weights' greedy
+    # rows repeat one token, which would stop every row at once)
+    out = first.tokens
+    stop = dataclasses.replace(sps, eos_id=int(out[1, 8]),
+                               stop=((int(out[5, 20]), int(out[5, 21])),))
+    st, _ = run(eng, prompts, stop, "stops")
+    keeps = []
+    for i in range(rows):
+        keep = match_stop_host(out[i], stop.eos_id, stop.stop, n)
+        keeps.append(keep)
+        check(failures, np.array_equal(st.tokens[i], np.r_[
+            out[i, :keep], np.zeros(n - keep, np.int32)]),
+            f"rectangular stops: row {i} is not match_stop_host of its run")
+    check(failures, keeps[1] < n and keeps[5] < n,
+          f"rectangular stops: rows 1 and 5 kept {keeps[1]}, {keeps[5]}")
+    print(f"[rectangular] stops (eos {stop.eos_id}, stop {stop.stop}): "
+          f"lengths {keeps}")
+
+    times = collections.defaultdict(list)
+    one = SamplingParams(max_tokens=1)
+    for _ in range(3):
+        pre = eng.generate(prompts, one)
+        gen = eng.generate(prompts, sp)
+        srv = eng.serve(list(prompts), sp)
+        torch.cuda.synchronize()
+        times["generate prefill ms"].append(pre.seconds * 1e3)
+        times["generate decode ms a step"].append(
+            (gen.seconds - pre.seconds) * 1e3 / (n - 1))
+        times["generate tok/s"].append(gen.tokens_per_second)
+        times["serve TTFT p50 ms"].append(srv.ttft_p50 * 1e3)
+        times["serve TPOT p50 ms"].append(srv.tpot_p50 * 1e3)
+        times["serve tok/s"].append(srv.tokens_per_second)
+    print(f"[rectangular] timing on {card_line()}, host clock: "
+          f"{eng.plan.label} kv16, {rows} x {seq} prompts, {n} tokens")
+    for what, xs in times.items():
+        print(f"[rectangular] timing {what}: median "
+              f"{float(np.median(xs)):.3f} (min {min(xs):.3f}, max "
+              f"{max(xs):.3f}) over 3 rounds")
+    profile_run(torch, lambda: (eng.generate(prompts, sp), n)[1],
+                "mixed kv16 generate")
+    return dict(launches)
+
+
+def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
+    """`prompts` (equal lengths) generated on the card and on the CPU: the
+    tokens must be identical; every card lowrank_qmm launch on a code path
+    phase 2 compared."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    rg = gpu.generate(prompts, sp).tokens
+    torch.cuda.synchronize()
+    check_compared(failures, f"{label} generate")
+    rc = cpu.generate(prompts, sp).tokens
+    diff = first_difference(torch, cpu, prompts, rc, rg)
+    if diff is not None:
+        i, p, margin = diff
+        print(f"  {label} generate row {i} differs at position {p}: card "
+              f"{rg[i, p]} cpu {rc[i, p]}; CPU top-2 margin {margin:.3e}")
+    check(failures, diff is None, f"{label}: card and CPU generate differ")
+    print(f"[parity] {label} generate: {prompts.shape[0]} x "
+          f"{prompts.shape[1]} prompts x {sp.max_tokens} tokens, card == "
+          f"CPU: {diff is None}")
+
+
 def parity(torch, label, gpu, cpu, short, sp, failures) -> None:
     """`short` served by the card's and the CPU's engine: the tokens must
     be identical; at a difference, the logit margin is printed."""
@@ -1231,8 +1463,9 @@ def main() -> int:
     end_phase("baseline", failures)
     compare_plans(torch, {"mixed kv16": eng, "quant-only kv16": qeng}, reqs,
                   sp)
-    profile_serve(torch, eng, reqs, sp, "mixed kv16")
-    profile_serve(torch, qeng, reqs, sp, "quant-only kv16")
+    profile_run(torch, lambda: eng.serve(reqs, sp).steps, "mixed kv16 serve")
+    profile_run(torch, lambda: qeng.serve(reqs, sp).steps,
+                "quant-only kv16 serve")
 
     # ---- sampling and speculation on the mixed plan ----------------------
     failures = []
@@ -1245,9 +1478,12 @@ def main() -> int:
     failures = []
     compressed, paths = compression_phase(torch, cfg, reqs, failures)
     end_phase("compression", failures)
+    failures = []
+    rect = rectangular_phase(torch, cfg, eng, eng8, qeng, failures)
+    end_phase("rectangular", failures)
     launches = {name: sum(path.get(name, 0)
                           for path in (mixed, quant, sampled, speculated,
-                                       *paths.values()))
+                                       *paths.values(), rect))
                 for name in build.SOURCES}
 
     # ---- 4. card vs CPU --------------------------------------------------
@@ -1256,6 +1492,10 @@ def main() -> int:
     short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
              for n in (16, 29, 47, 64)]
     sp8 = SamplingParams(max_tokens=8)
+    sampled8 = SamplingParams(max_tokens=8, temperature=0.8, top_k=50,
+                              top_p=0.9, seed=7)
+    # equal lengths for generate: 29 tokens, a 32-token bucket
+    rect = rng.integers(1, cfg.vocab_size, (4, 29)).astype(np.int32)
     for e in (eng, qeng):
         cpu_params = params_to(e.params, "cpu")
         for kv in (16, 8):
@@ -1265,11 +1505,14 @@ def main() -> int:
                                   plan=e.plan)
             parity(torch, f"{e.plan.label} kv{kv}", gpu, cpu, short, sp8,
                    failures)
+            generate_parity(torch, f"{e.plan.label} kv{kv}", gpu, cpu, rect,
+                            sp8, failures)
+            if e is eng:
+                generate_parity(torch, f"{e.plan.label} kv{kv} sampled", gpu,
+                                cpu, rect, sampled8, failures)
             if e is eng and kv == 16:
                 parity(torch, f"{e.plan.label} kv{kv} sampled", gpu, cpu,
-                       short, SamplingParams(max_tokens=8, temperature=0.8,
-                                             top_k=50, top_p=0.9, seed=7),
-                       failures)
+                       short, sampled8, failures)
                 spec = DraftSpec(**SPEC)
                 parity(torch, f"{e.plan.label} kv{kv} speculative",
                        InferenceEngine(c, e.params, device=e.device,
@@ -1305,10 +1548,7 @@ def main() -> int:
     print(f"kernels checked: {', '.join(kern)} "
           f"(the whole script: {time.perf_counter() - T_START:.1f} s)")
     print(json.dumps(line))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

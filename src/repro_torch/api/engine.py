@@ -1,9 +1,18 @@
-"""`InferenceEngine`: compress, then serve (port of the serving half of
+"""`InferenceEngine`: compress, then generate or serve (port of
 `repro.api.engine`).
 
     eng = InferenceEngine.build("opus-mt", plan)          # on cuda
+    out = eng.generate(prompts, SamplingParams(max_tokens=32))
     res = eng.serve(prompts, SamplingParams(max_tokens=32, top_k=40,
                                             temperature=0.8, seed=7))
+
+`generate` on a rectangular (B, S) batch is the static-batching baseline:
+one `prefill` of the whole batch (prompts right-padded to a power-of-two
+length bucket where padding is inert), then `decode_step`s in lockstep
+over a contiguous KV cache, every row to max_tokens, with stops applied
+afterwards. Ragged prompt lists go through `serve`. Both paths pick tokens
+with the same sampler and counter-based keys, so their greedy and seeded
+sampled tokens agree.
 
 `serve` is in-flight batching with chunked prefill: every forward pass is
 one token-budget step (`models.transformer.serve_step`) mixing prefill
@@ -139,6 +148,22 @@ class TokenEvent:
     final: bool
 
 
+@dataclasses.dataclass
+class GenerationResult:
+    """`generate`'s continuations, (B, max_tokens) int32 in request order
+    (rows that stopped early end in zeros), and its host seconds."""
+
+    tokens: np.ndarray
+    prompt_len: int             # ragged batches: the longest prompt
+    seconds: float
+    prompt_lens: list | None = None     # set for ragged batches
+
+    @property
+    def tokens_per_second(self) -> float:
+        b, g = self.tokens.shape
+        return b * g / max(self.seconds, 1e-9)
+
+
 def _percentile(xs, q) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else 0.0
 
@@ -223,8 +248,21 @@ class ServeResult:
 
     @property
     def cache_hit_rate(self) -> float:
+        """Fraction of looked-up full prompt blocks served by reference."""
         return (self.cache_hit_blocks / self.cache_lookup_blocks
                 if self.cache_lookup_blocks else 0.0)
+
+    @property
+    def cache_hit_token_rate(self) -> float:
+        """Fraction of all prompt tokens whose prefill was skipped."""
+        total = sum(self.prompt_lens)
+        return self.cache_hit_tokens / total if total else 0.0
+
+    @property
+    def cache_blocks_saved(self) -> int:
+        """Physical blocks admission did not allocate thanks to sharing
+        (copy-on-write sources still cost a private copy)."""
+        return self.cache_hit_blocks - self.cache_cow_blocks
 
     def goodput(self, deadline_s: float) -> float:
         """Tokens per second counting only requests that finished within
@@ -243,9 +281,52 @@ class ServeResult:
                    and self.tpot[i] <= tpot_s) / n
 
 
+def _as_token_batch(requests):
+    """A (B, S) int32 array when every prompt has the same length, else a
+    list of 1-D int32 prompts (which `generate` serves through the
+    scheduler)."""
+    if isinstance(requests, (list, tuple)):
+        if not requests:
+            raise ValueError("empty request batch")
+        rows = [np.asarray(r, np.int32) for r in requests]
+        if any(r.ndim != 1 for r in rows):
+            raise ValueError(
+                f"each request must be a 1-D token sequence, got shapes "
+                f"{[r.shape for r in rows]}")
+        if any(r.size == 0 for r in rows):
+            raise ValueError("empty prompt in request batch")
+        if len({r.size for r in rows}) != 1:
+            return rows
+        requests = np.stack(rows)
+    toks = np.asarray(requests, np.int32)
+    if toks.ndim != 2:
+        raise ValueError(f"requests must be (batch, seq), got {toks.shape}")
+    return toks
+
+
 def _pow2_bucket(n: int) -> int:
     """Smallest power of two >= n."""
     return 1 << max(n - 1, 0).bit_length()
+
+
+def _generate_pick(logits, temperature, top_k, top_p, seed, counter):
+    """(B, 1) int32 next tokens sampled from the last position of (B, ...,
+    V) logits, for `generate`. The scalar controls are broadcast to every
+    row, and row r's key is row_keys(seed, r, counter): serve gives the
+    same prompts rids 0..B-1 and the same counters, so both paths sample
+    the same tokens under one seed."""
+    last = logits[:, -1]
+    b, dev = last.shape[0], last.device
+
+    def full(x, dt):
+        return torch.full((b,), x, dtype=dt, device=dev)
+
+    keys = smp.row_keys(full(seed, torch.int32),
+                        torch.arange(b, dtype=torch.int32, device=dev),
+                        full(counter, torch.int32))
+    return smp.sample_tokens(last, full(temperature, torch.float32),
+                             full(top_k, torch.int32),
+                             full(top_p, torch.float32), keys)[:, None]
 
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
@@ -282,7 +363,8 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, device, plan=None,
                  report=None, max_batch: int = 8, block_size: int = 16,
-                 chunk_tokens: int = 256, prefix_cache: bool = True,
+                 chunk_tokens: int = 256, bucket_prompts: bool = True,
+                 prefix_cache: bool = True,
                  speculate: DraftSpec | None = None):
         _full_fp32()
         self.cfg = cfg
@@ -294,6 +376,9 @@ class InferenceEngine:
         self.block_size = block_size
         self.chunk_tokens = chunk_tokens
         self.prefix_cache = prefix_cache
+        # generate(): right-pad prompts to power-of-two length buckets, only
+        # where padding is inert (see `_can_bucket`)
+        self.bucket_prompts = bucket_prompts and self._can_bucket(cfg)
         # per-layer views of the stacked weights, sliced once
         self._step_params = tfm.split_layers(params, cfg.num_layers)
         # the draft shares every tensor it does not truncate with `params`
@@ -306,9 +391,18 @@ class InferenceEngine:
             f"{cfg.name}:{cfg.dtype}:{cfg.kv_cache_bits}:{plan_id}".encode()
         ).digest()
 
-    def weight_bytes(self) -> int:
-        """Bytes the parameter tensors occupy on the device (packed W4
-        codes count their halved size)."""
+    @staticmethod
+    def _can_bucket(cfg) -> bool:
+        """Right-padding a prompt is inert under dense global causal
+        attention: pad K/V sit in slots no decode query sees before decode
+        overwrites them. A rolling (windowed) cache would fold the pads
+        into what decode reads."""
+        return (cfg.layout == "dense" and not cfg.attn_window
+                and not cfg.local_global_period)
+
+    def weight_hbm_bytes(self) -> int:
+        """Bytes the parameter tensors occupy on the device: every tensor of
+        the tree, packed W4 codes at their halved size."""
         total = 0
         for leaf in flatten(self.params).values():
             nodes = ([leaf.w1, leaf.w2] if isinstance(leaf, LowRankQ)
@@ -318,6 +412,66 @@ class InferenceEngine:
                          if isinstance(q, QuantizedTensor) else (q,))
                 total += sum(t.numel() * t.element_size() for t in parts)
         return total
+
+    # ---------------------------------------------------------- generate --
+    def generate(self, requests, sampling: SamplingParams | None = None
+                 ) -> GenerationResult:
+        """Continuations of a batch of prompts, (B, max_tokens), in request
+        order.
+
+        requests: (B, S) int tokens, an array or a list of equal-length
+        token lists, run rectangular: one `prefill` of the batch (right-
+        padded to a power-of-two bucket when `bucket_prompts` holds), then
+        max_tokens - 1 lockstep `decode_step`s over the contiguous cache,
+        eagerly, one step at a time. Ragged lists are served by `serve`.
+        Stop criteria (eos_id, stop) are applied afterwards with
+        `sampling.match_stop_host`: inclusive, with zeros after the stop,
+        as `serve`'s outputs padded to max_tokens."""
+        sampling = sampling or SamplingParams()
+        toks = _as_token_batch(requests)
+        if isinstance(toks, list):          # ragged: continuous batching
+            res = self.serve(toks, sampling)
+            out = np.zeros((len(res.outputs), sampling.max_tokens), np.int32)
+            for i, o in enumerate(res.outputs):
+                out[i, :o.size] = o         # stop-shortened rows: zero tail
+            return GenerationResult(
+                tokens=out, prompt_len=max(res.prompt_lens),
+                seconds=res.seconds, prompt_lens=list(res.prompt_lens))
+        s = toks.shape[1]
+        padded = _pow2_bucket(s) if self.bucket_prompts else s
+        if padded != s:
+            toks = np.pad(toks, ((0, 0), (0, padded - s)))
+        n = sampling.max_tokens
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = tfm.prefill(self._step_params,
+                                        _upload(toks, self.device), self.cfg,
+                                        max_len=padded + n, last_pos=s - 1)
+            tok = self._pick(logits, sampling, 0)
+            out = [tok]
+            for i in range(1, n):
+                logits, cache = tfm.decode_step(self._step_params, cache, tok,
+                                                s + i - 1, self.cfg)
+                tok = self._pick(logits, sampling, i)
+                out.append(tok)
+            arr = torch.cat(out, dim=1).cpu().numpy()
+        if sampling.eos_id is not None or sampling.stop:
+            for row in arr:
+                keep = smp.match_stop_host(row, sampling.eos_id,
+                                           sampling.stop, n)
+                row[keep:] = 0
+        return GenerationResult(tokens=arr, prompt_len=s,
+                                seconds=time.perf_counter() - t0)
+
+    def _pick(self, logits, sampling: SamplingParams, counter: int):
+        """(B, 1) int32 next tokens from (B, ..., V) logits: the argmax of
+        the last position (the first maximum), or `_generate_pick`'s draw
+        for output index `counter`."""
+        if sampling.temperature <= 0.0:
+            return torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+        return _generate_pick(logits, sampling.temperature, sampling.top_k,
+                              sampling.top_p, sampling.seed, counter)
 
     # ------------------------------------------------------------- build --
     @classmethod

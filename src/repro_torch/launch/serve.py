@@ -2,20 +2,24 @@
 
 Builds the engine (random weights from --seed, compressed per --plan
 when given, else per the uniform --compression / --wl / --rank-fraction),
-then serves --batch requests of random tokens with ragged prompt
-lengths (--prompt-len, less 0, 4, 8 or 12 tokens by row) through the
-in-flight batching scheduler, and prints throughput and latency. Requests
-are greedy unless --temperature > 0 (with --top-k / --top-p, seeded by
---seed); --eos-id and --stop end a request early; --speculate K drafts K
-tokens a round with the plan's cascade truncated to
---draft-rank-fraction; --stream prints tokens as they complete through
-`serve_stream`.
+takes --batch prompts of --prompt-len tokens from the seeded Markov task
+(`data.pipeline.MarkovTask`), and generates --gen tokens for each. By
+default the batch runs rectangular through `InferenceEngine.generate`
+(one prefill, then lockstep decode steps over a contiguous KV cache).
+With --ragged the prompts are cut to different lengths (less 0, 4, 8 or
+12 tokens by row) and served through the in-flight batching scheduler
+(--max-batch rows, --block-size, --chunk-tokens a step, the prefix cache
+unless --no-prefix-cache); --speculate K drafts K tokens a round with the
+plan's cascade truncated to --draft-rank-fraction, and --stream prints
+tokens as they complete through `serve_stream` (both need --ragged).
+Requests are greedy unless --temperature > 0 (with --top-k / --top-p,
+seeded by --seed); --eos-id and --stop end a request early.
 
   python -m repro_torch.launch.serve --arch opus-mt --compression svd \
       --wl 8 --rank-fraction 0.75
   python -m repro_torch.launch.serve --arch opus-mt --plan plan.json \
       --prompt-len 128 --gen 32 --batch 16 --max-batch 8 --kv-bits 8 \
-      --temperature 0.8 --top-k 50 --top-p 0.9 --speculate 4
+      --ragged --temperature 0.8 --top-k 50 --top-p 0.9 --speculate 4
 
 It runs on the GPU; `--device cpu` runs the kernels' plain versions on
 the CPU instead (there is no silent fallback).
@@ -26,9 +30,11 @@ import argparse
 
 import numpy as np
 
-from repro_torch.api.engine import InferenceEngine, SamplingParams, TokenEvent
+from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                    TokenEvent, params_to, resolve_device)
 from repro_torch.api.plan import CompressionPlan
 from repro_torch.core.compress import CompressionConfig
+from repro_torch.data.pipeline import MarkovTask
 from repro_torch.runtime.speculation import DraftSpec
 
 
@@ -79,6 +85,19 @@ async def serve_stream(engine, requests, sampling=None, **serve_kwargs):
         worker.join()
 
 
+def generate(params, cfg, prompts, gen_len: int, *, greedy=True, seed=0,
+             device=None):
+    """Back-compat helper: `gen_len` tokens for each of `prompts` from
+    already-built params, greedy or sampled at temperature 1 from `seed`;
+    returns the (B, gen_len) int32 array. It builds an engine on every
+    call; new code holds an `InferenceEngine` and calls `.generate`."""
+    dev = resolve_device(device)
+    eng = InferenceEngine(cfg, params_to(params, dev), device=dev)
+    return eng.generate(prompts, SamplingParams(
+        max_tokens=gen_len, temperature=0.0 if greedy else 1.0,
+        seed=seed)).tokens
+
+
 def _stream(engine, prompts, sampling):
     """Serve through `serve_stream`, printing the first tokens and each
     request's last one; returns the ServeResult."""
@@ -120,6 +139,21 @@ def main(argv=None):
                     help="batch-row capacity of the scheduler")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV-cache block size (tokens)")
+    ap.add_argument("--chunk-tokens", type=int, default=256,
+                    help="per-step token budget of the scheduler, split "
+                         "between prefill chunks and decode tokens")
+    ap.add_argument("--ragged", action="store_true",
+                    help="cut the prompts to different lengths and serve "
+                         "them through the in-flight batching scheduler "
+                         "(default: one rectangular batch through "
+                         "generate)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="share KV blocks between requests with equal "
+                         "full-block prompt prefixes (on by default; the "
+                         "tokens are unchanged)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false")
     ap.add_argument("--kv-bits", type=int, default=None, choices=[8, 16],
                     help="KV pool residency: 16 = model dtype, 8 = int8 "
                          "codes with fp32 scales (default: the config's)")
@@ -152,6 +186,9 @@ def main(argv=None):
                     help="consume the serve through serve_stream and print "
                          "tokens as they complete")
     args = ap.parse_args(argv)
+    if not args.ragged and (args.stream or args.speculate):
+        ap.error("--stream and --speculate serve through the scheduler: "
+                 "add --ragged")
 
     if args.plan is not None:
         plan = CompressionPlan.load(args.plan)
@@ -169,27 +206,40 @@ def main(argv=None):
     engine = InferenceEngine.build(
         args.arch, plan, smoke=args.smoke, seed=args.seed,
         device=args.device, verbose=True, max_batch=args.max_batch,
-        block_size=args.block_size, kv_bits=args.kv_bits,
+        block_size=args.block_size, chunk_tokens=args.chunk_tokens,
+        prefix_cache=args.prefix_cache, kv_bits=args.kv_bits,
         speculate=speculate)
     if args.plan is None and engine.plan is not None:
         print(f"[serve] {engine.plan.summary()}")
-    rng = np.random.default_rng(args.seed)
-    lens = [max(4, args.prompt_len - 4 * (i % 4)) for i in range(args.batch)]
-    prompts = [rng.integers(1, engine.cfg.vocab_size, size=n).astype(np.int32)
-               for n in lens]
+    task = MarkovTask(engine.cfg.vocab_size, seed=args.seed)
+    prompts = task.batch(0, args.batch, args.prompt_len)["tokens"].numpy()
     sampling = SamplingParams(
         max_tokens=args.gen, temperature=args.temperature, top_k=args.top_k,
         top_p=args.top_p, seed=args.seed, eos_id=args.eos_id,
         stop=tuple(tuple(int(t) for t in s.split(",")) for s in args.stop))
-    res = (_stream(engine, prompts, sampling) if args.stream
-           else engine.serve(prompts, sampling))
-    print(f"[serve] {len(prompts)} requests (prompt lens {lens}) on "
+    if not args.ragged:
+        res = engine.generate(prompts, sampling)
+        print(f"[serve] generated {res.tokens.shape} on {engine.device} in "
+              f"{res.seconds:.3f}s ({res.tokens_per_second:.1f} tok/s)")
+        print("[serve] sample:", res.tokens[0][:16].tolist())
+        return res
+    lens = [max(4, args.prompt_len - 4 * (i % 4)) for i in range(args.batch)]
+    ragged = [prompts[i, :n] for i, n in enumerate(lens)]
+    res = (_stream(engine, ragged, sampling) if args.stream
+           else engine.serve(ragged, sampling))
+    print(f"[serve] {len(ragged)} requests (prompt lens {lens}) on "
           f"{engine.device} in {res.seconds:.3f}s: {res.steps} steps "
           f"({res.mixed_steps} mixed), {res.prefill_chunks} prefill chunks, "
           f"{res.tokens_per_second:.1f} tok/s")
     print(f"[serve] TTFT p50 {res.ttft_p50 * 1e3:.1f} ms, per-output-token "
-          f"p50 {res.tpot_p50 * 1e3:.2f} ms; prefix cache hit rate "
-          f"{res.cache_hit_rate:.2f}; {res.stopped_early} stopped early")
+          f"p50 {res.tpot_p50 * 1e3:.2f} ms; {res.stopped_early} stopped "
+          f"early")
+    if res.prefix_cache:
+        print(f"[serve] prefix cache: hit rate {res.cache_hit_rate:.2f} "
+              f"({res.cache_hit_blocks}/{res.cache_lookup_blocks} blocks, "
+              f"{res.cache_hit_tokens} prompt tokens skipped), "
+              f"{res.cache_blocks_saved} blocks saved, "
+              f"{res.cache_cow_blocks} COW")
     if res.spec_k:
         print(f"[serve] speculation k={res.spec_k}: {res.accepted}/"
               f"{res.drafted} drafts accepted ({res.accept_rate:.2f}) over "

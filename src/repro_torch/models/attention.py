@@ -1,6 +1,7 @@
 """Attention (port of `repro.models.attention`): causal self-attention over
-whole sequences for the calibration forward, and serving attention over
-the blocked KV pool.
+whole sequences (the calibration forward, and prefill with its K/V), the
+rectangular decode cache and one-token decode against it, and serving
+attention over the blocked KV pool.
 
 `attention` is the reference's monolithic causal attention (GQA grouped,
 RoPE, sliding window, logit soft-capping): "full" takes one masked
@@ -12,6 +13,14 @@ weighted sum), as the paged oracle and the norms are: the card and the
 CPU then very likely round to the same float32, where float32 sums in
 different orders would flip int8 activation codes of the next linear.
 The reference takes it in float32, within about 1e-5 of this.
+
+The rectangular path keeps one contiguous cache per layer, (B, size, Hk,
+Dh), laid out by `build_cache_from_kv` from prefill's K/V: slot i holds
+position i, or, under a sliding window w, slot p mod w the last w
+positions (a rolling cache). `decode_attention` writes one token into it
+and attends over it, in plain PyTorch as the reference computes it in jnp
+outside any kernel; int8 caches hold codes and per-(token, head) fp32
+scales, dequantized in float32 as the reference's and then widened.
 
 `span_attention_paged` scatters each row's span K/V into the pool FIRST,
 then attends over the row's block-table view under the causal mask
@@ -28,7 +37,8 @@ from repro_torch.kernels.paged_attention import NEG, paged_attention
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (re-export)
     span_attend_gather as _span_attend_gather,
 )
-from repro_torch.models.layers import apply_linear, apply_rope, softcap
+from repro_torch.models.layers import (apply_linear, apply_rope, dtype_of,
+                                       softcap)
 from repro_torch.runtime.kvblocks import span_slots
 
 
@@ -66,11 +76,13 @@ def attention(params, x, cfg, *, window=None, positions=None,
               return_kv=False):
     """Causal self-attention over whole sequences. x: (B, S, D) -> (B, S,
     D). `window` bounds how far back a query sees (sliding window);
-    `positions` (S,) defaults to 0..S-1. The return_kv path (prefill's
-    cache) is not ported yet."""
-    if return_kv:
-        raise NotImplementedError("attention(return_kv=True) comes with "
-                                  "prefill")
+    `positions` (S,) defaults to 0..S-1.
+
+    return_kv=True also returns the post-RoPE (k, v), each (B, S, Hk, Dh)
+    in x's dtype: prefill lays the decode cache out from them. With
+    cfg.kv_cache_bits == 8 attention then runs over their int8 round trip
+    (`_fake_quant_kv`), the values decode reads back from the int8 cache,
+    while the returned (k, v) stay full precision."""
     b, s, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if positions is None:
@@ -82,6 +94,9 @@ def attention(params, x, cfg, *, window=None, positions=None,
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    kv = (k, v)
+    if return_kv and cfg.kv_cache_bits == 8:
+        k, v = _fake_quant_kv(k), _fake_quant_kv(v)
     qg = _group_q(q.to(torch.float64), hk)
     k, v = k.to(torch.float64), v.to(torch.float64)
 
@@ -95,7 +110,8 @@ def attention(params, x, cfg, *, window=None, positions=None,
         o = _chunked_causal(qg, k, v, positions, window, cfg)
     else:
         raise ValueError(f"attn_impl must be auto|full|chunked, got {impl!r}")
-    return apply_linear(o.to(x.dtype).reshape(b, s, h * hd), params["wo"])
+    y = apply_linear(o.to(x.dtype).reshape(b, s, h * hd), params["wo"])
+    return (y, kv) if return_kv else y
 
 
 def _chunked_causal(q, k, v, positions, window, cfg):
@@ -134,6 +150,114 @@ def _fake_quant_kv(x):
     back, in x's dtype."""
     q, scale = _quant_kv(x)
     return (q.to(torch.float32) * scale).to(x.dtype)
+
+
+# ------------------------------------------------------------------ cache --
+def build_cache_from_kv(k, v, *, window=None, max_len=None, dtype=None,
+                        quantized=False):
+    """Lay prefill's (k, v), each (B, S, Hk, Dh), out as a decode cache.
+
+    Without a window slot i holds position i, in a cache of max_len >= S
+    slots (default S). With a window w the cache has min(w, max_len or S)
+    slots and the last of them positions land at slot p mod size, as
+    `decode_attention` writes them. quantized=True stores int8 codes and
+    per-(token, head) fp32 scales ("ks", "vs"); slots no position fills
+    hold zero codes, and scale 1."""
+    b, s, hk, _ = k.shape
+    dtype = dtype or k.dtype
+    if quantized:
+        kq, ks = _quant_kv(k)
+        vq, vs = _quant_kv(v)
+        parts = {"k": (kq, torch.int8), "v": (vq, torch.int8),
+                 "ks": (ks, torch.float32), "vs": (vs, torch.float32)}
+    else:
+        parts = {"k": (k, dtype), "v": (v, dtype)}
+
+    def layout(x, fill_dtype):
+        fill = 1 if x.shape[-1] == 1 else 0
+        size = min(window, max_len or s) if window else max_len or s
+        out = torch.full((b, size, hk, x.shape[-1]), fill, dtype=fill_dtype,
+                         device=x.device)
+        if window:
+            take = min(size, s)
+            slots = ((s - take) + torch.arange(take, device=x.device)) % size
+            out[:, slots] = x[:, s - take:].to(fill_dtype)
+        else:
+            out[:, :s] = x.to(fill_dtype)
+        return out
+
+    return {name: layout(x, dt) for name, (x, dt) in parts.items()}
+
+
+def init_kv_cache(cfg, batch, max_len, *, window=None, dtype=None,
+                  device="cpu"):
+    """An empty decode cache for one attention site: max_len slots, or
+    min(window, max_len) rolling ones under a window. cfg.kv_cache_bits
+    == 8 gives int8 codes and fp32 scales (initialised to 1)."""
+    dtype = dtype or dtype_of(cfg.dtype)
+    size = min(window, max_len) if window else max_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_bits == 8:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.ones(sshape, dtype=torch.float32, device=device),
+                "vs": torch.ones(sshape, dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params, x1, cache, pos: int, cfg, *, window=None):
+    """One-token decode at position `pos` (a host int, the same for every
+    row). x1 (B, 1, D); cache from `build_cache_from_kv` or
+    `init_kv_cache`, updated IN PLACE: the token's K/V go to slot pos mod
+    size under a window (rolling), else min(pos, size - 1). Attention
+    covers the slots that hold positions <= pos (within the window).
+    Returns (y (B, 1, D), cache)."""
+    b = x1.shape[0]
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    size = cache["k"].shape[1]
+    dev = x1.device
+
+    q = apply_linear(x1, params["wq"]).reshape(b, 1, h, hd)
+    k = apply_linear(x1, params["wk"]).reshape(b, 1, hk, hd)
+    v = apply_linear(x1, params["wv"]).reshape(b, 1, hk, hd)
+    if cfg.pos_emb == "rope":
+        p1 = torch.full((1,), pos, dtype=torch.long, device=dev)
+        q = apply_rope(q, p1, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, p1, cfg.rope_theta, cfg.rotary_pct)
+
+    slot = pos % size if window else min(pos, size - 1)
+    if "ks" in cache:
+        kq, ks1 = _quant_kv(k)
+        vq, vs1 = _quant_kv(v)
+        cache["k"][:, slot] = kq[:, 0]
+        cache["v"][:, slot] = vq[:, 0]
+        cache["ks"][:, slot] = ks1[:, 0]
+        cache["vs"][:, slot] = vs1[:, 0]
+        # the reference's dequantization, in float32, then widened
+        ck = cache["k"].to(torch.float32) * cache["ks"]
+        cv = cache["v"].to(torch.float32) * cache["vs"]
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+
+    # the position each physical slot holds (rolling-aware)
+    idx = torch.arange(size, device=dev)
+    if window:
+        n_wraps = (pos + size) // size
+        slot_pos = torch.where(idx <= slot, idx + (n_wraps - 1) * size,
+                               idx + (n_wraps - 2) * size)
+        valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - size)
+    else:
+        valid = idx <= min(pos, size - 1)
+
+    qg = _group_q(q.to(torch.float64), hk)
+    o = _attend_block(qg, ck.to(torch.float64), cv.to(torch.float64),
+                      valid[None, None, None, None, :], cfg.logit_softcap)
+    y = apply_linear(o.to(x1.dtype).reshape(b, 1, h * hd), params["wo"])
+    return y, cache
 
 
 def span_attention_paged(params, x, pool, block_table, ctx_lens, q_lens,

@@ -1,6 +1,7 @@
-"""Decoder-only LM (port of `repro.models.transformer`): the whole-sequence
-`forward` of the dense layout (the calibration pass SRA runs) and the
-serving step over the blocked KV pool.
+"""Decoder-only LM (port of `repro.models.transformer`) in the dense layout:
+the whole-sequence `forward` (the calibration pass SRA runs), the
+rectangular path (`init_cache`, `prefill` with its decode cache,
+`decode_step`) and the serving step over the blocked KV pool.
 
 Parameters are a plain dict of tensors with the reference's tree layout
 and path names ("layers/attn/wq", "lm_head", ...): per-layer weights are
@@ -23,12 +24,16 @@ from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.kvblocks import check_paged_support
 
 
+def _check_dense(cfg) -> None:
+    if cfg.layout != "dense":
+        raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
+
+
 # ------------------------------------------------------------------ init --
 def init_params(cfg, *, seed: int = 0, device="cpu"):
     """Random dense-layout parameters from a torch generator on `device`
     (the same shapes and scales as the reference; not jax's numbers)."""
-    if cfg.layout != "dense":
-        raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
+    _check_dense(cfg)
     dtype = dtype_of(cfg.dtype)
     g = torch.Generator(device=device).manual_seed(seed)
     d, L = cfg.d_model, cfg.num_layers
@@ -84,15 +89,19 @@ def split_layers(params, num_layers: int):
 
 
 # --------------------------------------------------------------- forward --
-def embed(params, tokens, cfg, pos0):
-    """tokens (B, S) int; pos0 (B,) int tensor: the absolute position of
-    tokens[:, 0] in each row."""
+def embed(params, tokens, cfg, pos0=0):
+    """tokens (B, S) int; pos0: the absolute position of tokens[:, 0], an
+    int for the whole batch (rectangular decode) or a (B,) int tensor, one
+    for each row (serving)."""
     dtype = dtype_of(cfg.dtype)
     h = params["embed"][tokens.long()]
     h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=h.device)
     if cfg.pos_emb == "sinusoidal":
-        pos = pos0.long()[:, None] + torch.arange(tokens.shape[1],
-                                                  device=h.device)
+        ar = torch.arange(tokens.shape[1], device=h.device)
+        if isinstance(pos0, torch.Tensor) and pos0.ndim:
+            pos = pos0.long()[:, None] + ar          # (B, S)
+        else:
+            pos = int(pos0) + ar                    # (S,), for every row
         h = h + sinusoidal_emb(pos, cfg.d_model, dtype)
     return h
 
@@ -115,11 +124,16 @@ def _layer_list(params, cfg) -> list:
     return layers
 
 
-def _dense_body(cfg, h, lp, *, window):
+def _dense_body(cfg, h, lp, *, window, return_kv=False):
     hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
-    h = h + attn.attention(lp["attn"], hn, cfg, window=window)
+    a = attn.attention(lp["attn"], hn, cfg, window=window,
+                       return_kv=return_kv)
+    if return_kv:
+        a, kv = a
+    h = h + a
     hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-    return h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+    h = h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+    return (h, kv) if return_kv else h
 
 
 def forward(params, tokens, cfg):
@@ -127,12 +141,9 @@ def forward(params, tokens, cfg):
     (final-normed hidden (B, S, D), aux loss 0.0). Layers attend causally
     within `cfg.attn_window`. The local/global pairing and the moe, ssm
     and hybrid layouts are not ported yet."""
-    if cfg.layout != "dense":
-        raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
+    _check_dense(cfg)
     window = _window_for_layer(cfg, "global")
-    h = embed(params, tokens, cfg,
-              torch.zeros(tokens.shape[0], dtype=torch.long,
-                          device=tokens.device))
+    h = embed(params, tokens, cfg)
     for lp in _layer_list(params, cfg):
         h = _dense_body(cfg, h, lp, window=window)
     return apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps), 0.0
@@ -145,6 +156,66 @@ def lm_head_weight(params, cfg):
 def logits_for(params, h, cfg):
     out = apply_linear(h, lm_head_weight(params, cfg), out_dtype=torch.float32)
     return softcap(out, cfg.final_softcap)
+
+
+# ---------------------------------------------------- rectangular decode --
+def init_cache(cfg, batch, max_len, dtype=None, device="cpu"):
+    """An empty decode cache {"kv": {"k", "v"[, "ks", "vs"]}}, each leaf
+    stacked over layers: (L, B, size, Hk, *), size max_len, or
+    min(attn_window, max_len) for a rolling cache."""
+    _check_dense(cfg)
+    window = _window_for_layer(cfg, "global")
+    kv = attn.init_kv_cache(cfg, batch, max_len, window=window, dtype=dtype,
+                            device=device)
+    return {"kv": {k: v[None].repeat(cfg.num_layers, *([1] * v.ndim))
+                   for k, v in kv.items()}}
+
+
+def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
+            last_pos=None):
+    """A (B, S) prompt batch through every layer at once: returns (logits
+    (B, 1, V) f32 of one position, the decode cache for positions 0..S-1
+    in `max_len` (default S) slots, as `init_cache` lays it out).
+
+    last_pos: the position whose logits come back (default S - 1). Prompts
+    right-padded to a length bucket pass their true last position; the
+    pad positions' K/V sit in slots no decode query reaches before
+    `decode_step` overwrites them."""
+    _check_dense(cfg)
+    window = _window_for_layer(cfg, "global")
+    cdt = cache_dtype or dtype_of(cfg.dtype)
+    h = embed(params, tokens, cfg)
+    caches = []
+    for lp in _layer_list(params, cfg):
+        h, (k, v) = _dense_body(cfg, h, lp, window=window, return_kv=True)
+        caches.append(attn.build_cache_from_kv(
+            k, v, window=window, max_len=max_len, dtype=cdt,
+            quantized=cfg.kv_cache_bits == 8))
+    cache = {"kv": {name: torch.stack([c[name] for c in caches])
+                    for name in caches[0]}}
+    h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
+    last = h.shape[1] - 1 if last_pos is None else int(last_pos)
+    return logits_for(params, h[:, last:last + 1], cfg), cache
+
+
+def decode_step(params, cache, tokens, pos: int, cfg):
+    """One decode step for the whole batch at position `pos` (a host int):
+    tokens (B, 1) int; the cache is updated in place. Returns (logits
+    (B, 1, V) f32, cache)."""
+    _check_dense(cfg)
+    window = _window_for_layer(cfg, "global")
+    h = embed(params, tokens, cfg, pos)
+    kv = cache["kv"]
+    for i, lp in enumerate(_layer_list(params, cfg)):
+        hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+        a, _ = attn.decode_attention(lp["attn"], hn,
+                                     {k: v[i] for k, v in kv.items()}, pos,
+                                     cfg, window=window)
+        h = h + a
+        hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+        h = h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+    h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return logits_for(params, h, cfg), cache
 
 
 def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg,

@@ -341,7 +341,7 @@ def test_cli_serves_a_uniform_svd_config(capsys):
     res = tserve.main(["--arch", "opus-mt", "--smoke", "--device", "cpu",
                        "--compression", "svd", "--wl", "8",
                        "--rank-fraction", "0.75", "--batch", "2",
-                       "--prompt-len", "10", "--gen", "2"])
+                       "--prompt-len", "10", "--gen", "2", "--ragged"])
     assert [o.size for o in res.outputs] == [2, 2]
     out = capsys.readouterr().out
     assert "svd_W8x7" in out

@@ -238,7 +238,8 @@ def test_mixed_plan_serves_on_cpu_through_the_cli(tmp_path, capsys):
     plan.save(str(path))
     res = tserve.main(["--arch", "opus-mt", "--smoke", "--plan", str(path),
                        "--device", "cpu", "--batch", "5", "--max-batch", "2",
-                       "--prompt-len", "14", "--gen", "3", "--kv-bits", "8"])
+                       "--prompt-len", "14", "--gen", "3", "--kv-bits", "8",
+                       "--ragged"])
     assert [o.size for o in res.outputs] == [3] * 5
     assert res.prompt_lens == [14, 10, 6, 4, 14]
     out = capsys.readouterr().out
@@ -272,7 +273,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                 root = n.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro"), (f, n)
     code = ("import sys; import repro_torch.api.engine, repro_torch.bridge, "
-            "repro_torch.launch.serve, repro_torch.core.sra; "
+            "repro_torch.launch.serve, repro_torch.core.sra, "
+            "repro_torch.data.pipeline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

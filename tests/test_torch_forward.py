@@ -187,16 +187,16 @@ def test_forward_refuses_what_is_not_ported(weights):
     _, tp = weights["opus"]
     toks = torch.from_numpy(_tokens(512, s=4))
     _, tc = _configs("opus", local_global_period=2)
-    with pytest.raises(NotImplementedError, match="local/global"):
-        ttfm.forward(tp, toks, tc)
+    for entry in (ttfm.forward, ttfm.prefill):
+        with pytest.raises(NotImplementedError, match="local/global"):
+            entry(tp, toks, tc)
     _, tc = _configs("opus", layout="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        ttfm.forward(tp, toks, tc)
+    for entry in (ttfm.forward, ttfm.prefill):
+        with pytest.raises(NotImplementedError, match="moe"):
+            entry(tp, toks, tc)
     _, tc = _configs("opus")
     x = torch.zeros((1, 4, tc.d_model))
     lp = {k: v[0] for k, v in tp["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="prefill"):
-        tattn.attention(lp, x, tc, return_kv=True)
     _, tc = _configs("opus", attn_impl="flash")
     with pytest.raises(ValueError, match="attn_impl"):
         tattn.attention(lp, x, tc)

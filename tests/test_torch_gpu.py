@@ -7,6 +7,8 @@ imports nothing of jax, so it also runs where only the port is installed:
 
 (`--noconftest` skips the repository's conftest, which imports jax.)
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -480,3 +482,75 @@ def test_forward_on_the_card_gives_the_cpu_greedy_tokens(cuda):
     torch.cuda.synchronize()
     assert build.LAUNCHES["lowrank_qmm"] == before + 6 * cfg.num_layers + 1
     assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+
+
+def _mixed_engines(cuda, kv_bits):
+    """Smoke opus-mt with 2 heads of 32 (a head width the paged-attention
+    kernel takes, for the serve beside generate) under the mixed plan
+    (ITERA W4 r0.5 for every layer linear, quant W8 for the lm head),
+    compressed once on the CPU: an engine on the CPU and one on the card
+    over the same tensors."""
+    import dataclasses
+
+    from repro_torch.api.engine import InferenceEngine, params_to
+    from repro_torch.api.plan import CompressionPlan, LayerPlan
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_config("opus-mt", smoke=True),
+                              num_heads=2, num_kv_heads=2, head_dim=32,
+                              kv_cache_bits=kv_bits)
+    params = tfm.init_params(cfg, seed=0)
+    base = CompressionPlan.uniform(params, method="itera", weight_wl=4,
+                                   rank_fraction=0.5,
+                                   exclude=r"(embed|norm|ln|lm_head)")
+    plan = base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
+                                                        8),))
+    cpu = InferenceEngine.build(cfg, plan, params=params, device="cpu")
+    gpu = InferenceEngine(cfg, params_to(cpu.params, cuda), device=cuda,
+                          plan=cpu.plan)
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_generate_on_the_card_gives_the_cpu_tokens(cuda, kv_bits,
+                                                   temperature):
+    """A rectangular batch (11 tokens, bucket 16) greedy and seeded
+    sampled: the card's tokens equal the CPU's and the card's serve of the
+    same prompts."""
+    from repro_torch.api.engine import SamplingParams
+
+    cpu, gpu = _mixed_engines(cuda, kv_bits)
+    prompts = np.random.default_rng(1).integers(
+        1, cpu.cfg.vocab_size, (3, 11)).astype(np.int32)
+    sp = SamplingParams(max_tokens=6, temperature=temperature, top_k=20,
+                        top_p=0.9, seed=7)
+    got = gpu.generate(prompts, sp).tokens
+    np.testing.assert_array_equal(got, cpu.generate(prompts, sp).tokens)
+    np.testing.assert_array_equal(
+        got, np.stack(gpu.serve(list(prompts), sp).outputs))
+
+
+def test_generate_launch_counts_on_the_card(cuda):
+    """One prefill and max_tokens - 1 decode steps: every layer linear a
+    lowrank_qmm launch a pass, the lm head one quant_matmul launch a pass
+    (prefill's at its last position only), no paged attention."""
+    from repro_torch.api.engine import SamplingParams
+
+    _, gpu = _mixed_engines(cuda, 8)
+    prompts = np.ones((4, 29), np.int32)
+    gpu.generate(prompts, SamplingParams(max_tokens=2))     # builds kernels
+    torch.cuda.synchronize()
+    build.reset_launches()
+    gpu.generate(prompts, SamplingParams(max_tokens=5))
+    torch.cuda.synchronize()
+    per_pass = 6 * gpu.cfg.num_layers
+    assert dict(build.LAUNCHES) == {"lowrank_qmm": per_pass * 5,
+                                    "quant_matmul": 5}
+    # prefill runs 4 x 32 rows (the bucket), decode 4 rows
+    bms = collections.Counter()
+    for key, c in build.LAUNCH_SHAPES.items():
+        if key[0] == "lowrank_qmm":
+            bms[key[1]] += c
+    assert bms[16] == per_pass * 4 and sum(bms.values()) == per_pass * 5

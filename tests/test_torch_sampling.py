@@ -422,7 +422,7 @@ def test_cli_serves_sampled_and_streamed_on_cpu(capsys):
                        "--batch", "3", "--max-batch", "2", "--prompt-len",
                        "10", "--gen", "5", "--temperature", "0.8",
                        "--top-k", "40", "--top-p", "0.9", "--eos-id", "3",
-                       "--stop", "5,6", "--stream"])
+                       "--stop", "5,6", "--stream", "--ragged"])
     out = capsys.readouterr().out
     assert "[stream] rid=" in out and "(final)" in out
     assert all(1 <= o.size <= 5 for o in res.outputs)

@@ -364,7 +364,7 @@ def test_cli_serves_speculatively_on_cpu(capsys):
     res = tserve.main(["--arch", "opus-mt", "--smoke", "--device", "cpu",
                        "--batch", "3", "--max-batch", "2", "--prompt-len",
                        "10", "--gen", "5", "--speculate", "2",
-                       "--draft-rank-fraction", "0.5"])
+                       "--draft-rank-fraction", "0.5", "--ragged"])
     assert res.spec_k == 2
     assert "speculation k=2" in capsys.readouterr().out
 
