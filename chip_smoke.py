@@ -69,9 +69,18 @@ fails:
    to 100 tokens (bucket 128) as an unbucketed engine gives them; the
    quant-only plan: 73 quant_matmul launches a pass by (K, N); sampled
    (seed 7) twice and against serve; a sampled stop run against
-   `match_stop_host`; then generate's prefill and decode step and serve's
-   TTFT and TPOT, three interleaved rounds, median and spread, and one
-   generate under torch.profiler;
+   `match_stop_host`;
+   graphs: every step above (and below) is the replay of a CUDA graph
+   captured per step shape, the engines' default; here the mixed plan
+   (fp32 and int8 KV) and the quant-only plan run greedy, sampled,
+   stopped and speculative (DraftSpec(k=4, rank_fraction=0.5)) serves of
+   the 16 requests and greedy and sampled generates of the 8 Markov-task
+   prompts both captured and eagerly (`cuda_graphs=False`): identical
+   tokens and launch counters; the graphs held, their capture seconds and
+   the memory they reserved; then five interleaved rounds of eager and
+   captured serve (TPOT p50, TTFT p50, tok/s) and generate (prefill ms,
+   decode ms a step, tok/s) of the mixed kv16 plan, median, min and max,
+   and one serve and one generate of each under torch.profiler;
 4. parity: the compressed weights of the phase-3 plans, of the svd plan
    and of the SRA plans (each compressed once on the card), copied to the
    CPU, serve 4 short requests there (the kernels' plain versions) and on
@@ -578,8 +587,9 @@ def workload(vocab: int, seed: int = 0):
 def profile_run(torch, run, label: str):
     """`run()` (a serve or a generate, returning its number of steps) once
     more under torch.profiler: the card's busy share of the wall time,
-    its time by kernel, and the linears' kernels' (quant_matmul's and
-    lowrank_qmm's) card time per step. Informational, nothing is checked;
+    its device events (kernels, copies, memsets) a step and the card's
+    idle time per event, its time by kernel, and the linears' kernels'
+    (quant_matmul's and lowrank_qmm's) card time per step. Informational, nothing is checked;
     a profiler that cannot trace the card is reported and skipped."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -601,9 +611,12 @@ def profile_run(torch, run, label: str):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    events = sum(r[1] for r in rows)
+    gap_us = (wall_ms - busy) * 1e3 / max(events, 1)
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, card busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy / wall_ms):.1f}%")
+          f"{100 * (1 - busy / wall_ms):.1f}%; {events} device events, "
+          f"{events / steps:.1f} a step, {gap_us:.2f} us idle an event")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:7d} x  {key[:90]}")
     lin = [(ms, n) for ms, n, key in rows
@@ -1165,20 +1178,16 @@ def rectangular_phase(torch, cfg, eng, eng8, qeng, failures):
     seed 7): the same tokens twice, and serve's. A sampled stop run (an
     eos id and a stop sequence taken from two rows of that run): each row
     is `match_stop_host` of its untruncated run. Every lowrank_qmm launch
-    on a code path phase 2 compared. Then three interleaved rounds of
-    prefill (generate of one token), generate of 32 and serve, timed on
-    the host clock, and one generate under torch.profiler. Returns the
-    launches of the generate runs."""
+    on a code path phase 2 compared. (Its timing is the graphs phase's.)
+    Returns the launches of the generate runs."""
     import numpy as np
 
     from repro_torch.api.engine import InferenceEngine, SamplingParams
-    from repro_torch.data.pipeline import MarkovTask
     from repro_torch.kernels import build
     from repro_torch.runtime.sampling import match_stop_host
 
     rows, seq, cut_len = RECT
-    prompts = MarkovTask(cfg.vocab_size, seed=0).batch(0, rows, seq)[
-        "tokens"].numpy()
+    prompts = markov_prompts(cfg)
     cut = np.ascontiguousarray(prompts[:, :cut_len])
     n = 32
     sp = SamplingParams(max_tokens=n)
@@ -1283,30 +1292,164 @@ def rectangular_phase(torch, cfg, eng, eng8, qeng, failures):
           f"rectangular stops: rows 1 and 5 kept {keeps[1]}, {keeps[5]}")
     print(f"[rectangular] stops (eos {stop.eos_id}, stop {stop.stop}): "
           f"lengths {keeps}")
-
-    times = collections.defaultdict(list)
-    one = SamplingParams(max_tokens=1)
-    for _ in range(3):
-        pre = eng.generate(prompts, one)
-        gen = eng.generate(prompts, sp)
-        srv = eng.serve(list(prompts), sp)
-        torch.cuda.synchronize()
-        times["generate prefill ms"].append(pre.seconds * 1e3)
-        times["generate decode ms a step"].append(
-            (gen.seconds - pre.seconds) * 1e3 / (n - 1))
-        times["generate tok/s"].append(gen.tokens_per_second)
-        times["serve TTFT p50 ms"].append(srv.ttft_p50 * 1e3)
-        times["serve TPOT p50 ms"].append(srv.tpot_p50 * 1e3)
-        times["serve tok/s"].append(srv.tokens_per_second)
-    print(f"[rectangular] timing on {card_line()}, host clock: "
-          f"{eng.plan.label} kv16, {rows} x {seq} prompts, {n} tokens")
-    for what, xs in times.items():
-        print(f"[rectangular] timing {what}: median "
-              f"{float(np.median(xs)):.3f} (min {min(xs):.3f}, max "
-              f"{max(xs):.3f}) over 3 rounds")
-    profile_run(torch, lambda: (eng.generate(prompts, sp), n)[1],
-                "mixed kv16 generate")
     return dict(launches)
+
+
+def markov_prompts(cfg):
+    """The rectangular phase's RECT prompts of the seeded Markov task."""
+    from repro_torch.data.pipeline import MarkovTask
+
+    rows, seq, _ = RECT
+    return MarkovTask(cfg.vocab_size, seed=0).batch(0, rows, seq)[
+        "tokens"].numpy()
+
+
+def launch_counts():
+    """Every launch counter, as plain dicts."""
+    from repro_torch.kernels import build
+
+    return (dict(build.LAUNCHES), dict(build.LAUNCH_SHAPES),
+            dict(build.LAUNCH_RANKS))
+
+
+GRAPH_ROUNDS = 5         # interleaved eager / captured timing rounds
+
+
+def graphs_phase(torch, cfg, engines, reqs, failures):
+    """Each step a CUDA-graph replay (the engines' default) against the
+    same step run eagerly on the card (`cuda_graphs=False`), for each of
+    `engines` ({label: captured engine}: the mixed plan with fp32 and int8
+    KV, the quant-only plan): greedy, sampled (temperature 0.8, top-k 50,
+    top-p 0.9, seed 7), stopped (eos ids and stop sequences from the
+    sampled run) and speculative (DraftSpec(**SPEC)) serves of the 16
+    requests, and greedy and sampled generates of the RECT prompts, 32
+    tokens each: identical tokens and identical launch counters, every
+    lowrank_qmm launch on a code path phase 2 compared. Prints the graphs
+    captured, their capture seconds and the device bytes they reserved.
+    Then GRAPH_ROUNDS interleaved rounds (eager, captured; captured,
+    eager; ...) of the mixed kv16 plan's serve of the 16 requests and
+    generate of the RECT prompts (a generate of one token for its
+    prefill): median, min and max of TPOT p50, TTFT p50 and tok/s, and of
+    prefill ms and decode ms a step; and one eager and one captured serve
+    and generate under torch.profiler (the card-busy share)."""
+    import numpy as np
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.kernels import build
+    from repro_torch.runtime.scheduler import Request
+    from repro_torch.runtime.speculation import DraftSpec
+
+    prompts = markov_prompts(cfg)
+    n = 32
+    sp = SamplingParams(max_tokens=n)
+    sps = SamplingParams(max_tokens=n, temperature=0.8, top_k=50, top_p=0.9,
+                         seed=7)
+
+    def twin(e, **kw):
+        return InferenceEngine(e.cfg, e.params, device=e.device, plan=e.plan,
+                               max_batch=8, block_size=16, **kw)
+
+    def run(fn):
+        build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    def outputs(res):
+        return (list(res.outputs) if hasattr(res, "outputs")
+                else list(res.tokens))
+
+    captured = []
+    for label, eng in engines.items():
+        eager = twin(eng, cuda_graphs=False)
+        spec = {g: twin(eng, speculate=DraftSpec(**SPEC), cuda_graphs=g)
+                for g in (True, False)}
+        captured += [eng, spec[True]]
+        sampled = eng.serve(reqs, sps).outputs
+        stops = {1: {"eos_id": int(sampled[1][8])},
+                 6: {"eos_id": int(sampled[6][20])},
+                 10: {"stop": ((int(sampled[10][5]),
+                                int(sampled[10][6])),)}}
+        stopped = [Request(tokens=t, **stops.get(i, {}))
+                   for i, t in enumerate(reqs)]
+        # what -> (whether the speculative engines run it, the run)
+        cases = {"greedy serve": (False, lambda e: e.serve(reqs, sp)),
+                 "sampled serve": (False, lambda e: e.serve(reqs, sps)),
+                 "stopped serve": (False, lambda e: e.serve(stopped, sps)),
+                 "speculative serve": (True, lambda e: e.serve(reqs, sp)),
+                 "greedy generate": (False,
+                                     lambda e: e.generate(prompts, sp)),
+                 "sampled generate": (False,
+                                      lambda e: e.generate(prompts, sps))}
+        for what, (speculative, fn) in cases.items():
+            pair = (spec[True], spec[False]) if speculative else (eng, eager)
+            (got, c_got), (want, c_want) = (run(lambda: fn(e)) for e in pair)
+            check_compared(failures, f"graphs {label} {what}")
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(outputs(got), outputs(want)))
+            check(failures, same and len(outputs(got)) == len(outputs(want)),
+                  f"graphs {label} {what}: captured tokens differ from eager")
+            check(failures, c_got == c_want,
+                  f"graphs {label} {what}: captured launches {c_got[0]} "
+                  f"differ from eager {c_want[0]}")
+            pace = (f"TPOT p50 {got.tpot_p50 * 1e3:.2f} ms (eager "
+                    f"{want.tpot_p50 * 1e3:.2f})" if hasattr(got, "tpot_p50")
+                    else f"{got.seconds * 1e3:.1f} ms (eager "
+                    f"{want.seconds * 1e3:.1f})")
+            print(f"[graphs] {label} {what}: captured == eager: {same}; "
+                  f"{pace}; launches {c_got[0]}")
+    st = {"graphs": 0, "capture_seconds": 0.0, "pool_bytes": 0}
+    for e in captured:
+        for k, v in e.graph_stats().items():
+            st[k] += v
+    print(f"[graphs] {st['graphs']} graphs held, captured in "
+          f"{st['capture_seconds']:.2f} s, reserving "
+          f"{st['pool_bytes'] / 2**20:.1f} MiB; card memory reserved "
+          f"{torch.cuda.memory_stats()['reserved_bytes.all.current'] / 2**20:.1f}"
+          f" MiB")
+    check(failures, st["graphs"] > 0, "graphs: no step graph was captured")
+
+    # timing: eager and captured in turns, on one card within one call
+    eng = engines["mixed kv16"]
+    pair = {"captured": eng, "eager": twin(eng, cuda_graphs=False)}
+    one = SamplingParams(max_tokens=1)
+    for e in pair.values():                 # warm-up: builds and captures
+        e.serve(reqs, sp)
+        e.generate(prompts, sp)
+        e.generate(prompts, one)
+    times = collections.defaultdict(lambda: collections.defaultdict(list))
+    for i in range(GRAPH_ROUNDS):
+        order = list(pair) if i % 2 else list(pair)[::-1]
+        for mode in order:
+            e = pair[mode]
+            srv = e.serve(reqs, sp)
+            pre = e.generate(prompts, one)
+            gen = e.generate(prompts, sp)
+            torch.cuda.synchronize()
+            t = times[mode]
+            t["serve TPOT p50 ms"].append(srv.tpot_p50 * 1e3)
+            t["serve TTFT p50 ms"].append(srv.ttft_p50 * 1e3)
+            t["serve tok/s"].append(srv.tokens_per_second)
+            t["generate prefill ms"].append(pre.seconds * 1e3)
+            t["generate decode ms a step"].append(
+                (gen.seconds - pre.seconds) * 1e3 / (n - 1))
+            t["generate tok/s"].append(gen.tokens_per_second)
+    rows, seq, _ = RECT
+    print(f"[graphs] timing on {card_line()}, host clock: {eng.plan.label} "
+          f"kv16, serve of the {len(reqs)} requests and generate of {rows} "
+          f"x {seq} prompts, {n} tokens each, {GRAPH_ROUNDS} interleaved "
+          f"rounds")
+    for what in times["eager"]:
+        for mode in ("eager", "captured"):
+            xs = times[mode][what]
+            print(f"[graphs] timing {mode} {what}: median "
+                  f"{float(np.median(xs)):.3f} (min {min(xs):.3f}, max "
+                  f"{max(xs):.3f})")
+    for mode, e in pair.items():
+        profile_run(torch, lambda: e.serve(reqs, sp).steps,
+                    f"{mode} mixed kv16 serve")
+        profile_run(torch, lambda: (e.generate(prompts, sp), n)[1],
+                    f"{mode} mixed kv16 generate")
 
 
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
@@ -1485,6 +1628,10 @@ def main() -> int:
                           for path in (mixed, quant, sampled, speculated,
                                        *paths.values(), rect))
                 for name in build.SOURCES}
+    failures = []
+    graphs_phase(torch, cfg, {"mixed kv16": eng, "mixed int8 KV": eng8,
+                              "quant-only kv16": qeng}, reqs, failures)
+    end_phase("graphs", failures)
 
     # ---- 4. card vs CPU --------------------------------------------------
     failures = []

@@ -30,6 +30,16 @@ Devices: the engine runs on `cuda` unless the caller passes
 raises. On CUDA every compressed linear runs the CUDA kernels and the
 attention the paged-attention kernel; on CPU the same code runs their
 plain versions.
+
+Steps: every decode step of `generate`, serve step and speculative step
+runs through a `runtime.graphs.StepGraph`, one per static shape, the
+port's form of the reference's jitted steps: on CUDA it is captured as a
+CUDA graph on first use and replayed after, so one step is one replay.
+The engine holds the graphs and the device state they are bound to (the
+KV pool and the static step inputs of a serve geometry, the decode cache
+of a generate geometry) across calls, and resets that state at the
+start of each call. `cuda_graphs=False` runs the same steps eagerly on
+the card, for A/B runs; on the CPU they always run eagerly.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from repro_torch.core.compress import (CompressionConfig, compress_params,
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime import graphs as gr
 from repro_torch.runtime import kvblocks
 from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.scheduler import Request, Scheduler
@@ -311,35 +322,45 @@ def _pow2_bucket(n: int) -> int:
 
 def _generate_pick(logits, temperature, top_k, top_p, seed, counter):
     """(B, 1) int32 next tokens sampled from the last position of (B, ...,
-    V) logits, for `generate`. The scalar controls are broadcast to every
-    row, and row r's key is row_keys(seed, r, counter): serve gives the
-    same prompts rids 0..B-1 and the same counters, so both paths sample
-    the same tokens under one seed."""
+    V) logits, for `generate`. The controls are 0-dim device tensors (a
+    captured decode step reads them, and its counter, where the engine
+    refills them) or host scalars, broadcast to every row; row r's key is
+    row_keys(seed, r, counter): serve gives the same prompts rids 0..B-1
+    and the same counters, so both paths sample the same tokens under one
+    seed."""
     last = logits[:, -1]
     b, dev = last.shape[0], last.device
 
-    def full(x, dt):
+    def rows(x, dt):
+        if isinstance(x, torch.Tensor):
+            return x.to(dt).expand(b)
         return torch.full((b,), x, dtype=dt, device=dev)
 
-    keys = smp.row_keys(full(seed, torch.int32),
+    keys = smp.row_keys(rows(seed, torch.int32),
                         torch.arange(b, dtype=torch.int32, device=dev),
-                        full(counter, torch.int32))
-    return smp.sample_tokens(last, full(temperature, torch.float32),
-                             full(top_k, torch.int32),
-                             full(top_p, torch.float32), keys)[:, None]
+                        rows(counter, torch.int32))
+    return smp.sample_tokens(last, rows(temperature, torch.float32),
+                             rows(top_k, torch.int32),
+                             rows(top_p, torch.float32), keys)[:, None]
+
+
+def _pinned(arr: np.ndarray, device) -> torch.Tensor:
+    """A host copy of `arr` that later host writes cannot reach, pinned
+    when it goes to CUDA: a non-blocking copy from it does not wait for
+    the queued steps, and PyTorch's pinned-memory allocator keeps the
+    buffer from reuse until the copy has run."""
+    t = torch.from_numpy(np.array(arr, copy=True))
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
-    """A device copy of a host array that later host writes cannot reach.
+    """A fresh device copy of a host array (see `_pinned`)."""
+    return _pinned(arr, device).to(device, non_blocking=True)
 
-    On CUDA the array is first copied into a fresh pinned buffer and sent
-    with a non-blocking copy, so the host does not wait for the queued
-    steps. PyTorch's pinned-memory allocator keeps that buffer from reuse
-    until the copy has run, and `arr` itself is never read by the device."""
-    t = torch.from_numpy(np.array(arr, copy=True))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+
+def _copy_in(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """Refill a static step input from a host array (see `_pinned`)."""
+    dst.copy_(_pinned(arr, dst.device), non_blocking=True)
 
 
 def _resolve_speculate(speculate, plan) -> DraftSpec | None:
@@ -358,6 +379,9 @@ def _resolve_speculate(speculate, plan) -> DraftSpec | None:
     return DraftSpec(k=int(speculate))
 
 
+_HELD_GEOMETRIES = 4     # serve / generate geometries whose state an engine keeps
+
+
 class InferenceEngine:
     """Compressed model + in-flight-batching server on one device."""
 
@@ -365,7 +389,8 @@ class InferenceEngine:
                  report=None, max_batch: int = 8, block_size: int = 16,
                  chunk_tokens: int = 256, bucket_prompts: bool = True,
                  prefix_cache: bool = True,
-                 speculate: DraftSpec | None = None):
+                 speculate: DraftSpec | None = None,
+                 cuda_graphs: bool = True):
         _full_fp32()
         self.cfg = cfg
         self.device = device
@@ -390,6 +415,15 @@ class InferenceEngine:
         self._cache_fingerprint = hashlib.sha256(
             f"{cfg.name}:{cfg.dtype}:{cfg.kv_cache_bits}:{plan_id}".encode()
         ).digest()
+        # steps are captured as CUDA graphs on the card unless the caller
+        # asks for the eager loop (A/B runs); one private memory pool for
+        # all of this engine's graphs (see `runtime.graphs`)
+        self.cuda_graphs = cuda_graphs and device.type == "cuda"
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graphs else None)
+        # geometry -> its device state and step graphs, oldest first
+        self._serve_slots: collections.OrderedDict = collections.OrderedDict()
+        self._decoders: collections.OrderedDict = collections.OrderedDict()
 
     @staticmethod
     def _can_bucket(cfg) -> bool:
@@ -420,10 +454,12 @@ class InferenceEngine:
         order.
 
         requests: (B, S) int tokens, an array or a list of equal-length
-        token lists, run rectangular: one `prefill` of the batch (right-
-        padded to a power-of-two bucket when `bucket_prompts` holds), then
-        max_tokens - 1 lockstep `decode_step`s over the contiguous cache,
-        eagerly, one step at a time. Ragged lists are served by `serve`.
+        token lists, run rectangular: one eager `prefill` of the batch
+        (right-padded to a power-of-two bucket when `bucket_prompts`
+        holds), then max_tokens - 1 lockstep `decode_step`s over the
+        contiguous cache, each the replay of one step graph per (B, cache
+        length, greedy or sampled), with no readback until the end.
+        Ragged lists are served by `serve`.
         Stop criteria (eos_id, stop) are applied afterwards with
         `sampling.match_stop_host`: inclusive, with zeros after the stop,
         as `serve`'s outputs padded to max_tokens."""
@@ -442,18 +478,28 @@ class InferenceEngine:
         if padded != s:
             toks = np.pad(toks, ((0, 0), (0, padded - s)))
         n = sampling.max_tokens
+        sampled = sampling.temperature > 0.0
+        controls = {"temperature": sampling.temperature,
+                    "top_k": sampling.top_k, "top_p": sampling.top_p,
+                    "seed": sampling.seed}
         t0 = time.perf_counter()
         with torch.inference_mode():
             logits, cache = tfm.prefill(self._step_params,
                                         _upload(toks, self.device), self.cfg,
                                         max_len=padded + n, last_pos=s - 1)
-            tok = self._pick(logits, sampling, 0)
+            tok = self._pick(logits, sampled, counter=0, **controls)
             out = [tok]
-            for i in range(1, n):
-                logits, cache = tfm.decode_step(self._step_params, cache, tok,
-                                                s + i - 1, self.cfg)
-                tok = self._pick(logits, sampling, i)
-                out.append(tok)
+            if n > 1:
+                step = self._decoder(toks.shape[0], padded + n, sampled)
+                ins = step.inputs
+                for name, leaf in cache["kv"].items():
+                    ins["cache"]["kv"][name].copy_(leaf)
+                ins["tok"].copy_(tok)
+                ins["pos"].fill_(s)
+                ins["counter"].fill_(1)
+                for name, value in controls.items():
+                    ins[name].fill_(value)
+                out += [step()[0] for _ in range(1, n)]
             arr = torch.cat(out, dim=1).cpu().numpy()
         if sampling.eos_id is not None or sampling.stop:
             for row in arr:
@@ -463,15 +509,67 @@ class InferenceEngine:
         return GenerationResult(tokens=arr, prompt_len=s,
                                 seconds=time.perf_counter() - t0)
 
-    def _pick(self, logits, sampling: SamplingParams, counter: int):
+    @staticmethod
+    def _pick(logits, sampled: bool, *, temperature, top_k, top_p, seed,
+              counter):
         """(B, 1) int32 next tokens from (B, ..., V) logits: the argmax of
-        the last position (the first maximum), or `_generate_pick`'s draw
-        for output index `counter`."""
-        if sampling.temperature <= 0.0:
+        the last position (the first maximum), or, when `sampled`,
+        `_generate_pick`'s draw for output index `counter`."""
+        if not sampled:
             return torch.argmax(logits[:, -1], dim=-1)[:, None].to(
                 torch.int32)
-        return _generate_pick(logits, sampling.temperature, sampling.top_k,
-                              sampling.top_p, sampling.seed, counter)
+        return _generate_pick(logits, temperature, top_k, top_p, seed,
+                              counter)
+
+    def _decoder(self, b: int, max_len: int, sampled: bool):
+        """The decode step graph of a (B, cache length, greedy or sampled)
+        geometry, bound to the engine-held decode cache of that geometry,
+        which `generate` refills from each prefill (opus-mt's 8 x 160
+        positions hold about 31 MB); its static inputs are the input token,
+        the position, the output counter and the sampling controls, each
+        advanced in place by the step itself."""
+        key = (b, max_len, sampled)
+        step = _held(self._decoders, key)
+        if step is not None:
+            return step
+        dev = self.device
+
+        def scalar(dt, value=0):
+            return torch.full((), value, dtype=dt, device=dev)
+
+        inputs = {"cache": tfm.init_cache(self.cfg, b, max_len, device=dev),
+                  "tok": torch.zeros((b, 1), dtype=torch.int32, device=dev),
+                  "pos": scalar(torch.long), "counter": scalar(torch.int32),
+                  "temperature": scalar(torch.float32),
+                  "top_k": scalar(torch.int32),
+                  "top_p": scalar(torch.float32, 1.0),
+                  "seed": scalar(torch.int32)}
+
+        def decode(cache, tok, pos, counter, **controls):
+            logits, _ = tfm.decode_step(self._step_params, cache, tok, pos,
+                                        self.cfg)
+            nxt = self._pick(logits, sampled, counter=counter, **controls)
+            tok.copy_(nxt)
+            pos.add_(1)
+            counter.add_(1)
+            return (nxt,)
+
+        step = self._step_graph(decode, inputs)
+        _hold(self._decoders, key, step)
+        return step
+
+    def _step_graph(self, fn, inputs) -> gr.StepGraph:
+        return gr.StepGraph(fn, inputs, capture=self.cuda_graphs,
+                            pool=self._graph_pool)
+
+    def graph_stats(self) -> dict:
+        """Step graphs this engine holds that were captured, the seconds
+        their captures took and the device bytes they reserved (0 without
+        capture)."""
+        steps = list(self._decoders.values())
+        for slot in self._serve_slots.values():
+            steps += slot.graphs.values()
+        return gr.stats(steps)
 
     # ------------------------------------------------------------- build --
     @classmethod
@@ -479,8 +577,8 @@ class InferenceEngine:
               seed: int = 0, device=None, verbose: bool = False,
               max_batch: int = 8, block_size: int = 16,
               chunk_tokens: int = 256, prefix_cache: bool = True,
-              kv_bits: int | None = None, speculate=None
-              ) -> "InferenceEngine":
+              kv_bits: int | None = None, speculate=None,
+              cuda_graphs: bool = True) -> "InferenceEngine":
         """arch: config name or a ModelConfig. plan: CompressionPlan, a
         uniform `CompressionConfig` (lowered to a plan against the
         weights; its per-layer `ranks`, e.g. from SRA, go through
@@ -490,7 +588,9 @@ class InferenceEngine:
         cfg.kv_cache_bits (8 = int8 KV codes with fp32 scales).
         speculate: None defers to `plan.draft`; a DraftSpec, True (the
         plan's draft or the defaults) or an int draft depth k turns
-        speculation on; False or 0 turns it off."""
+        speculation on; False or 0 turns it off. cuda_graphs=False runs
+        every step eagerly on the card instead of replaying its CUDA graph
+        (for A/B runs; the CPU always runs eagerly)."""
         dev = resolve_device(device)
         _full_fp32()                        # before compression runs
         cfg = get_config(arch, smoke=smoke) if isinstance(arch, str) else arch
@@ -516,7 +616,8 @@ class InferenceEngine:
         return cls(cfg, params, device=dev, plan=plan, report=report,
                    max_batch=max_batch, block_size=block_size,
                    chunk_tokens=chunk_tokens, prefix_cache=prefix_cache,
-                   speculate=_resolve_speculate(speculate, plan))
+                   speculate=_resolve_speculate(speculate, plan),
+                   cuda_graphs=cuda_graphs)
 
     # ------------------------------------------------------------- serve --
     def serve(self, requests, sampling: SamplingParams | None = None, *,
@@ -555,7 +656,14 @@ class InferenceEngine:
         on_token(TokenEvent) is called on the serving thread as each
         token's readback confirms it. prefix_cache shares full KV blocks
         between requests with equal position-aligned prompt prefixes
-        (the tokens are unchanged)."""
+        (the tokens are unchanged).
+
+        Each step is the replay of one step graph per (sample, stop, W),
+        W the span's power-of-two bucket (speculative: per (draft width,
+        W, sample)), bound to the engine-held KV pool and static inputs
+        of the call's geometry (max_batch rows, table width, pool blocks,
+        block size, stop shape), which the call first resets to a fresh
+        pool's contents."""
         sampling = sampling or SamplingParams()
         ctl = self.speculation
         if speculate is False:
@@ -579,7 +687,6 @@ class InferenceEngine:
         if not reqs:
             raise ValueError("empty request batch")
         kvblocks.check_paged_support(self.cfg)
-        dev = self.device
         do_sample = any(r.temperature > 0.0 for r in reqs)
         do_stop = any(r.eos_id is not None or r.stop for r in reqs)
 
@@ -598,11 +705,14 @@ class InferenceEngine:
         for r in reqs:
             sched.submit(r)
 
-        st = _ServeState(reqs, np.zeros((cap, mb), np.int32),
-                         kvblocks.init_paged_cache(self.cfg, num_blocks, bs,
-                                                   dev),
-                         on_token)
+        # the stop buffers' shape: every row's stop sequences, right-aligned
+        n_stops = max([len(r.stop) for r in reqs] + [1])
+        stop_len = max([len(s) for r in reqs for s in r.stop] + [1])
         with torch.inference_mode():
+            slot = self._serve_slot(cap, mb, num_blocks, bs, n_stops,
+                                    stop_len)
+            st = _ServeState(reqs, np.zeros((cap, mb), np.int32), slot,
+                             on_token)
             if ctl is not None:
                 self._spec_loop(st, sched, cap, budget, ctl, do_sample)
             else:
@@ -636,34 +746,47 @@ class InferenceEngine:
             finish_times=[st.finish_t[i] - st.t0 for i in range(n)],
             stopped_early=st.stopped_early)
 
+    def _serve_slot(self, cap, mb, num_blocks, bs, n_stops, stop_len):
+        """The engine-held device state of a serve geometry, reset to what
+        a fresh pool holds."""
+        key = (cap, mb, num_blocks, bs, n_stops, stop_len)
+        slot = _held(self._serve_slots, key)
+        if slot is None:
+            slot = _ServeSlot(self.cfg, *key, self.device)
+            _hold(self._serve_slots, key, slot)
+        slot.reset()
+        return slot
+
     def _admit(self, st, sched, plan, stop_buf=None) -> None:
         """Install the step's preempted and admitted rows: block tables
         (and stop sequences), queue times, copy-on-write copies."""
         for r in plan.preempted:            # victim rows: table to trash
             st.tables[r] = 0
-            st.tables_dev = None
+            st.tables_dirty = True
         for seq in plan.admitted:
             st.tables[seq.row] = 0
             st.tables[seq.row, :len(seq.block_ids)] = seq.block_ids
-            st.tables_dev = None
+            st.tables_dirty = True
             st.queue_t[seq.req.rid] = time.perf_counter() - st.t0
             if stop_buf is not None:
                 stop_buf[seq.row] = smp.pack_stop_seqs(
                     seq.req.stop, stop_buf.shape[1], stop_buf.shape[2])
-                st.stops_dev = None
+                st.stops_dirty = True
             if seq.cow_dst is not None:
                 # fully-cached prompt: a private copy of the last matched
                 # block before this step rewrites its final position
-                kvblocks.copy_block(st.pool, seq.cow_src, seq.cow_dst)
+                # (eager, ordered on the stream with the replays)
+                kvblocks.copy_block(st.slot.pool, seq.cow_src, seq.cow_dst)
                 sched.release_cow(seq)
         if not plan.prefill and not plan.decode:
             raise RuntimeError("scheduler returned an empty step with work "
                                "pending")
 
-    def _tables(self, st) -> torch.Tensor:
-        if st.tables_dev is None:
-            st.tables_dev = _upload(st.tables, self.device)
-        return st.tables_dev
+    def _sync_tables(self, st) -> None:
+        """Refill the static block tables where the host changed them."""
+        if st.tables_dirty:
+            _copy_in(st.slot.tables, st.tables)
+            st.tables_dirty = False
 
     def _count_step(self, st, plan) -> None:
         st.steps += 1
@@ -674,17 +797,67 @@ class InferenceEngine:
     def _finish_row(self, st, sched, seq) -> None:
         sched.finish(seq)
         st.tables[seq.row] = 0
-        st.tables_dev = None
+        st.tables_dirty = True
+
+    def _serve_graph(self, slot, do_sample, do_stop, w) -> gr.StepGraph:
+        """The serve step graph of span width `w` (`tfm.serve_step`): it
+        reads a (cap, w + 3 + SAMP_COLS) step buffer of its own and the
+        slot's tables, `prev`, `recent` and stop sequences, and writes its
+        tokens into `prev` and the pushed ring into `recent`."""
+        key = ("serve", do_sample, do_stop, w)
+        step = slot.graphs.get(key)
+        if step is not None:
+            return step
+        cap = slot.tables.shape[0]
+
+        def serve(buf, tables, prev, recent, stops):
+            toks, fin, pushed, _ = tfm.serve_step(
+                self._step_params, slot.pool, tables, buf, prev, recent,
+                stops, self.cfg, sample=do_sample, stop=do_stop)
+            prev.copy_(toks)
+            if do_stop:
+                recent.copy_(pushed)
+            return toks, fin
+
+        buf = torch.zeros((cap, w + 3 + smp.SAMP_COLS), dtype=torch.int32,
+                          device=self.device)
+        step = self._step_graph(serve, {
+            "buf": buf, "tables": slot.tables, "prev": slot.prev,
+            "recent": slot.recent, "stops": slot.stops if do_stop else None})
+        slot.graphs[key] = step
+        return step
+
+    def _spec_graph(self, slot, ctl, k_step, w, do_sample) -> gr.StepGraph:
+        """The speculative step graph of draft width `k_step` and span
+        width `w` (`SpeculationController.step`): a (cap, w + 4 +
+        SAMP_COLS) step buffer of its own, the slot's tables and `prev`,
+        into which it writes each row's newest token."""
+        key = ("spec", k_step, w, do_sample)
+        step = slot.graphs.get(key)
+        if step is not None:
+            return step
+        cap = slot.tables.shape[0]
+
+        def speculate(buf, tables, prev):
+            full, n_acc, nxt, _ = ctl.step(self._step_params, slot.pool,
+                                           tables, buf, prev, k_step,
+                                           sample=do_sample)
+            prev.copy_(nxt)
+            return full, n_acc
+
+        buf = torch.zeros((cap, w + 4 + smp.SAMP_COLS), dtype=torch.int32,
+                          device=self.device)
+        step = self._step_graph(speculate, {"buf": buf, "tables": slot.tables,
+                                            "prev": slot.prev})
+        slot.graphs[key] = step
+        return step
 
     def _pipelined_loop(self, st, sched, cap, budget, do_sample,
                         do_stop) -> None:
         """The two-deep pipelined serve loop (see `serve`)."""
-        dev = self.device
         m = smp.SAMP_COLS
         reqs = st.reqs
-        n_stops = max([len(r.stop) for r in reqs] + [1])
-        stop_len = max([len(s) for r in reqs for s in r.stop] + [1])
-        stop_buf = (np.full((cap, n_stops, stop_len), -1, np.int32)
+        stop_buf = (np.full(tuple(st.slot.stops.shape), -1, np.int32)
                     if do_stop else None)
         # rids whose stop fired before max_tokens, learned at consume
         # time; the loop top frees their rows
@@ -705,8 +878,6 @@ class InferenceEngine:
                     stopped.add(rid)
 
         inflight = collections.deque()
-        prev_toks = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
-        recent = torch.zeros((cap, stop_len), dtype=torch.int32, device=dev)
         while sched.has_work():
             if stopped:
                 for seq in list(sched.rows):
@@ -735,14 +906,14 @@ class InferenceEngine:
                 for r in list(plan.prefill) + plan.decode:
                     seq = sched.rows[r]
                     smp.write_row_meta(buf, r, seq.req, seq.n_emitted)
-            if do_stop and st.stops_dev is None:
-                st.stops_dev = _upload(stop_buf, dev)
-            toks_dev, fin_dev, recent, st.pool = tfm.serve_step(
-                self._step_params, st.pool, self._tables(st),
-                _upload(buf, dev), prev_toks, recent, st.stops_dev,
-                self.cfg, sample=do_sample, stop=do_stop)
+            if do_stop and st.stops_dirty:
+                _copy_in(st.slot.stops, stop_buf)
+                st.stops_dirty = False
+            self._sync_tables(st)
+            step = self._serve_graph(st.slot, do_sample, do_stop, w)
+            _copy_in(step.inputs["buf"], buf)
+            toks_dev, fin_dev = step()
             self._count_step(st, plan)
-            prev_toks = toks_dev
             # ---- count-based bookkeeping at dispatch time ---------------
             emits = []
             for r, width in plan.prefill.items():
@@ -772,9 +943,7 @@ class InferenceEngine:
         Sampled rows never draft but sample in the same dispatch. Stops
         are matched on the host with `sampling.match_stop_host`, since
         every token is read back here anyway."""
-        dev = self.device
         m = smp.SAMP_COLS
-        prev_toks = torch.zeros((cap, 1), dtype=torch.int32, device=dev)
         while sched.has_work():
             plan = sched.schedule(budget, spec_k=ctl.spec.k)
             self._admit(st, sched, plan)
@@ -783,7 +952,7 @@ class InferenceEngine:
                 seq = sched.rows[r]
                 if seq.draft_blocks:
                     st.tables[r, :len(seq.block_ids)] = seq.block_ids
-                    st.tables_dev = None
+                    st.tables_dirty = True
             # ---- (cap, W + 4 + SAMP_COLS): the meta gains spec_lens ----
             k_step = ctl.spec.k if plan.spec else 0
             w = _pow2_bucket(max(plan.max_span, k_step + 1))
@@ -805,9 +974,10 @@ class InferenceEngine:
             for r in list(plan.prefill) + plan.decode:
                 seq = sched.rows[r]
                 smp.write_row_meta(buf, r, seq.req, seq.n_emitted)
-            full_toks, n_acc, prev_toks, st.pool = ctl.step(
-                self._step_params, st.pool, self._tables(st),
-                _upload(buf, dev), prev_toks, k_step, sample=do_sample)
+            self._sync_tables(st)
+            step = self._spec_graph(st.slot, ctl, k_step, w, do_sample)
+            _copy_in(step.inputs["buf"], buf)
+            full_toks, n_acc = step()
             self._count_step(st, plan)
             st.spec_rounds += bool(plan.spec)
             # the accept counts decide how far each row advanced
@@ -833,7 +1003,7 @@ class InferenceEngine:
                         # rollback released tail blocks: rewind the table
                         st.tables[r] = 0
                         st.tables[r, :len(seq.block_ids)] = seq.block_ids
-                        st.tables_dev = None
+                        st.tables_dirty = True
                 rid = seq.req.rid
                 got = st.out[rid] + [int(t) for t in toks]
                 keep = smp.match_stop_host(got, seq.req.eos_id,
@@ -845,17 +1015,63 @@ class InferenceEngine:
                     self._finish_row(st, sched, seq)
 
 
+def _held(cache: collections.OrderedDict, key):
+    """The engine-held state of geometry `key`, made the newest, or
+    None."""
+    if key in cache:
+        cache.move_to_end(key)
+    return cache.get(key)
+
+
+def _hold(cache: collections.OrderedDict, key, value) -> None:
+    """Hold `value` for geometry `key`, letting go of the oldest geometry
+    beyond `_HELD_GEOMETRIES` (its tensors and graphs are freed)."""
+    cache[key] = value
+    while len(cache) > _HELD_GEOMETRIES:
+        cache.popitem(last=False)
+
+
+class _ServeSlot:
+    """A serve geometry's device state, held by the engine across calls:
+    the KV pool, the static inputs every step graph of the geometry reads
+    (block tables, `prev`, the `recent` ring, stop sequences) and those
+    graphs, keyed by step kind and shape."""
+
+    def __init__(self, cfg, cap, mb, num_blocks, bs, n_stops, stop_len,
+                 device):
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+
+        self.pool = kvblocks.init_paged_cache(cfg, num_blocks, bs, device)
+        self.tables = zeros(cap, mb)
+        self.prev = zeros(cap, 1)
+        self.recent = zeros(cap, stop_len)
+        self.stops = zeros(cap, n_stops, stop_len)
+        self.graphs: dict = {}
+
+    def reset(self) -> None:
+        """What `kvblocks.init_paged_cache` and a fresh call hold: a zero
+        pool with unit int8 scale planes, zero tables, tokens and ring, no
+        stop sequence."""
+        for name, leaf in self.pool.items():
+            leaf.fill_(1 if name in ("ks", "vs") else 0)
+        for t in (self.tables, self.prev, self.recent):
+            t.zero_()
+        self.stops.fill_(-1)
+
+
 class _ServeState:
     """One serve call's mutable state: the request table, outputs and
-    their timestamps, the block tables and pool, and the counters."""
+    their timestamps, the host block tables (and whether the slot's
+    device copy is stale), the engine-held slot, and the counters."""
 
-    def __init__(self, reqs, tables, pool, on_token):
+    def __init__(self, reqs, tables, slot, on_token):
         n = len(reqs)
         self.reqs = reqs
         self.tables = tables
-        self.tables_dev = None
-        self.stops_dev = None
-        self.pool = pool
+        self.tables_dirty = True
+        self.stops_dirty = True
+        self.slot = slot
         self.on_token = on_token
         self.out: list[list[int]] = [[] for _ in range(n)]
         self.first_t = [None] * n

@@ -19,8 +19,9 @@ Dh), laid out by `build_cache_from_kv` from prefill's K/V: slot i holds
 position i, or, under a sliding window w, slot p mod w the last w
 positions (a rolling cache). `decode_attention` writes one token into it
 and attends over it, in plain PyTorch as the reference computes it in jnp
-outside any kernel; int8 caches hold codes and per-(token, head) fp32
-scales, dequantized in float32 as the reference's and then widened.
+outside any kernel, at a position held on the device; int8 caches hold
+codes and per-(token, head) fp32 scales, dequantized in float32 as the
+reference's and then widened.
 
 `span_attention_paged` scatters each row's span K/V into the pool FIRST,
 then attends over the row's block-table view under the causal mask
@@ -207,40 +208,44 @@ def init_kv_cache(cfg, batch, max_len, *, window=None, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(params, x1, cache, pos: int, cfg, *, window=None):
-    """One-token decode at position `pos` (a host int, the same for every
-    row). x1 (B, 1, D); cache from `build_cache_from_kv` or
-    `init_kv_cache`, updated IN PLACE: the token's K/V go to slot pos mod
-    size under a window (rolling), else min(pos, size - 1). Attention
-    covers the slots that hold positions <= pos (within the window).
-    Returns (y (B, 1, D), cache)."""
+def decode_attention(params, x1, cache, pos, cfg, *, window=None):
+    """One-token decode at position `pos`, the same for every row: a 0-dim
+    int device tensor (the reference's traced position; nothing of it is
+    read on the host, so the step can be captured once and replayed at
+    every position) or a host int, which becomes one. x1 (B, 1, D); cache
+    from `build_cache_from_kv` or `init_kv_cache`, updated IN PLACE: the
+    token's K/V go to slot pos mod size under a window (rolling), else
+    min(pos, size - 1). Attention covers the slots that hold positions
+    <= pos (within the window). Returns (y (B, 1, D), cache)."""
     b = x1.shape[0]
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     size = cache["k"].shape[1]
     dev = x1.device
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.long, device=dev)
+    pos = pos.long()
 
     q = apply_linear(x1, params["wq"]).reshape(b, 1, h, hd)
     k = apply_linear(x1, params["wk"]).reshape(b, 1, hk, hd)
     v = apply_linear(x1, params["wv"]).reshape(b, 1, hk, hd)
     if cfg.pos_emb == "rope":
-        p1 = torch.full((1,), pos, dtype=torch.long, device=dev)
+        p1 = pos.reshape(1)
         q = apply_rope(q, p1, cfg.rope_theta, cfg.rotary_pct)
         k = apply_rope(k, p1, cfg.rope_theta, cfg.rotary_pct)
 
-    slot = pos % size if window else min(pos, size - 1)
+    slot = pos % size if window else torch.clamp(pos, max=size - 1)
+    at = slot.reshape(1)
     if "ks" in cache:
         kq, ks1 = _quant_kv(k)
         vq, vs1 = _quant_kv(v)
-        cache["k"][:, slot] = kq[:, 0]
-        cache["v"][:, slot] = vq[:, 0]
-        cache["ks"][:, slot] = ks1[:, 0]
-        cache["vs"][:, slot] = vs1[:, 0]
+        for name, x in (("k", kq), ("v", vq), ("ks", ks1), ("vs", vs1)):
+            cache[name].index_copy_(1, at, x)
         # the reference's dequantization, in float32, then widened
         ck = cache["k"].to(torch.float32) * cache["ks"]
         cv = cache["v"].to(torch.float32) * cache["vs"]
     else:
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
         ck, cv = cache["k"], cache["v"]
 
     # the position each physical slot holds (rolling-aware)
@@ -251,7 +256,7 @@ def decode_attention(params, x1, cache, pos: int, cfg, *, window=None):
                                idx + (n_wraps - 2) * size)
         valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - size)
     else:
-        valid = idx <= min(pos, size - 1)
+        valid = idx <= slot
 
     qg = _group_q(q.to(torch.float64), hk)
     o = _attend_block(qg, ck.to(torch.float64), cv.to(torch.float64),

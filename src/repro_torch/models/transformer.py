@@ -12,6 +12,7 @@ packages. The forward pass loops over layers in Python.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -90,20 +91,28 @@ def split_layers(params, num_layers: int):
 
 # --------------------------------------------------------------- forward --
 def embed(params, tokens, cfg, pos0=0):
-    """tokens (B, S) int; pos0: the absolute position of tokens[:, 0], an
-    int for the whole batch (rectangular decode) or a (B,) int tensor, one
-    for each row (serving)."""
+    """tokens (B, S) int; pos0: the absolute position of tokens[:, 0], for
+    the whole batch (a host int, or a 0-dim device tensor: rectangular
+    decode) or one for each row (a (B,) int tensor: serving)."""
     dtype = dtype_of(cfg.dtype)
     h = params["embed"][tokens.long()]
-    h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=h.device)
+    h = h * _embed_scale(cfg.d_model, dtype)
     if cfg.pos_emb == "sinusoidal":
         ar = torch.arange(tokens.shape[1], device=h.device)
-        if isinstance(pos0, torch.Tensor) and pos0.ndim:
-            pos = pos0.long()[:, None] + ar          # (B, S)
+        if isinstance(pos0, torch.Tensor):
+            pos = pos0.long()[..., None] + ar   # (B, S), or (S,) for all
         else:
-            pos = int(pos0) + ar                    # (S,), for every row
+            pos = int(pos0) + ar
         h = h + sinusoidal_emb(pos, cfg.d_model, dtype)
     return h
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype) -> float:
+    """d_model ** 0.5 rounded to `dtype`, as a host scalar: a product with
+    it is the product with the one-element tensor of that value, with no
+    copy to the device inside a step."""
+    return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
 def _window_for_layer(cfg, which):
@@ -198,12 +207,16 @@ def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
     return logits_for(params, h[:, last:last + 1], cfg), cache
 
 
-def decode_step(params, cache, tokens, pos: int, cfg):
-    """One decode step for the whole batch at position `pos` (a host int):
-    tokens (B, 1) int; the cache is updated in place. Returns (logits
-    (B, 1, V) f32, cache)."""
+def decode_step(params, cache, tokens, pos, cfg):
+    """One decode step for the whole batch at position `pos`: a 0-dim int
+    device tensor (the reference's traced position, so one captured step
+    serves every position) or a host int, which becomes one. tokens (B, 1)
+    int; the cache is updated in place. Returns (logits (B, 1, V) f32,
+    cache)."""
     _check_dense(cfg)
     window = _window_for_layer(cfg, "global")
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
     h = embed(params, tokens, cfg, pos)
     kv = cache["kv"]
     for i, lp in enumerate(_layer_list(params, cfg)):

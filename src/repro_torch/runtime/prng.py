@@ -16,6 +16,7 @@ functions broadcast over leading dimensions: one call draws a whole
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -77,6 +78,7 @@ def uniform(key: torch.Tensor, minval: float = 0.0) -> torch.Tensor:
     [minval, 1) and floored at minval, each step in float32 as jax does."""
     bits = (random_bits(key) >> 9) | _ONE_F32_BITS
     f = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=key.device) - lo
-    return torch.maximum(lo, f * span + lo)
+    # float32 host scalars: a step copies nothing to the device
+    lo = np.float32(minval)
+    span = np.float32(1.0) - lo
+    return torch.clamp(f * float(span) + float(lo), min=float(lo))

@@ -190,10 +190,10 @@ def speculative_step(params, draft_params, pool, block_tables, step_buf,
         keys = smp.row_keys(meta["seed"], meta["rid"], meta["counter"])
         samp = smp.sample_tokens(logits[:, -1], meta["temperature"],
                                  meta["top_k"], meta["top_p"], keys)
-        srow = (meta["temperature"] > 0.0)[:, None]
+        srow = meta["temperature"] > 0.0
         full_toks = full_toks.clone()
-        full_toks[:, [0, k + 1]] = torch.where(
-            srow, samp[:, None], full_toks[:, [0, k + 1]])
+        for c in (0, k + 1):
+            full_toks[:, c] = torch.where(srow, samp, full_toks[:, c])
 
     # ---- accept: the longest matching draft prefix
     if k:

@@ -554,3 +554,245 @@ def test_generate_launch_counts_on_the_card(cuda):
         if key[0] == "lowrank_qmm":
             bms[key[1]] += c
     assert bms[16] == per_pass * 4 and sum(bms.values()) == per_pass * 5
+
+
+# ---------------------------------------------------------- step graphs --
+def _eager_twin(gpu):
+    """An engine over the same tensors on the card that runs every step
+    eagerly (`cuda_graphs=False`)."""
+    from repro_torch.api.engine import InferenceEngine
+
+    return InferenceEngine(gpu.cfg, gpu.params, device=gpu.device,
+                           plan=gpu.plan, cuda_graphs=False)
+
+
+def _counts():
+    return (dict(build.LAUNCHES), dict(build.LAUNCH_SHAPES),
+            dict(build.LAUNCH_RANKS))
+
+
+def _pool_equal(a, b) -> bool:
+    """Two (L, NB, bs, Hk, *) pool leaves equal in every block but the
+    trash block 0, which every pad slot and idle row of a step writes at
+    once (a scatter with repeated targets keeps any one of the values)
+    and nothing reads."""
+    return torch.equal(a[:, 1:], b[:, 1:])
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_decode_step_replay_equals_eager(cuda, kv_bits):
+    """`decode_step` at a device position as a captured step: each replay's
+    logits and cache bit-equal to the eager step's on a copy of the same
+    cache, and the launch counters after the graph's calls equal those
+    of as many eager steps."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.graphs import StepGraph
+
+    _, gpu = _mixed_engines(cuda, kv_bits)
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        1, gpu.cfg.vocab_size, (3, 16)).astype(np.int32)).to(cuda)
+    with torch.inference_mode():
+        _, cache = tfm.prefill(gpu._step_params, prompts, gpu.cfg,
+                               max_len=24)
+        twin = {"kv": {k: v.clone() for k, v in cache["kv"].items()}}
+
+        def step(cache, tok, pos):
+            logits, _ = tfm.decode_step(gpu._step_params, cache, tok, pos,
+                                        gpu.cfg)
+            tok.copy_(torch.argmax(logits[:, -1], -1)[:, None].int())
+            pos.add_(1)
+            return (logits,)
+
+        ins = {"cache": cache, "tok": prompts[:, -1:].clone(),
+               "pos": torch.full((), 16, dtype=torch.long, device=cuda)}
+        graph = StepGraph(step, ins, capture=True)
+        tok, n = prompts[:, -1:].clone(), 6
+        build.reset_launches()
+        for i in range(n):
+            got, = graph()
+            want, twin = tfm.decode_step(gpu._step_params, twin, tok,
+                                         16 + i, gpu.cfg)
+            tok = torch.argmax(want[:, -1], -1)[:, None].int()
+            assert torch.equal(got, want), i
+            for k, v in twin["kv"].items():
+                assert torch.equal(cache["kv"][k], v), (i, k)
+        torch.cuda.synchronize()
+        assert graph.graph is not None
+        counts = _counts()
+        assert counts[0]["lowrank_qmm"] == 2 * n * 6 * gpu.cfg.num_layers
+        assert counts[0]["quant_matmul"] == 2 * n
+        for c in counts:
+            assert all(v % 2 == 0 for v in c.values())
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_unified_step_replay_equals_eager(cuda, kv_bits):
+    """One serving step over the blocked pool (a prefill chunk of 8 beside
+    two decode rows, W 8) as a captured step: its replay's logits and
+    pool bit-equal to the eager step's on a copy of the pool."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import kvblocks
+    from repro_torch.runtime.graphs import StepGraph
+
+    _, gpu = _mixed_engines(cuda, kv_bits)
+    cfg = gpu.cfg
+    rng = np.random.default_rng(3)
+    pool = kvblocks.init_paged_cache(cfg, 13, 4, cuda)
+    for name, leaf in pool.items():     # a history of random K/V
+        if leaf.dtype == torch.int8:
+            vals = rng.integers(-127, 128, leaf.shape)
+        elif name in ("ks", "vs"):
+            vals = rng.uniform(0.005, 0.02, leaf.shape)
+        else:
+            vals = rng.standard_normal(leaf.shape)
+        leaf.copy_(torch.from_numpy(vals).to(leaf.dtype))
+    twin = {k: v.clone() for k, v in pool.items()}
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 0], [8, 9, 10, 11]],
+                          dtype=torch.int32, device=cuda)
+    ctx = torch.tensor([4, 9, 13], dtype=torch.int32, device=cuda)
+    ql = torch.tensor([8, 1, 1], dtype=torch.int32, device=cuda)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (3, 8)).astype(
+        np.int32)).to(cuda)
+
+    def step(pool, tables, ctx, ql, toks):
+        logits, _ = tfm.unified_step(gpu._step_params, pool, tables, ctx,
+                                     ql, toks, cfg)
+        return (logits,)
+
+    with torch.inference_mode():
+        graph = StepGraph(step, {"pool": pool, "tables": tables, "ctx": ctx,
+                                 "ql": ql, "toks": toks}, capture=True)
+        graph()                             # warm-up and capture
+        for leaf, t in zip(pool.values(), twin.values()):
+            leaf.copy_(t)
+        got, = graph()                      # a replay
+        want, _ = tfm.unified_step(gpu._step_params, twin, tables, ctx, ql,
+                                   toks, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k in pool:      # block 0 is the trash block (see _pool_equal)
+        assert _pool_equal(pool[k], twin[k]), k
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled_stops", "speculative"])
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_captured_serve_equals_eager(cuda, kv_bits, mode):
+    """A serve whose steps replay CUDA graphs against the same serve run
+    eagerly on the card: identical tokens, launch counters and final KV
+    pool; captured twice, the second on the held graphs."""
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.runtime.speculation import DraftSpec
+
+    _, base = _mixed_engines(cuda, kv_bits)
+    spec = DraftSpec(k=3) if mode == "speculative" else None
+    gpu, eager = (InferenceEngine(base.cfg, base.params, device=cuda,
+                                  plan=base.plan, speculate=spec,
+                                  cuda_graphs=graphs)
+                  for graphs in (True, False))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, gpu.cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 17, 23, 9)]
+    sp = SamplingParams(max_tokens=7)
+    if mode == "sampled_stops":
+        sp = SamplingParams(max_tokens=7, temperature=0.8, top_k=20,
+                            top_p=0.9, seed=7, eos_id=11, stop=((5, 6),))
+    runs = []
+    for eng in (eager, gpu, gpu):
+        build.reset_launches()
+        res = eng.serve(prompts, sp)
+        torch.cuda.synchronize()
+        slot = next(reversed(eng._serve_slots.values()))
+        runs.append((res, _counts(), {k: v.clone()
+                                      for k, v in slot.pool.items()}))
+    (want, wcounts, wpool) = runs[0]
+    assert eager.graph_stats()["graphs"] == 0
+    assert gpu.graph_stats()["graphs"] > 0
+    for res, counts, pool in runs[1:]:
+        for a, b in zip(res.outputs, want.outputs):
+            np.testing.assert_array_equal(a, b)
+        assert counts == wcounts
+        for k in pool:
+            assert _pool_equal(pool[k], wpool[k]), k
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_generate_equals_eager(cuda, temperature):
+    """generate's decode steps replayed against the eager loop on the
+    card: identical tokens and launch counters, twice."""
+    from repro_torch.api.engine import SamplingParams
+
+    _, gpu = _mixed_engines(cuda, 8)
+    eager = _eager_twin(gpu)
+    prompts = np.random.default_rng(5).integers(
+        1, gpu.cfg.vocab_size, (4, 13)).astype(np.int32)
+    sp = SamplingParams(max_tokens=9, temperature=temperature, top_k=20,
+                        top_p=0.9, seed=7)
+    runs = []
+    for eng in (eager, gpu, gpu):
+        build.reset_launches()
+        toks = eng.generate(prompts, sp).tokens
+        torch.cuda.synchronize()
+        runs.append((toks, _counts()))
+    assert gpu.graph_stats()["graphs"] == 1
+    for toks, counts in runs[1:]:
+        np.testing.assert_array_equal(toks, runs[0][0])
+        assert counts == runs[0][1]
+
+
+def test_capturing_a_step_that_syncs_with_the_host_raises(cuda, tmp_path):
+    """A step that reads a value back to the host (`.item()`) runs in its
+    warm-up and makes the capture raise; nothing falls back to eager. In
+    its own interpreter: a failed capture leaves that process's CUDA state
+    unusable."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    code = (
+        "import torch\n"
+        "from repro_torch.runtime.graphs import StepGraph\n"
+        "x = torch.arange(4, device='cuda')\n"
+        "calls = []\n"
+        "def step(x):\n"
+        "    calls.append(int(x.sum().item()))\n"
+        "    return (x + 1,)\n"
+        "g = StepGraph(step, {'x': x}, capture=True)\n"
+        "try:\n"
+        "    g()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', calls, g.graph is None, str(e).splitlines()[0])\n"
+        "else:\n"
+        "    print('captured')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(src)})
+    assert r.stdout.startswith("raised [6] True"), r.stdout + r.stderr
+
+
+def test_capture_survives_a_dropped_engine(cuda):
+    """An engine dropped with captured graphs (its steps' closures hold
+    it in a reference cycle, so only the garbage collector frees them)
+    does not break the next engine's capture, even with the collector
+    set to run at nearly every allocation: freeing a graph during a
+    capture would invalidate it."""
+    import gc
+
+    from repro_torch.api.engine import SamplingParams
+
+    prompts = np.ones((2, 9), np.int32)
+    sp = SamplingParams(max_tokens=3)
+    _, first = _mixed_engines(cuda, 16)
+    first.generate(prompts, sp)
+    assert first.graph_stats()["graphs"] == 1
+    del first
+    _, second = _mixed_engines(cuda, 16)
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        second.generate(prompts, sp)
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert second.graph_stats()["graphs"] == 1
