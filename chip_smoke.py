@@ -21,9 +21,15 @@ fails:
    the lm head as a cascade at decode (M 8) and in the calibration
    forward (M 2048), and the svd plan's verify pass (M 64, the lm head
    at M 48); with the rectangular phase's prefill (M 1024, both plans'
-   layer linears) -- timed beside its plain version, a PyTorch library
-   yardstick and the least time the card could take (its bound), with a
-   warning line wherever the kernel is slower than its plain version.
+   layer linears); with the dse phase's batch of 512 rows -- timed beside
+   its plain version, a PyTorch library yardstick and the least time the
+   card could take (its bound), with a warning line wherever the kernel
+   is slower than its plain version; each linear launch also replayed
+   back to back in a CUDA graph, and, at the dse phase's batches, its
+   layer timed through `ops` (the activations' quantization included; a
+   low-rank layer on the cascade and on the single engine); the single
+   engine, `ops.lrmm(fused=False)`, must give the plain version's bits
+   too.
    Every later path checks that each of its lowrank_qmm launches took a
    code path (tile rows, K, R, N, packing) that this phase compared;
 3. engine: opus-mt at full width, compressed by the port with a mixed plan
@@ -60,6 +66,20 @@ fails:
    rank checked against the allocations it evaluated) and a greedy serve
    of its allocation, and of its last move when it kept equal ranks,
    with each plan's launches a step by rank checked;
+   dse: the paper's hardware-aware design space exploration on the
+   compression phase's shaped weights: seven candidate plans (quant-only
+   and ITERA at W8 / W6 / W4, ITERA W4 also at rank fraction 0.375, each
+   with a W8A8 lm head) compressed on the card and scored by calibration
+   agreement; `co_design(platform="h100")` at batch_m 8 and 512, each
+   front printed; every distinct launch of the candidates beside the H100
+   model's prediction, read from phase 2's rows (the graph replay the
+   yardstick, the timer beside it), its priced partition the one the
+   wrapper launches and the shared-memory mirrors equal to the
+   libraries'; LAUNCH_S, the rank correlation of predicted and measured
+   linear latency and fig11's ITERA-vs-quant reduction; each front's
+   best and fastest point and the ITERA front's best sent through
+   from_design_point -> JSON -> InferenceEngine.build and served
+   captured, launches by kernel, rank and (K, N) checked;
    rectangular: `InferenceEngine.generate` on 8 Markov-task prompts of
    128 tokens, 32 tokens a row: one prefill (every layer linear at M
    1024, the lm head at the last position only), then lockstep decode
@@ -83,8 +103,8 @@ fails:
    and one serve and one generate of each under torch.profiler;
 4. parity: the compressed weights of the phase-3 plans, of the svd plan
    and of the SRA plans (each compressed once on the card), copied to the
-   CPU, serve 4 short requests there (the kernels' plain versions) and on
-   the card; the greedy tokens must be identical, and so must the mixed
+   CPU, and the dse phase's deployed plans, serve 4 short requests there
+   (the kernels' plain versions) and on the card; the greedy tokens must be identical, and so must the mixed
    plan's seeded sampled and speculative tokens; the phase-3 plans also
    generate from 4 prompts of 29 tokens (bucket 32) on both, greedy at
    kv 16 and 8 and, for the mixed plan, sampled: identical tokens.
@@ -105,13 +125,6 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# NVIDIA H100 SXM data sheet peaks (dense), at the 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-# paged attention is fp32 attention; its bound takes the fp32 rate outside
-# the tensor cores (the kernel's float64 arithmetic is a cost above it)
-FP32_FLOPS_PER_S = 67e12
 
 TOL_ATTN = 1e-5          # attention: fp32 inputs, sums in another order
 REPS = 20
@@ -147,8 +160,11 @@ def end_phase(name: str, failures: list) -> None:
 
 def bound(nbytes: float, ops: float, ops_rate: float):
     """(least ms, what bounds it) for moving `nbytes` through device memory
-    and doing `ops` operations at `ops_rate` per second."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    and doing `ops` operations at `ops_rate` per second (the card's peaks:
+    `repro_torch.hw.h100_model`, NVIDIA's H100 SXM data sheet at 700 W)."""
+    from repro_torch.hw.h100_model import HBM_BW
+
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = ops / ops_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -156,7 +172,7 @@ def bound(nbytes: float, ops: float, ops_rate: float):
 class Timer:
     """Mean device time of a call, from CUDA events around each launch.
 
-    The 50 MB L2 cache is flushed before each launch (the serving path
+    The L2 cache is flushed before each launch (the serving path
     streams other layers' weights between two calls of one kernel). The
     card is first held busy (`torch.cuda._sleep`) while the host queues
     every launch, so the events time the device alone and not the
@@ -165,8 +181,11 @@ class Timer:
     one."""
 
     def __init__(self, torch):
+        from repro_torch.hw.h100_model import L2_BYTES
+
         self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(3 * int(L2_BYTES), dtype=torch.uint8,
+                                 device="cuda")
         self.hold_cycles = 50_000_000
 
     def __call__(self, fn, reps: int = REPS) -> float:
@@ -193,6 +212,40 @@ class Timer:
             self.hold_cycles *= 4
 
 
+GRAPH_LAUNCHES = 200     # launches of one kernel in a graph_ms graph
+
+
+def graph_ms(torch, fn, n: int = GRAPH_LAUNCHES) -> float:
+    """Device time of one call of `fn` replayed back to back with itself:
+    `n` calls captured in one CUDA graph, the median of 5 replays, per
+    call (as a captured serve step runs its launches; no L2 flush)."""
+    import gc
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    gc.disable()            # no other graph may be freed during a capture
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+    finally:
+        gc.enable()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / n)
+    return sorted(per)[2]
+
+
 # ------------------------------------------------------------- phase 2 --
 
 def int_mm(torch, a, b):
@@ -216,23 +269,26 @@ def library_ms(timer, fn):
 
 def check_quant_matmul(torch, timer, failures):
     from repro_torch.core.quant import QuantizedTensor, pack_int4, unpack_int4
-    from repro_torch.kernels.ops import qmm_hbm_bytes
+    from repro_torch.hw.h100_model import PEAK_OPS_INT8
+    from repro_torch.kernels.ops import qmm, qmm_hbm_bytes
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_plain)
 
     g = torch.Generator(device="cuda").manual_seed(1)
     rows, worst = [], 0.0
     print("  quant_matmul: M K N packed | kernel_ms plain_ms library_ms "
-          "bound_us (bound by)")
+          "bound_us (bound by) | graph_us [ops_us at the dse batches]")
+    layer = ((512, 512), (512, 2048), (2048, 512))
     cases = [(packed, m, k, n) for packed in (False, True)
-             for m in (8, 256, 2048)
-             for k, n in ((512, 512), (512, 2048), (2048, 512),
-                          (512, 32000))]
+             for m in (8, 256, 2048) for k, n in layer + ((512, 32000),)]
     # the speculative verify's lm head: k + 2 = 6 positions of 8 rows
     cases.append((False, 48, 512, 32000))
     # the quant-only plan's rectangular prefill: 8 prompts x a 128 bucket
-    cases += [(True, 1024, k, n) for k, n in ((512, 512), (512, 2048),
-                                               (2048, 512))]
+    cases += [(True, 1024, k, n) for k, n in layer]
+    # the dse phase's batch_m 512: W4 packed, W8 / W6 carriers, W8 lm head
+    cases += [(packed, 512, k, n) for packed in (False, True)
+              for k, n in layer]
+    cases.append((False, 512, 512, 32000))
     for packed, m, k, n in cases:
         qm = 7 if packed else 127
         xq = torch.randint(-127, 128, (m, k), generator=g,
@@ -257,15 +313,23 @@ def check_quant_matmul(torch, timer, failures):
                                                w_packed=packed))
         t_l = library_ms(timer, lambda: int_mm(torch, xq, wc).float()
                          * sx * sw)
-        nbytes = qmm_hbm_bytes(m, QuantizedTensor(
-            wq, sw, 4 if packed else 8, 0, packed=packed))
-        b_ms, b_by = bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+        node = QuantizedTensor(wq, sw, 4 if packed else 8, 0, packed=packed)
+        nbytes = qmm_hbm_bytes(m, node)
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, PEAK_OPS_INT8)
+        t_g = graph_ms(torch, lambda: quant_matmul(xq, sx, wq, sw,
+                                                   w_packed=packed))
+        ops_ms = {}
+        if m in DSE_BATCHES:    # the dse phase's engine comparison
+            x = torch.randn((m, k), generator=g, device="cuda")
+            ops_ms["baseline"] = timer(lambda: qmm(x, node))
         print(f"    {m:5d} {k:4d} {n:5d} {packed!s:5} | {t_k:.4f} "
               f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
-              f"{b_ms * 1e3:.4f} ({b_by})")
+              f"{b_ms * 1e3:.4f} ({b_by}) | {t_g * 1e3:.2f} "
+              + " ".join(f"{v * 1e3:.2f}" for v in ops_ms.values()))
         rows.append(dict(m=m, k=k, n=n, packed=packed, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         bound_by=b_by))
+                         bound_by=b_by, graph_ms=t_g, ops_ms=ops_ms))
+        TIMED["quant_matmul", m, k, n, packed] = rows[-1]
     slower_than_plain("quant_matmul", rows, ("m", "k", "n", "packed"))
     # the serving path's call: the W8 lm head, one row per batch slot
     main = next(r for r in rows if (r["m"], r["n"], r["packed"]) ==
@@ -277,15 +341,17 @@ def check_lowrank_qmm(torch, timer, failures):
     from repro_torch.core.itera import LowRankQ
     from repro_torch.core.quant import (QuantizedTensor, pack_int4, packable,
                                         qmax)
+    from repro_torch.hw.h100_model import PEAK_OPS_INT8
     from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
                                                  lowrank_qmm_plain)
-    from repro_torch.kernels.ops import lrmm_hbm_bytes, quantize_acts
+    from repro_torch.kernels.ops import lrmm, lrmm_hbm_bytes, quantize_acts
     from repro_torch.kernels.ref import requant_rows
 
     g = torch.Generator(device="cuda").manual_seed(2)
     rows, worst = [], 0.0
     print("  lowrank_qmm: M K R N WxAy | kernel_ms plain_ms library_ms "
-          "bound_us (bound by)")
+          "bound_us (bound by) | graph_us [ops_us at the dse batches, "
+          "A8: cascade single]")
     layer = ((512, 512), (512, 2048), (2048, 512))   # a layer's (K, N)
     head = (512, 32000)                              # the lm head's
     cases = [(4, act_wl, m, k, 256, n) for act_wl in (8, 4)
@@ -299,6 +365,12 @@ def check_lowrank_qmm(torch, timer, failures):
     cases += [(4, 8, 64, k, 256, n) for k, n in layer]
     # the rectangular path's prefill: 8 prompts x a 128-token bucket
     cases += [(4, 8, 1024, k, 256, n) for k, n in layer]
+    # the dse phase's batch_m 512 (the paper's batch; also its calibration
+    # forward and a deployed prefill): ITERA W4 at rank fraction 0.375 and
+    # 0.5, W8 (and W6, which launches alike on int8 carriers) at 0.5
+    cases += [(wl, 8, 512, k, r, n) for wl, r in ((4, 192), (4, 256),
+                                                  (8, 256))
+              for k, n in layer]
     # the compression phase, unpacked W8 factors everywhere: at decode the
     # svd plan's R 384 (2 of 8 CTAs without rank columns), its draft's R
     # 192 and the SRA plans' 192 / 256 / 320, every linear and the lm
@@ -355,19 +427,34 @@ def check_lowrank_qmm(torch, timer, failures):
             tq, st = requant_rows(t, qmax(act_wl))
             return int_mm(torch, tq, w2c).float() * st
 
+        # the layer through ops: the cascade, and the single engine (two
+        # quant_matmul launches, T through device memory), same bits
+        node = LowRankQ(
+            QuantizedTensor(w1, s1, wl, 0, packed=w1p, act_wl=act_wl),
+            QuantizedTensor(w2, s2, wl, 1, packed=w2p, act_wl=act_wl))
+        single = lrmm(x, node, fused=False)
+        torch.cuda.synchronize()
+        check(failures, torch.equal(single, ref),
+              f"ops.lrmm(fused=False) M={m} K={k} R={r} N={n} W{wl}A{act_wl} "
+              f"differs from plain")
         t_k = timer(lambda: lowrank_qmm(*args, **kw))
         t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
         t_l = library_ms(timer, chain)
-        nbytes = lrmm_hbm_bytes(m, LowRankQ(
-            QuantizedTensor(w1, s1, wl, 0, packed=w1p),
-            QuantizedTensor(w2, s2, wl, 1, packed=w2p)))
-        b_ms, b_by = bound(nbytes, 2 * m * r * (k + n), INT8_OPS_PER_S)
+        t_g = graph_ms(torch, lambda: lowrank_qmm(*args, **kw))
+        ops_ms = {}
+        if m in DSE_BATCHES and act_wl == 8:    # the dse phase's engines
+            ops_ms = {"cascade": timer(lambda: lrmm(x, node)),
+                      "single": timer(lambda: lrmm(x, node, fused=False))}
+        nbytes = lrmm_hbm_bytes(m, node)
+        b_ms, b_by = bound(nbytes, 2 * m * r * (k + n), PEAK_OPS_INT8)
         print(f"    {m:5d} {k:4d} {r:3d} {n:5d} W{wl}A{act_wl} | {t_k:.4f} "
               f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
-              f"{b_ms * 1e3:.4f} ({b_by})")
+              f"{b_ms * 1e3:.4f} ({b_by}) | {t_g * 1e3:.2f} "
+              + " ".join(f"{v * 1e3:.2f}" for v in ops_ms.values()))
         rows.append(dict(m=m, k=k, r=r, n=n, wl=wl, act_wl=act_wl, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                         bound_by=b_by))
+                         bound_by=b_by, graph_ms=t_g, ops_ms=ops_ms))
+        TIMED["lowrank_qmm", m, k, r, n, wl, act_wl] = rows[-1]
     slower_than_plain("lowrank_qmm", rows, ("m", "k", "r", "n", "wl",
                                              "act_wl"))
     # the serving path's most frequent call: a decode step's attention
@@ -393,6 +480,10 @@ def slower_than_plain(name, rows, keys) -> None:
 # version, as (bm, K, R, N, w1_packed, w2_packed): the keys of its
 # launches in build.LAUNCH_SHAPES
 COMPARED: set = set()
+# phase 2's rows by case, read by the dse phase:
+# ("quant_matmul", M, K, N, packed), ("lowrank_qmm", M, K, R, N, wl, act_wl)
+TIMED: dict = {}
+DSE_BATCHES = (8, 512)   # co_design's batch_m: serve's decode rows, fig11's
 
 
 def check_compared(failures, label) -> None:
@@ -465,6 +556,7 @@ def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
 
 
 def check_paged_attention(torch, timer, failures):
+    from repro_torch.hw.h100_model import PEAK_FLOPS_FP32
     from repro_torch.kernels.paged_attention import (attention_flops,
                                                      paged_attention,
                                                      span_attend_gather,
@@ -530,7 +622,7 @@ def check_paged_attention(torch, timer, failures):
                                       kv_bits=8 if kv_bits == 8 else 32,
                                       n_q_heads=h)
             b_ms, b_by = bound(nbytes, attention_flops(ctx, ql, h, dh),
-                               FP32_FLOPS_PER_S)
+                               PEAK_FLOPS_FP32)
             print(f"    {w:3d} kv{kv_bits} | {t_k:.4f} {t_p:.4f} "
                   f"{t_l if t_l is None else round(t_l, 4)} {b_ms * 1e3:.4f} "
                   f"({b_by}) {err:.2e}")
@@ -935,11 +1027,29 @@ def ranks_per_step(cfg, plan) -> dict:
     return dict(per)
 
 
+def quant_per_step(cfg, plan, params) -> dict:
+    """quant_matmul launches of one forward pass under `plan`, by (K, N):
+    one per layer for each quantized stacked leaf, one for each other."""
+    from repro_torch.core.compress import param_leaves_by_path
+
+    leaves = param_leaves_by_path(params)
+    per = collections.Counter()
+    for lp in plan.layers:
+        if lp.method == "quant":
+            k, n = (int(d) for d in leaves[lp.path].shape[-2:])
+            per[k, n] += (cfg.num_layers if lp.path.startswith("layers/")
+                          else 1)
+    return dict(per)
+
+
 def check_plan_launches(failures, label, res, counts, ranks, per_rank,
-                        n_layers):
-    """Every linear of the plan on `lowrank_qmm`, `per_rank` launches a
-    step at each rank, one attention launch a layer, no `quant_matmul`,
-    and every cascade on a code path phase 2 compared."""
+                        n_layers, per_shape=None):
+    """Every low-rank linear of the plan on `lowrank_qmm`, `per_rank`
+    launches a step at each rank; every quantized one on `quant_matmul`,
+    `per_shape` launches a step by (K, N) (none by default); one attention
+    launch a layer; every cascade on a code path phase 2 compared."""
+    from repro_torch.kernels import build
+
     per_step = sum(per_rank.values())
     check(failures, counts.get("lowrank_qmm", 0) == per_step * res.steps,
           f"{label}: {counts.get('lowrank_qmm', 0)} lowrank_qmm launches, "
@@ -950,8 +1060,13 @@ def check_plan_launches(failures, label, res, counts, ranks, per_rank,
     check(failures, counts.get("paged_attention", 0) == n_layers * res.steps,
           f"{label}: {counts.get('paged_attention', 0)} paged_attention "
           f"launches, expected {n_layers} a step")
-    check(failures, counts.get("quant_matmul", 0) == 0,
-          f"{label}: quant_matmul launched")
+    shapes = {key[1:]: c for key, c in build.LAUNCH_SHAPES.items()
+              if key[0] == "quant_matmul"}
+    want = {kn: c * res.steps for kn, c in (per_shape or {}).items()}
+    check(failures, shapes == want
+          and counts.get("quant_matmul", 0) == sum(want.values()),
+          f"{label}: quant_matmul launches by (K, N) {shapes}, expected "
+          f"{per_shape or {}} a step x {res.steps} steps")
     check_compared(failures, label)
 
 
@@ -968,7 +1083,8 @@ def compression_phase(torch, cfg, reqs, failures):
     allocations it evaluated) and a greedy serve of its allocation -- and
     of its last move when it kept equal ranks, so unequal ranks run on the
     card too. Returns ({label: engine} for parity, {path: launches} of the
-    kernel runs)."""
+    kernel runs, and (the shaped weights, the calibration's quality
+    function of a compressed tree) for the dse phase)."""
     import numpy as np
 
     from repro_torch.api.engine import InferenceEngine, SamplingParams
@@ -1139,7 +1255,327 @@ def compression_phase(torch, cfg, reqs, failures):
                             dict(build.LAUNCH_RANKS), per_rank,
                             cfg.num_layers)
         engines[label] = e
-    return engines, launches
+    return engines, launches, (shaped, quality)
+
+
+
+
+def dse_candidates(params):
+    """The dse phase's candidate plans, each with the mixed plan's W8A8 lm
+    head: quant-only W8, W6 and W4; ITERA W8, W6 and W4 at rank fraction
+    0.5 (R 256) and W4 at 0.375 (R 192). meta["engines_allowed"] names the
+    engine each serves on, so the model prices the deployed launches."""
+    from repro_torch.api.plan import CompressionPlan, LayerPlan, merge_plans
+
+    head = [LayerPlan("lm_head", "quant", 8)]
+    out = []
+    for method, wl, frac in ([("quant", wl, 0.5) for wl in (8, 6, 4)]
+                             + [("itera", wl, 0.5) for wl in (8, 6, 4)]
+                             + [("itera", 4, 0.375)]):
+        base = CompressionPlan.uniform(params, method=method, weight_wl=wl,
+                                       rank_fraction=frac,
+                                       exclude=r"(embed|norm|ln|lm_head)")
+        rank = f"_r{frac:g}" if method == "itera" else ""
+        out.append(merge_plans(base, head).replace(
+            label=f"{method}_W{wl}A8{rank}+lm_head_W8A8",
+            meta={"engines_allowed": ["cascade" if method == "itera"
+                                      else "baseline"]}))
+    return out
+
+
+def spearman(a, b) -> float:
+    """Rank correlation of two sequences (tied values share their mean
+    rank)."""
+    import numpy as np
+
+    def ranks(x):
+        x = np.asarray(x, dtype=float)
+        r = np.empty(len(x))
+        r[np.argsort(x, kind="stable")] = np.arange(len(x))
+        for v in np.unique(x):
+            r[x == v] = r[x == v].mean()
+        return r
+
+    return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
+
+
+def _launch_keys(shapes, m):
+    """{phase 2's row key: (engine, wl)} of the launches a plan's layers
+    make at M rows, A8: a quantized layer on quant_matmul (packed where
+    `packs` says), a low-rank one on lowrank_qmm (W4, or the W8 row for
+    W6 and W8, which launch alike on int8 carriers)."""
+    from repro_torch.core.quant import packs
+
+    keys = {}
+    for l in shapes:
+        if l.rank is None:
+            keys["quant_matmul", m, l.k, l.n, packs(l.wl, l.n)] = (
+                "baseline", l.wl)
+        else:
+            keys["lowrank_qmm", m, l.k, l.rank, l.n, 4 if l.wl == 4 else 8,
+                 8] = ("cascade", l.wl)
+    return keys
+
+
+def model_row(key, engine, wl, failures) -> dict:
+    """The H100 model beside phase 2's row `key`: its prediction with
+    LAUNCH_S and with none (and the single engine's, for a low-rank
+    layer), and the gates that the model priced the partition the
+    wrapper launches (the choosers at the library's shared-memory layout
+    and the card's SMs; for lowrank_qmm, a tile-row count phase 2's
+    launches took) and that each Python `smem_bytes` mirror equals the
+    library's there."""
+    from repro_torch.core.quant import packs
+    from repro_torch.hw import h100_model as hm
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lowrank_qmm as lr
+    from repro_torch.kernels import quant_matmul as qm
+
+    sms = build.sm_count(0)
+    qlib = build.load("quant_matmul", qm._SIGNATURES)
+    m, k = key[1:3]
+    row = dict(TIMED[key])
+    if engine == "baseline":
+        n, packed = key[3:5]
+        point = hm.dense_engine(m, k, n, weight_wl=wl)
+        row["pred0"] = hm.dense_engine(m, k, n, weight_wl=wl,
+                                       launch_s=0.0).latency_s
+        t = qm.choose_tiles(m, k, n, packed, sms, qlib.qmm_smem_bytes)
+        used, priced = [t._asdict()], [point.config["tiles"]]
+        mirror = [(qm.smem_bytes, qlib.qmm_smem_bytes,
+                   (*t[:3], int(packed), t.cluster, t.kslice))]
+    else:
+        r, n = key[3:5]
+        w1p, w2p = packs(wl, r), packs(wl, n)
+        point = hm.cascade_engine(m, k, n, r, weight_wl=wl)
+        row["pred0"] = hm.cascade_engine(m, k, n, r, weight_wl=wl,
+                                         launch_s=0.0).latency_s
+        sp = hm.single_engine(m, k, n, r, weight_wl=wl)
+        row["single"] = (sp.latency_s, hm.single_engine(
+            m, k, n, r, weight_wl=wl, launch_s=0.0).latency_s)
+        lib = build.load("lowrank_qmm", lr._SIGNATURES)
+        t = lr.choose_tiles(m, r, n, sms, lib.lrmm_smem_bytes)
+        check(failures, (t.bm, k, r, n, w1p, w2p) in COMPARED,
+              f"dse: {key}: phase 2 launched no bm {t.bm} partition")
+        t1 = qm.choose_tiles(m, k, r, w1p, sms, qlib.qmm_smem_bytes)
+        t2 = qm.choose_tiles(m, r, n, w2p, sms, qlib.qmm_smem_bytes)
+        used = [t._asdict(), t1._asdict(), t2._asdict()]
+        priced = [point.config["tiles"], *sp.config["tiles"]]
+        mirror = [(lr.smem_bytes, lib.lrmm_smem_bytes, tuple(t))] + [
+            (qm.smem_bytes, qlib.qmm_smem_bytes,
+             (*tt[:3], int(p), tt.cluster, tt.kslice))
+            for tt, p in ((t1, w1p), (t2, w2p))]
+    check(failures, priced == used, f"dse: the model priced {priced} for "
+          f"{key}, the launches use {used}")
+    for py, c, a in mirror:
+        check(failures, py(*a) == c(*a), f"dse: smem_bytes{a} is {py(*a)} "
+              f"in Python, {c(*a)} in the library")
+    row["pred"] = point.latency_s
+    return row
+
+
+def dse_phase(torch, cfg, reqs, shaped, quality, failures):
+    """The paper's §VII loop on the card, on the compression phase's shaped
+    weights: `dse_candidates` compressed on the card, each scored by the
+    calibration's greedy agreement with the uncompressed model (ratio and
+    NOps into its meta); `co_design(platform="h100")` at each of
+    DSE_BATCHES, its front printed; every distinct launch of the
+    candidates' layers at those batches beside the model (`model_row`:
+    phase 2's row, which compared it with its plain version and timed it;
+    its partition the one priced, the shared-memory mirrors the
+    library's), LAUNCH_S measured, the rank correlation of predicted and
+    measured linear latency over the candidates and fig11's reduction of
+    ITERA against each quant-only plan, measured as the sum of the
+    layers' graph-replayed launches; then each front's highest-quality and fastest point, and that of
+    the ITERA plans' own front at the first batch, deployed:
+    from_design_point -> JSON -> load -> InferenceEngine.build, the 16
+    requests served captured with launches a step by kernel, rank and
+    (K, N) checked. Returns ({label: engine} for parity, {path: launches}
+    of the deployed serves)."""
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.api.plan import CompressionPlan
+    from repro_torch.core.compress import compress_params
+    from repro_torch.hw import dse
+    from repro_torch.hw import h100_model as hm
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    cands = dse_candidates(shaped)
+    qual = {}
+    build.reset_launches()          # the candidates' calibration starts
+    for plan in cands:
+        t0 = time.perf_counter()
+        cp, rep = compress_params(shaped, plan)
+        plan.meta.update(ratio=rep.compression_ratio,
+                         nops=float(rep.nops_per_row))
+        qual[plan.label] = quality(cp)
+        del cp
+        print(f"[dse] {plan.label}: agreement {qual[plan.label]:.5f}, ratio "
+              f"{rep.compression_ratio:.3f}x, NOps "
+              f"{rep.nops_per_row / 1e6:.3f}M/row (compressed and scored "
+              f"in {time.perf_counter() - t0:.1f} s)")
+    check_compared(failures, "dse calibration")
+    shapes = {p.label: dse.layer_shapes_from_plan(p, shaped) for p in cands}
+    fronts = {}
+    for bm in DSE_BATCHES:
+        front = dse.co_design(cands, lambda p: qual[p.label],
+                              lambda p: shapes[p.label], batch_m=bm,
+                              platform="h100")
+        print(f"[dse] Pareto front at batch_m {bm} (H100 model, LAUNCH_S "
+              f"{hm.LAUNCH_S * 1e6:.2f} us):")
+        for dp in front:
+            print(f"  {dp.label}: agreement {dp.quality:.5f}, predicted "
+                  f"{dp.latency * 1e6:.2f} us, ratio "
+                  f"{dp.compression_ratio:.3f}x")
+        check(failures, bool(front), f"dse: empty front at batch_m {bm}")
+        check(failures, all(dp.plan is not None for dp in front),
+              f"dse: a point of the batch_m {bm} front has no plan")
+        fronts[bm] = front
+
+    # the model against the card: phase 2's rows, the graph replay the
+    # yardstick (a captured serve runs its launches so, and LAUNCH_S is
+    # taken from it), the timer's L2-flushed launch beside it
+    per_launch = TIMED["quant_matmul", 8, 512, 512, True]["graph_ms"] * 1e-3
+    launch_s = per_launch - hm.dense_engine(8, 512, 512, weight_wl=4,
+                                            launch_s=0.0).latency_s
+    print(f"[dse] LAUNCH_S measured {launch_s * 1e6:.3f} us (quant_matmul M "
+          f"8 K 512 -> N 512 packed, {per_launch * 1e6:.3f} us a launch in "
+          f"a graph of {GRAPH_LAUNCHES}, less its modeled max(compute, "
+          f"memory)); the model's constant {hm.LAUNCH_S * 1e6:.3f} us")
+    rows = {}
+    print("[dse] launch | predicted us (LAUNCH_S 0) | measured us: graph, "
+          "timer | predicted/measured: graph, timer")
+    for bm in DSE_BATCHES:
+        keys = {}
+        for p in cands:
+            keys.update(_launch_keys(shapes[p.label], bm))
+        for key, (engine, wl) in sorted(keys.items(), key=str):
+            check(failures, key in TIMED, f"dse: phase 2 did not compare "
+                  f"and time {key}")
+            if key not in TIMED:
+                continue
+            row = rows[key] = model_row(key, engine, wl, failures)
+            print(f"  {key} | {row['pred'] * 1e6:.2f} "
+                  f"({row['pred0'] * 1e6:.2f}) | {row['graph_ms'] * 1e3:.2f}"
+                  f", {row['ms'] * 1e3:.2f} | "
+                  f"{row['pred'] / (row['graph_ms'] * 1e-3):.3f}, "
+                  f"{row['pred'] / (row['ms'] * 1e-3):.3f}")
+            if "single" in row:
+                print(f"  single engine at {key[1:5]} | "
+                      f"{row['single'][0] * 1e6:.2f} "
+                      f"({row['single'][1] * 1e6:.2f}) | through ops "
+                      f"{row['ops_ms']['single'] * 1e3:.2f}")
+    if not all(k in rows for bm in DSE_BATCHES for p in cands
+               for k in _launch_keys(shapes[p.label], bm)):
+        return {}, {}
+    # each low-rank layer shape: the model's engine against the card's
+    print("[dse] engine choice: layer | model's (all three engines) vs the "
+          "card's fastest through ops (us: baseline / single / cascade)")
+    seen = set()
+    for p in cands:
+        for l in shapes[p.label]:
+            for bm in DSE_BATCHES:
+                if l.rank is None or (bm, l.k, l.n, l.rank, l.wl) in seen:
+                    continue
+                seen.add((bm, l.k, l.n, l.rank, l.wl))
+                (ck, _), = _launch_keys([l], bm).items()
+                (bk, _), = _launch_keys(
+                    [dataclasses.replace(l, rank=None)], bm).items()
+                meas = {**TIMED[bk]["ops_ms"], **TIMED[ck]["ops_ms"]}
+                model = hm.best_point(bm, l.k, l.n, l.rank, weight_wl=l.wl)
+                print(f"  M {bm} K {l.k} N {l.n} R {l.rank} W{l.wl}: model "
+                      f"{model.kind}, card {min(meas, key=meas.get)} ("
+                      + " / ".join(f"{meas[e] * 1e3:.2f}" for e in
+                                   ("baseline", "single", "cascade"))
+                      + ")")
+    # whole plans: predicted and measured linear latency, the sum over
+    # the plan's layers of their launches' graph (and timer) times
+    for bm in DSE_BATCHES:
+        pred, pred0, graph, timed = {}, {}, {}, {}
+        for p in cands:
+            ks = [next(iter(_launch_keys([l], bm))) for l in shapes[p.label]]
+            pred[p.label] = sum(rows[k]["pred"] for k in ks)
+            pred0[p.label] = sum(rows[k]["pred0"] for k in ks)
+            graph[p.label] = sum(rows[k]["graph_ms"] * 1e-3 for k in ks)
+            timed[p.label] = sum(rows[k]["ms"] * 1e-3 for k in ks)
+            priced, _ = dse.total_latency_h100(
+                shapes[p.label], bm,
+                engines=tuple(p.meta["engines_allowed"]))
+            check(failures, abs(priced - pred[p.label]) <= 1e-9 * priced,
+                  f"dse: {p.label} priced {priced} by co_design, "
+                  f"{pred[p.label]} by its launches")
+        labels = [p.label for p in cands]
+        print(f"[dse] batch_m {bm}: plan | agreement, predicted us "
+              f"(LAUNCH_S 0), measured us (its layers' launches summed: "
+              f"graph, timer)")
+        for lb in labels:
+            print(f"  {lb}: {qual[lb]:.5f}, {pred[lb] * 1e6:.1f} "
+                  f"({pred0[lb] * 1e6:.1f}), {graph[lb] * 1e6:.1f}, "
+                  f"{timed[lb] * 1e6:.1f}")
+
+        def rho(a, b):
+            return spearman([a[x] for x in labels], [b[x] for x in labels])
+
+        print(f"[dse] batch_m {bm}: rank correlation over the {len(labels)} "
+              f"candidates, predicted vs measured (graph): "
+              f"{rho(pred, graph):.3f} (LAUNCH_S 0: {rho(pred0, graph):.3f}"
+              f"; against the timer: {rho(pred, timed):.3f})")
+        itera = [x for x in labels if x.startswith("itera")]
+        for q in (x for x in labels if x.startswith("quant")):
+            ok = [x for x in itera if qual[x] >= qual[q] - 0.01]
+            if not ok:
+                print(f"  fig11 vs {q}: no ITERA plan within 0.01 of its "
+                      f"agreement")
+                continue
+            ip, ig, it = (min(ok, key=d.get) for d in (pred, graph, timed))
+            print(f"  fig11 vs {q}: predicted {ip} "
+                  f"{100 * (1 - pred[ip] / pred[q]):.1f}%, measured (graph) "
+                  f"{ig} {100 * (1 - graph[ig] / graph[q]):.1f}% (timer: {it}"
+                  f" {100 * (1 - timed[it] / timed[q]):.1f}%) latency "
+                  f"reduction (the paper: 12.1..41.1%)")
+    # deploy: each front's highest-quality and fastest point, and the
+    # highest-quality point of the ITERA plans' own front at the first
+    # batch, so a low-rank winner goes through the same loop
+    picks = {}
+    for front in fronts.values():
+        for dp in (front[-1], front[0]) if front else ():
+            picks.setdefault(dp.label, dp)
+    lowrank = dse.co_design([p for p in cands if p.label.startswith("itera")],
+                            lambda p: qual[p.label],
+                            lambda p: shapes[p.label],
+                            batch_m=DSE_BATCHES[0], platform="h100")
+    check(failures, bool(lowrank), "dse: empty front of the ITERA plans")
+    if lowrank:
+        picks.setdefault(lowrank[-1].label, lowrank[-1])
+    out = ROOT / "build" / "dse"
+    out.mkdir(parents=True, exist_ok=True)
+    sp = SamplingParams(max_tokens=32)
+    deployed, launches = {}, {}
+    for i, (label, dp) in enumerate(picks.items()):
+        plan = CompressionPlan.from_design_point(dp)
+        path = out / f"{label}.json"
+        plan.save(str(path))
+        loaded = CompressionPlan.load(str(path))
+        check(failures, loaded.to_dict() == plan.to_dict(),
+              f"dse: {label}'s plan changed in its JSON round trip")
+        e = InferenceEngine.build(cfg, loaded, params=shaped, device="cuda",
+                                  max_batch=8, block_size=16)
+        per_rank = ranks_per_step(cfg, e.plan)
+        per_shape = quant_per_step(cfg, e.plan, shaped)
+        print(f"[dse] deployed {path.name}: {e.plan.summary()}; launches a "
+              f"step: lowrank_qmm by rank {per_rank}, quant_matmul by (K, N) "
+              f"{per_shape}")
+        e.serve(reqs[:2], SamplingParams(max_tokens=2))     # warm-up
+        torch.cuda.synchronize()
+        build.reset_launches()              # the deployed serve starts
+        r = serve_checked(torch, e, "kv16", reqs, sp, {}, failures)
+        launches[f"dse {i}"] = dict(build.LAUNCHES)   # ... ends here
+        check_plan_launches(failures, f"dse {label}", r,
+                            launches[f"dse {i}"], dict(build.LAUNCH_RANKS),
+                            per_rank, cfg.num_layers, per_shape)
+        deployed[f"dse {i}"] = e
+    print(f"[dse] phase: {time.perf_counter() - t_phase:.1f} s")
+    return deployed, launches
 
 
 RECT = (8, 128, 100)     # rows, prompt tokens, and the cut to 100 tokens
@@ -1619,8 +2055,15 @@ def main() -> int:
                                    greedy["int8 KV"], failures)
     end_phase("speculation", failures)
     failures = []
-    compressed, paths = compression_phase(torch, cfg, reqs, failures)
+    compressed, paths, calibration = compression_phase(torch, cfg, reqs,
+                                                       failures)
     end_phase("compression", failures)
+    failures = []
+    deployed, dse_launches = dse_phase(torch, cfg, reqs, *calibration,
+                                       failures)
+    end_phase("dse", failures)
+    compressed.update(deployed)
+    paths.update(dse_launches)
     failures = []
     rect = rectangular_phase(torch, cfg, eng, eng8, qeng, failures)
     end_phase("rectangular", failures)

@@ -2,12 +2,15 @@
 
 The same JSON schema as the reference, so a `plan.json` written by either
 package loads in the other, speculative-draft settings (`draft`, a
-`runtime.speculation.DraftSpec`) included.
+`runtime.speculation.DraftSpec`) included. `from_design_point` turns a
+`hw.dse.DesignPoint` into the plan it scored, which closes the DSE ->
+deployment loop; `merge_plans` overrides a plan's entries by path.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Iterable
 
 from repro_torch.runtime.speculation import DraftSpec
 
@@ -54,6 +57,15 @@ class CompressionPlan:
     # asks for it.
     draft: DraftSpec | None = None
     meta: dict = dataclasses.field(default_factory=dict)
+
+    def __iter__(self):
+        return iter(self.layers)
+
+    def __len__(self) -> int:
+        return len(self.layers)
+
+    def by_path(self) -> dict:
+        return {lp.path: lp for lp in self.layers}
 
     def active_layers(self) -> tuple:
         return tuple(lp for lp in self.layers if lp.method != "none")
@@ -175,6 +187,27 @@ class CompressionPlan:
         return cls(layers=tuple(entries), act_wl=cfg.act_wl, pack=cfg.pack,
                    power_iters=cfg.power_iters, label=label).validate()
 
+    @classmethod
+    def from_design_point(cls, dp) -> "CompressionPlan":
+        """The deployable plan of a `hw.dse.DesignPoint`: the candidate the
+        DSE scored, relabelled with the point's provenance (quality,
+        latency, each layer's engine), so the saved artifact describes
+        itself."""
+        plan = getattr(dp, "plan", None)
+        if plan is None:
+            raise ValueError(
+                "DesignPoint carries no plan -- run hw.dse.co_design with "
+                "CompressionPlan candidates")
+        meta = dict(plan.meta)
+        meta.update({
+            "design_point": dp.label,
+            "quality": float(dp.quality),
+            "latency": float(dp.latency),
+            "engines": [[name, kind] for name, kind, _, _ in dp.per_layer],
+        })
+        return plan.replace(label=dp.label or plan.label,
+                            meta=meta).validate()
+
     def summary(self) -> str:
         from collections import Counter
 
@@ -187,3 +220,13 @@ class CompressionPlan:
                     f"r×{self.draft.rank_fraction:g}")
         return (f"plan[{self.label or 'unlabeled'}] {len(self.layers)} "
                 f"layers: {body} (A{self.act_wl}, {resid}{spec})")
+
+
+def merge_plans(base: CompressionPlan,
+                overrides: Iterable[LayerPlan]) -> CompressionPlan:
+    """A copy of `base` with `overrides` replacing its entries of the same
+    path (order kept; overrides of other paths are appended)."""
+    by_path = {lp.path: lp for lp in overrides}
+    out = [by_path.pop(lp.path, lp) for lp in base.layers]
+    out.extend(by_path.values())
+    return base.replace(layers=tuple(out))

@@ -119,6 +119,12 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def param_leaves_by_path(params) -> dict:
+    """{path: leaf} for every leaf of the tree, keyed by the reference's
+    path strings (plan validation, the DSE's layer shapes)."""
+    return flatten(params)
+
+
 def map_with_path(fn, tree, prefix: str = ""):
     """A copy of the dict tree with fn(path, leaf) applied to each leaf."""
     out = {}

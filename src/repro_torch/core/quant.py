@@ -119,12 +119,17 @@ def packed_pad_ok(dim: int) -> bool:
     return -(-dim // 256) * 256 == -(-dim // 128) * 128
 
 
+def packs(wl: int, dim: int) -> bool:
+    """Whether a `wl`-bit weight is stored packed along a last axis of
+    `dim`: W4 with an even axis that `packed_pad_ok` admits. The one
+    packing rule: compression (`packable`), the H100 cost model and the
+    launch keys it is checked with all ask it."""
+    return wl == 4 and dim % 2 == 0 and packed_pad_ok(dim)
+
+
 def packable(q: QuantizedTensor) -> bool:
-    """W4 codes with an even last dim that `packed_pad_ok` admits, not
-    already packed."""
-    return (not q.packed and q.wl == 4
-            and int(q.values.shape[-1]) % 2 == 0
-            and packed_pad_ok(int(q.values.shape[-1])))
+    """W4 codes that `packs` admits, not already packed."""
+    return not q.packed and packs(q.wl, int(q.values.shape[-1]))
 
 
 def pack_weights(q: QuantizedTensor) -> QuantizedTensor:

@@ -55,6 +55,42 @@ def lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
     return lowrank_qmm_ref(xq, sx, w1, s1, w2, s2, act_qmax)
 
 
+NC = 128             # widest phase-2 column chunk a CTA accumulates at once
+_STAGES = 3
+
+
+def smem_bytes(bm: int, rs: int, c: int, cn: int, ncl: int) -> int:
+    """Shared memory of one CTA, in Python: csrc `lrmm_smem_bytes` (its
+    `layout`), so `choose_tiles` runs with no library built. A ring of 3
+    stages, each the larger of the Xq + W1 and the W2 tiles; the
+    transposed tile; T; the pushed partials when c > cn; the CTA's Tq
+    slice and its R group's; every rank's row max; st."""
+    bk = (128 if rs >= 128 else 16384 // rs) if bm == 16 else 128
+    nc = min(NC, ncl // cn)
+    bk2 = min(bk, rs * cn)
+    stage = max(bm * (bk + 16) + bk * rs, bk2 * nc)
+    bt = max(bk // 4 * (rs + 8), bk2 // 4 * (nc + 8)) * 4
+    red = bm * nc * 4 if c > cn else 0
+    return (_STAGES * stage + bt + bm * rs * 4 + red + bm * (rs + 16)
+            + bm * (rs * cn + 16) + CLUSTER * bm * 4 + bm * 4)
+
+
+def hbm_bytes_moved(m: int, k: int, r: int, n: int, w1_packed: bool,
+                    w2_packed: bool, tiles: Tiles) -> int:
+    """Device bytes one launch moves under its partition `tiles` (the
+    kernel's padded K, R and N): every CTA reads its row block's Xq and
+    scales for phase 1 (C a cluster, one cluster for each span of N
+    columns); each cluster reads W1 and both scale vectors once, since
+    its CTAs split R; each row block reads W2 once; Y is written once.
+    The (M, R) intermediate stays on chip. At least `ops.lrmm_hbm_bytes`,
+    which counts every operand once."""
+    spans, rows = -(-n // tiles.ncl), -(-m // tiles.bm)
+    w1 = k * r // 2 if w1_packed else k * r
+    w2 = r * n // 2 if w2_packed else r * n
+    return ((m * k + m * 4) * tiles.cluster * spans
+            + (w1 + 2 * r * 4) * spans * rows + w2 * rows + m * n * 4)
+
+
 def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes) -> Tiles:
     """The launch's partition, from the shapes, the card's SM count and
     `smem_bytes(bm, rs, cluster, cn, ncl)`, the kernel's shared memory per

@@ -37,6 +37,21 @@ _SIGNATURES = {
 }
 QT_DECODE, QT_PREFILL = 16, 64  # query rows per CTA of the two tile kinds
 STAGE_KEYS = 64                 # keys the kernel stages per step
+_WARPS = 4
+
+
+def smem_bytes(qt: int, dh: int, quant, bs: int) -> int:
+    """Shared memory of one CTA, in Python: csrc
+    `paged_attention_smem_bytes`. The Q tile (qt x (Dh + 4) floats),
+    decode tiles' per-warp float64 softmax states (m, l, acc), and two
+    ring stages of K and V rows (a stage's keys, whole blocks, rounded up
+    to 64 rows; int8 rows padded by 16 bytes with their two scales)."""
+    per_stage = 1 if bs >= STAGE_KEYS else STAGE_KEYS // bs
+    rows = -(-per_stage * bs // 64) * 64
+    kv = 2 * (dh + 16) if quant else (dh + 4) * 4 + (dh + 8) * 4
+    stage = rows * kv + (rows * 8 if quant else 0)
+    states = _WARPS * qt * (dh + 2) * 8 if qt <= QT_DECODE else 0
+    return qt * (dh + 4) * 4 + states + 2 * stage
 
 
 def choose_splits(b: int, hk: int, w: int, g: int, mb: int, bs: int,
@@ -178,7 +193,7 @@ def stream_hbm_bytes(ctx_lens, q_lens, block_size: int, hk: int, dh: int,
     fp32 scale planes for int8 KV), and the fp32 query and output rows of
     the valid span positions read and written once."""
     h = n_q_heads or hk
-    per_tok = 2 * hk * (dh + 4) if kv_bits == 8 else 2 * hk * dh * 4
+    per_tok = kv_bytes_per_token(hk, dh, kv_bits)
     total = 0
     for ctx, ql in zip(ctx_lens, q_lens):
         ctx, ql = int(ctx), int(ql)
@@ -186,6 +201,33 @@ def stream_hbm_bytes(ctx_lens, q_lens, block_size: int, hk: int, dh: int,
             total += -(-(ctx + ql) // block_size) * block_size * per_tok
             total += 2 * ql * h * dh * 4
     return int(total)
+
+
+def kv_bytes_per_token(hk: int, dh: int, kv_bits: int) -> int:
+    """Device bytes one cached position takes across K and V in the port's
+    pool: int8 codes and an fp32 scale per (token, head) at kv_bits 8,
+    else fp32."""
+    if kv_bits not in (8, 32):
+        raise ValueError(f"the port's pool is int8 (8) or fp32 (32), got "
+                         f"kv_bits={kv_bits}")
+    return 2 * hk * (dh + 4) if kv_bits == 8 else 2 * hk * dh * 4
+
+
+def gather_hbm_bytes(batch: int, max_blocks: int, block_size: int, hk: int,
+                     dh: int, *, kv_bits: int = 32, w: int = 1,
+                     n_q_heads: int | None = None) -> int:
+    """Device bytes of the plain version (`span_attend_gather`): every row
+    reads its whole (MB * bs) block-table view, valid or not; the
+    gathered K and V are written and read again as float64 views (after
+    an fp32 dequantized copy when the pool is int8); the fp32 queries
+    and outputs of all W positions are read and written once."""
+    h = n_q_heads or hk
+    slots = batch * max_blocks * block_size
+    per_view = 2 * slots * hk * dh              # K and V elements
+    total = slots * kv_bytes_per_token(hk, dh, kv_bits) + per_view * 8 * 2
+    if kv_bits == 8:
+        total += per_view * 4 * 2
+    return int(total + 2 * batch * w * h * dh * 4)
 
 
 def attention_flops(ctx_lens, q_lens, h: int, dh: int) -> int:

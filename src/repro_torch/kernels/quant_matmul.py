@@ -50,6 +50,62 @@ def quant_matmul_plain(xq, sx, wq, sw, *, w_packed: bool = False):
     return quant_matmul_ref(xq, sx, unpack_int4(wq) if w_packed else wq, sw)
 
 
+# (bm, bn) tiles the kernel is compiled for (csrc/quant_matmul.cu QMM_TILES)
+TILE_SHAPES = ((16, 32), (16, 64), (16, 128), (64, 64), (64, 128),
+               (128, 64), (128, 128))
+_STAGES, _WARPS = 3, 8
+
+
+def _strip_ws(rb: int, packed: bool) -> int:
+    """csrc `strip_ws`: a strip's raw weight rows of `rb` bytes padded in
+    16-byte steps until the 4 k-quads a warp reads at once, each starting
+    at its own row, fall on disjoint banks."""
+    width = 4 if packed else 8          # words the 8 lanes of a quad read
+    s = rb
+    while any(min(d, 32 - d) < width
+              for j in range(4) for t1 in range(4) for t2 in range(t1 + 1, 4)
+              for d in [((4 * t1 + ((j + t1) & 3)) * (s // 4)
+                         - (4 * t2 + ((j + t2) & 3)) * (s // 4)) % 32]):
+        s += 16
+    return s
+
+
+def smem_bytes(bm: int, bn: int, bk: int, packed, c: int,
+               kslice: int) -> int:
+    """Shared memory of one CTA, in Python: csrc `qmm_smem_bytes` (its
+    `layout`), so `choose_tiles` runs with no library built. A ring of as
+    many stages as the CTA has K steps (at most 3), each an Xq tile with
+    rows padded by 16 bytes and a raw weight tile (a strip pads its rows
+    against bank conflicts); a wider tile's transposed copy; the tile's
+    scales; the warps' partial sums when warps or a cluster split K; the
+    cluster's pushed partials. -1 for a tile the kernel lacks."""
+    if (bm, bn) not in TILE_SHAPES:
+        return -1
+    strip = bm == 16
+    kw = _WARPS // (bn // 32) if strip else 1    # warps sharing a K slab
+    rb = bn // 2 if packed else bn
+    stage = bm * (bk + 16) + bk * (_strip_ws(rb, bool(packed)) if strip
+                                   else rb)
+    total = min(-(-kslice // bk), _STAGES) * stage
+    total += 0 if strip else bk // 4 * (bn + 8) * 4
+    total += (bm + bn) * 4
+    total += kw * bm * bn * 4 if c > 1 or kw > 1 else 0
+    return total + (bm * bn * 4 if c > 1 else 0)
+
+
+def hbm_bytes_moved(m: int, k: int, n: int, packed: bool,
+                    tiles: Tiles) -> int:
+    """Device bytes one launch moves under its partition `tiles` (the
+    kernel's padded K and N): each column tile reads the Xq rows and
+    their scales once (a cluster's CTAs split K between them), each row
+    block the weight (halved when packed) and its scales, and Y is
+    written once. At least `ops.qmm_hbm_bytes`, which counts every
+    operand once."""
+    cols, rows = -(-n // tiles.bn), -(-m // tiles.bm)
+    w = k * n // 2 if packed else k * n
+    return (m * k + m * 4) * cols + (w + n * 4) * rows + m * n * 4
+
+
 def choose_tiles(m: int, k: int, n: int, packed: bool, num_sms: int,
                  smem_bytes) -> Tiles:
     """The launch's partition, from the shapes, the card's SM count and

@@ -274,7 +274,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 assert root not in ("jax", "jaxlib", "repro"), (f, n)
     code = ("import sys; import repro_torch.api.engine, repro_torch.bridge, "
             "repro_torch.launch.serve, repro_torch.core.sra, "
-            "repro_torch.data.pipeline, repro_torch.runtime.graphs; "
+            "repro_torch.data.pipeline, repro_torch.runtime.graphs, "
+            "repro_torch.api, repro_torch.hw.dse, repro_torch.hw.h100_model, "
+            "repro_torch.hw.engine_model; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

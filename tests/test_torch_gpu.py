@@ -796,3 +796,53 @@ def test_capture_survives_a_dropped_engine(cuda):
         gc.set_threshold(*old)
     torch.cuda.synchronize()
     assert second.graph_stats()["graphs"] == 1
+
+
+# chip_smoke.py phase 2's shapes and the dse phase's (M 512): every
+# partition the choosers return there, at the card's SM count
+_MIRROR_M = (1, 8, 16, 17, 48, 64, 256, 512, 1024, 2048)
+_MIRROR_KN = ((512, 512), (512, 2048), (2048, 512), (512, 32000))
+
+
+def test_quant_matmul_smem_mirror_equals_library(cuda):
+    """`quant_matmul.smem_bytes` (Python) equals the library's
+    `qmm_smem_bytes` at every partition `choose_tiles` returns, and the
+    two give the same partition; also across every compiled tile."""
+    lib = build.load("quant_matmul", qm._SIGNATURES)
+    sms = build.sm_count(cuda.index or 0)
+    for m in _MIRROR_M:
+        for k, n in _MIRROR_KN + ((528, 512), (96, 64)):
+            for packed in (False, True):
+                t = qm.choose_tiles(m, k, n, packed, sms, lib.qmm_smem_bytes)
+                assert t == qm.choose_tiles(m, k, n, packed, sms,
+                                            qm.smem_bytes)
+                args = (*t[:3], int(packed), t.cluster, t.kslice)
+                assert qm.smem_bytes(*args) == lib.qmm_smem_bytes(*args)
+    for bm, bn in qm.TILE_SHAPES + ((32, 32),):
+        for bk in (32, 64, 256, 1024):
+            for args in ((bm, bn, bk, p, c, ks) for p in (0, 1)
+                         for c in (1, 2, 8) for ks in (32, 512, 2048)):
+                assert qm.smem_bytes(*args) == lib.qmm_smem_bytes(*args)
+
+
+def test_lowrank_qmm_smem_mirror_equals_library(cuda):
+    """`lowrank_qmm.smem_bytes` equals `lrmm_smem_bytes` at every
+    partition `choose_tiles` returns for the served ranks and widths."""
+    lib = build.load("lowrank_qmm", lr._SIGNATURES)
+    sms = build.sm_count(cuda.index or 0)
+    for m in _MIRROR_M:
+        for r in (32, 128, 160, 192, 256, 320, 384, 512, 1024):
+            for n in (512, 2048, 32000):
+                t = lr.choose_tiles(m, r, n, sms, lib.lrmm_smem_bytes)
+                assert t == lr.choose_tiles(m, r, n, sms, lr.smem_bytes)
+                assert lr.smem_bytes(*t) == lib.lrmm_smem_bytes(*t)
+
+
+def test_paged_attention_smem_mirror_equals_library(cuda):
+    lib = build.load("paged_attention", pa._SIGNATURES)
+    for qt in (pa.QT_DECODE, pa.QT_PREFILL):
+        for dh in (32, 64, 128):
+            for quant in (0, 1):
+                for bs in (4, 8, 16, 32, 64, 128):
+                    assert pa.smem_bytes(qt, dh, quant, bs) == \
+                        lib.paged_attention_smem_bytes(qt, dh, quant, bs)

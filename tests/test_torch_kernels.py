@@ -210,21 +210,6 @@ def test_byte_and_op_models():
         + (32 + 32) * 4 + 8 * 64 * 4
 
 
-def lowrank_smem_bytes(bm, rs, c, cn, ncl):
-    """Shared memory of one CTA: lowrank_qmm.cu's `layout` (a ring of 3
-    stages, each the larger of the Xq + W1 and W2 tiles; the transposed
-    tile; T; the pushed partials when c > cn; the Tq slice and R group;
-    every rank's row max; st)."""
-    bk = (128 if rs >= 128 else 16384 // rs) if bm == 16 else 128
-    nc = min(128, ncl // cn)
-    bk2 = min(bk, rs * cn)
-    stage = max(bm * (bk + 16) + bk * rs, bk2 * nc)
-    bt = max(bk // 4 * (rs + 8), bk2 // 4 * (nc + 8)) * 4
-    red = bm * nc * 4 if c > cn else 0
-    return (3 * stage + bt + bm * rs * 4 + red + bm * (rs + 16)
-            + bm * (rs * cn + 16) + 8 * bm * 4 + bm * 4)
-
-
 def _owned_columns(t, n):
     """Columns of Y each CTA writes, as lowrank_qmm.cu assigns them: CTA
     (ir, in) of a cluster takes share `in` of the cluster's span in chunks
@@ -251,11 +236,11 @@ def test_lowrank_tile_choice(m, r, n):
     """Clusters of at most 8 CTAs whose rank slices cover R, every column
     of Y written by exactly one CTA, shared memory within the card's
     limit, and about one wave (132 SMs) at the decode shapes."""
-    t = tlr.choose_tiles(m, r, n, 132, lowrank_smem_bytes)
+    t = tlr.choose_tiles(m, r, n, 132, tlr.smem_bytes)
     assert t.cluster in (1, 2, 4, 8) and t.cluster % t.cn == 0
     assert t.rs in (32, 64, 128) and t.cluster * t.rs >= r
     assert t.ncl % (32 * t.cn) == 0
-    assert lowrank_smem_bytes(t.bm, t.rs, t.cluster, t.cn,
+    assert tlr.smem_bytes(t.bm, t.rs, t.cluster, t.cn,
                               t.ncl) <= tlr.SMEM_LIMIT
     assert sorted(_owned_columns(t, n)) == list(range(n))
     if m == 8 and r == 256:
@@ -264,9 +249,9 @@ def test_lowrank_tile_choice(m, r, n):
 
 def test_lowrank_tile_choice_refuses():
     with pytest.raises(ValueError, match="rank"):
-        tlr.choose_tiles(8, 2048, 512, 132, lowrank_smem_bytes)
+        tlr.choose_tiles(8, 2048, 512, 132, tlr.smem_bytes)
     with pytest.raises(ValueError, match="% 32"):
-        tlr.choose_tiles(8, 250, 512, 132, lowrank_smem_bytes)
+        tlr.choose_tiles(8, 250, 512, 132, tlr.smem_bytes)
     with pytest.raises(ValueError, match="shared memory"):
         tlr.choose_tiles(8, 256, 512, 132, lambda *tiles: 1 << 30)
 
@@ -318,44 +303,6 @@ def test_quant_matmul_plain_matches_pallas_interpret(packed, m, k, n,
     np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
 
 
-def _strip_ws(rb, packed):
-    """quant_matmul.cu's `strip_ws`: a strip's raw weight rows padded (in
-    16-byte steps) until the 4 k-quads a warp reads at once, each starting
-    at its row t, fall on disjoint banks."""
-    width = 4 if packed else 8
-    s = rb
-    while True:
-        ok = True
-        for j in range(4):
-            for t1 in range(4):
-                for t2 in range(t1 + 1, 4):
-                    a = (4 * t1 + ((j + t1) & 3)) * (s // 4) % 32
-                    b = (4 * t2 + ((j + t2) & 3)) * (s // 4) % 32
-                    d = (a - b) % 32
-                    ok &= not (d < width or 32 - d < width)
-        if ok:
-            return s
-        s += 16
-
-
-def quant_smem_bytes(bm, bn, bk, packed, c, kslice):
-    """Shared memory of one CTA: quant_matmul.cu's `layout` (a ring of as
-    many stages as the CTA has K steps, at most 3, each an Xq tile with
-    rows padded by 16 bytes and a raw weight tile, whose rows a strip pads
-    against bank conflicts; a wider tile's transposed copy; the tile's
-    scales; the warps' partial sums when warps or a cluster split K; the
-    cluster's pushed partials)."""
-    strip = bm == 16
-    kw = 8 // (bn // 32) if strip else 1
-    rb = bn // 2 if packed else bn
-    stages = min(3, -(-kslice // bk))
-    stage = bm * (bk + 16) + bk * (_strip_ws(rb, packed) if strip else rb)
-    bt = 0 if strip else bk // 4 * (bn + 8) * 4
-    part = kw * bm * bn * 4 if c > 1 or kw > 1 else 0
-    red = bm * bn * 4 if c > 1 else 0
-    return stages * stage + bt + (bm + bn) * 4 + part + red
-
-
 QMM_SHAPES = [(512, 512), (512, 2048), (2048, 512), (512, 32000),
               (512, 544), (96, 36), (528, 512)]
 
@@ -372,13 +319,13 @@ def test_quant_tile_choice(m, k, n, packed):
     serving path fill the card (132 SMs) by splitting K, the lm head
     needs no split."""
     n = -(-n // 32) * 32
-    t = tqm.choose_tiles(m, k, n, packed, 132, quant_smem_bytes)
+    t = tqm.choose_tiles(m, k, n, packed, 132, tqm.smem_bytes)
     assert t.bm == (16 if m <= 16 else 64 if m <= 256 else 128)
     assert t.bn in ((32, 64, 128) if t.bm == 16 else (64, 128))
     assert t.cluster in (1, 2, 4, 8) and (t.bn // t.cluster) % 2 == 0
     assert t.kslice % 32 == 0 and t.bk % 32 == 0
     assert t.cluster * t.kslice >= k > (t.cluster - 1) * t.kslice
-    assert quant_smem_bytes(*t[:3], packed, t.cluster,
+    assert tqm.smem_bytes(*t[:3], packed, t.cluster,
                             t.kslice) <= tqm.SMEM_TWO_PER_SM
     share = t.bn // t.cluster
     cols = [x * t.bn + rank * share + c for x in range(-(-n // t.bn))
@@ -392,11 +339,11 @@ def test_quant_tile_choice(m, k, n, packed):
 
 def test_quant_tile_choice_refuses():
     with pytest.raises(ValueError, match="K % 16"):
-        tqm.choose_tiles(8, 500, 512, False, 132, quant_smem_bytes)
+        tqm.choose_tiles(8, 500, 512, False, 132, tqm.smem_bytes)
     with pytest.raises(ValueError, match="N % 32"):
-        tqm.choose_tiles(8, 512, 510, False, 132, quant_smem_bytes)
+        tqm.choose_tiles(8, 512, 510, False, 132, tqm.smem_bytes)
     with pytest.raises(ValueError, match="N % 32"):
-        tqm.choose_tiles(8, 512, 36, False, 132, quant_smem_bytes)
+        tqm.choose_tiles(8, 512, 36, False, 132, tqm.smem_bytes)
     with pytest.raises(ValueError, match="shared memory"):
         tqm.choose_tiles(8, 512, 512, True, 132, lambda *tiles: 1 << 30)
 

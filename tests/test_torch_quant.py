@@ -73,15 +73,15 @@ def test_pack_unpack_int4_byte_for_byte():
         tquant.pack_int4(torch.zeros((2, 3), dtype=torch.int8))
 
 
-@pytest.mark.parametrize("dim", [64, 200, 256, 384])
+@pytest.mark.parametrize("dim", [63, 64, 129, 200, 256, 384])
 def test_packing_rule_is_the_reference_rule(dim):
     assert tquant.packed_pad_ok(dim) == jquant.packed_pad_ok(dim)
     x = np.random.default_rng(dim).standard_normal(
         (16, dim)).astype(np.float32)
-    for wl in (4, 8):
+    for wl in (4, 6, 8):
         tq = tquant.pack_weights(tquant.quantize(torch.from_numpy(x), wl))
         jq = jquant.pack_weights(jquant.quantize(jnp.asarray(x), wl))
-        assert tq.packed == jq.packed
+        assert tq.packed == jq.packed == tquant.packs(wl, dim)
         np.testing.assert_array_equal(tq.values.numpy(), _np(jq.values))
         assert tq.storage_bits() == jq.storage_bits()
         if tq.packed:
