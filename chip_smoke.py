@@ -90,6 +90,24 @@ fails:
    quant-only plan: 73 quant_matmul launches a pass by (K, N); sampled
    (seed 7) twice and against serve; a sampled stop run against
    `match_stop_host`;
+   train: opus-mt full() trained on the card from seed-0 weights
+   (LatentMarkovTask, batch 8 x seq 128, AdamW with warmup and cosine
+   decay, remat "full") through launch/train.py's step in a
+   ResilientLoop with checkpoints and an injected failure: finite losses,
+   a lower last ten than first ten, the replayed steps within 1e-5 of the
+   first pass; step ms, tokens/s and peak bytes beside the FLOP bound, and
+   20 steps each with remat full, dots and off, 8 each at a training-size
+   batch of 32 x 512; the train CLI (launch/train.py's `main`) on its
+   default device with 2 microbatches of hash data, an injected failure
+   and --resume, its losses within 1e-5 of the step's own; 3 steps on the
+   card and on the CPU within 1e-4 (loss and grad norm); the trained
+   state through ckpt.save / ckpt.restore / bridge.load_checkpoint,
+   equal; the trained weights compressed under both phase-3 plans, serving 16 task prompts
+   captured (launches by kernel and (K, N), every lowrank_qmm launch on a
+   compared path) and 4 short ones card == CPU; the held-out greedy
+   accuracy of the dense and both compressed models and the speculation
+   draft's accept rate on the trained mixed plan (its tokens the plain
+   serve's);
    graphs: every step above (and below) is the replay of a CUDA graph
    captured per step shape, the engines' default; here the mixed plan
    (fp32 and int8 KV) and the quant-only plan run greedy, sampled,
@@ -677,11 +695,12 @@ def workload(vocab: int, seed: int = 0):
 
 
 def profile_run(torch, run, label: str):
-    """`run()` (a serve or a generate, returning its number of steps) once
-    more under torch.profiler: the card's busy share of the wall time,
-    its device events (kernels, copies, memsets) a step and the card's
-    idle time per event, its time by kernel, and the linears' kernels'
-    (quant_matmul's and lowrank_qmm's) card time per step. Informational, nothing is checked;
+    """`run()` (a serve, a generate or train steps, returning its number of
+    steps) once more under torch.profiler: the card's busy share of the
+    wall time, its device events (kernels, copies, memsets) a step and the
+    card's idle time per event, its time by kernel, and the linears'
+    kernels' (quant_matmul's and lowrank_qmm's) card time per step.
+    Informational, nothing is checked;
     a profiler that cannot trace the card is reported and skipped."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1888,6 +1907,429 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
                     f"{mode} mixed kv16 generate")
 
 
+# ---------------------------------------------------------------- train --
+
+TRAIN = dict(batch=8, seq=128, steps=300, lr=1e-3, ckpt_every=100,
+             fail_at=150)
+REMAT_STEPS = 20         # steps a remat setting, the first 3 untimed
+# a training-size batch for the remat trade (16,384 tokens a step); its
+# first 2 steps untimed
+TRAIN_BIG = dict(batch=32, seq=512, steps=8)
+# the train CLI: hash data, 2 microbatches, checkpoints every 3 steps, a
+# failure injected at step 4, then resumed from the step-3 checkpoint
+TRAIN_CLI = dict(steps=6, microbatches=2, ckpt_every=3, fail_at=4)
+TRAIN_TOL = 1e-5         # replayed steps against the first pass, relative
+CARD_CPU_TOL = 1e-4      # loss and grad norm, card against the CPU
+
+
+def train_flops(cfg, tokens: int, remat: bool, seq: int) -> float:
+    """Least FLOPs of a train step: the forward's 2 a matmul parameter and
+    token (every layer linear and the lm head; the embedding is a gather)
+    plus attention's QK^T and PV over the causal half of S x S (2 S
+    d_model a token and layer), three times that with the backward pass,
+    four times with full remat's second forward."""
+    d, f, n, v = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_size
+    forward = 2 * (n * (4 * d * d + 2 * d * f) + d * v) \
+        + n * 2 * seq * d
+    return (4 if remat else 3) * forward * tokens
+
+
+def run_train(torch, cfg, opt_cfg, task, steps, *, loop_kw=None,
+              ckpt_dir=None, batch=TRAIN["batch"], seq=TRAIN["seq"]):
+    """Train from init_params(seed 0) on the card with launch/train.py's
+    step on batch x seq tokens of `task`; with `loop_kw`, inside a
+    ResilientLoop saving to `ckpt_dir`.
+    Returns (state, [(step, loss, ms)], loop report or None)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.train import make_accum_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import ResilientLoop
+
+    params = init_params(cfg, seed=0, device="cuda")
+    state = {"params": params, "opt": adamw.init(params, opt_cfg)}
+    step = make_accum_train_step(cfg, opt_cfg, 1)
+    log = []
+
+    def step_fn(state, s):
+        b = task.batch(s, batch, seq, device="cuda")
+        t0 = time.perf_counter()
+        p, o, m = step(state["params"], state["opt"], b)
+        torch.cuda.synchronize()
+        log.append((s, float(m["loss"]), (time.perf_counter() - t0) * 1e3))
+        return {"params": p, "opt": o}, m
+
+    if loop_kw is None:
+        for s in range(steps):
+            state, _ = step_fn(state, s)
+        return state, log, None
+    like = state
+
+    def save_fn(st, s):
+        ckpt.save(ckpt_dir, s, st)
+
+    loop = ResilientLoop(step_fn, save_fn,
+                         lambda: ckpt.restore(ckpt_dir, like), **loop_kw)
+    save_fn(state, 0)
+    state, _ = loop.run(state, 0, steps)
+    return state, log, loop.report
+
+
+def profile_steps(torch, cfg, opt_cfg, task, state, label, *,
+                  batch=TRAIN["batch"], seq=TRAIN["seq"]) -> None:
+    """Three more train steps of `state` on batch x seq tokens under
+    torch.profiler (`profile_run`: the card's busy share and time by
+    kernel)."""
+    from repro_torch.launch.train import make_accum_train_step
+
+    step = make_accum_train_step(cfg, opt_cfg, 1)
+    batches = [task.batch(s, batch, seq, device="cuda") for s in range(3)]
+
+    def run():
+        for b in batches:
+            state["params"], state["opt"], _ = step(state["params"],
+                                                    state["opt"], b)
+        return len(batches)
+
+    profile_run(torch, run, label)
+
+
+def train_cli_check(torch, cfg, out_dir, failures) -> None:
+    """launch/train.py's `main` at full width on its default device (the
+    card), as a user runs it: TRAIN_CLI's steps on `hash_batch` data in 2
+    microbatches, a failure injected and restored from a checkpoint; then
+    the last checkpoint removed and the run continued with --resume from
+    the one before. Both runs' losses are held to make_accum_train_step's
+    on the same initial weights and batches, within TRAIN_TOL relative."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import hash_batch
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+
+    c = TRAIN_CLI
+    ckpt_dir = out_dir / "cli"
+    argv = ["--arch", "opus-mt", "--steps", str(c["steps"]),
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--lr", str(TRAIN["lr"]), "--microbatches",
+            str(c["microbatches"]), "--data", "hash", "--ckpt-dir",
+            str(ckpt_dir), "--ckpt-every", str(c["ckpt_every"])]
+    t0 = time.perf_counter()
+    first = train.main(argv + ["--inject-failure-at", str(c["fail_at"])])
+    shutil.rmtree(ckpt_dir / f"step_{c['steps']:08d}")
+    resumed = train.main(argv + ["--resume"])
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir)
+
+    # the step's own losses: the CLI's schedule (warmup max(steps // 20, 5))
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], total_steps=c["steps"],
+                                warmup_steps=max(c["steps"] // 20, 5))
+    step = train.make_accum_train_step(cfg, opt_cfg, c["microbatches"])
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = adamw.init(params, opt_cfg)
+    own = []
+    for s in range(c["steps"]):
+        params, opt, m = step(params, opt, hash_batch(
+            0, s, TRAIN["batch"], TRAIN["seq"], cfg.vocab_size,
+            device="cuda"))
+        own.append(float(m["loss"]))
+    del params, opt
+    back = c["fail_at"] // c["ckpt_every"] * c["ckpt_every"]
+    want = {"injected": own[:c["fail_at"]] + own[back:],
+            "resumed": own[back:]}
+    got = {"injected": first, "resumed": resumed}
+    print(f"[train] CLI at full width on the card ({wall:.1f} s, "
+          f"{c['microbatches']} microbatches, hash data): own step losses "
+          + " ".join(f"{x:.6f}" for x in own))
+    for name in want:
+        ok = len(got[name]) == len(want[name])
+        worst = max((abs(a - b) / abs(b) for a, b
+                     in zip(got[name], want[name])), default=0.0)
+        same = ok and got[name] == want[name]
+        print(f"[train] CLI {name} run: {len(got[name])} losses against "
+              f"{len(want[name])}, largest relative difference "
+              f"{worst:.3e}, bit-equal: {same}")
+        check(failures, ok and worst <= TRAIN_TOL, f"train: the CLI's "
+              f"{name} run differs from the step's own losses "
+              f"({len(got[name])} losses, {worst:.3e} relative)")
+    check(failures, all(np.isfinite(own)), "train: a CLI loss is not "
+          "finite")
+
+
+def train_phase(torch, cfg, failures):
+    """Training on the card, then the trained model compressed and served.
+
+    (a) opus-mt full() (remat "full") from init_params(seed 0) on the
+    LatentMarkovTask(32000, seed 0, branching 4, classes 16), batch 8 x
+    seq 128, AdamW lr 1e-3, 10% warmup, cosine over TRAIN["steps"], through
+    launch/train.py's step in a ResilientLoop (checkpoints every 100
+    steps, a failure injected at step 150): every loss finite, the last 10
+    below the first 10, the replayed steps within TRAIN_TOL of the first
+    pass; step ms, tokens/s, peak bytes beside the FLOP bound; then
+    REMAT_STEPS steps with remat full, dots and off and with the 8-bit
+    AdamW state, and TRAIN_BIG's steps at a training-size batch with
+    remat full, dots and off (ms, peak bytes), four of them profiled.
+    (a') the train CLI on the card (`train_cli_check`).
+    (b) 3 steps from the same weights and batches on the card and on the
+    CPU: loss and grad norm within CARD_CPU_TOL. (c) the trained state
+    through ckpt.save, ckpt.restore and bridge.load_checkpoint: equal.
+    (d) the trained weights compressed under the mixed and the quant-only
+    plan, serving 16 task prompts captured (a first serve captures the
+    step graphs; the second's launches by kernel and shape checked) and 4
+    short ones card == CPU. (e) held-out greedy accuracy
+    (benchmarks/common.py's token_accuracy: 6 batches of 8 x 64 at step
+    10,000) of the dense and both compressed models, and the accept rate
+    of SPEC's draft on the trained mixed plan (its tokens the plain
+    serve's). Returns the launches of (d) and (e)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        _full_fp32, params_to)
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import LatentMarkovTask
+    from repro_torch.hw.h100_model import PEAK_FLOPS_FP32
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_accum_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.speculation import DraftSpec
+
+    _full_fp32()
+    out_dir = ROOT / "build" / "train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    task = LatentMarkovTask(cfg.vocab_size, seed=0, branching=4, classes=16)
+    steps = TRAIN["steps"]
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], warmup_steps=steps // 10,
+                                total_steps=steps)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+
+    # (a) the resilient run ------------------------------------------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, log, report = run_train(
+        torch, cfg, opt_cfg, task, steps, ckpt_dir=str(out_dir / "ckpt"),
+        loop_kw=dict(ckpt_every=TRAIN["ckpt_every"],
+                     inject_failure_at=TRAIN["fail_at"]))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = report.losses
+    first, replay = {}, {}
+    for s, loss, _ in log:
+        (replay if s in first else first)[s] = loss
+    ms = [t for s, _, t in log[5:]]
+    ms_p50 = float(np.median(ms))
+    floor = task.entropy_floor()
+    print(f"[train] {report.steps_run} steps in {wall:.1f} s: failures "
+          f"{report.failures}, restores {report.restores}, stragglers "
+          f"{report.straggler_events}; replayed steps {min(replay)}-"
+          f"{max(replay)}")
+    flops = train_flops(cfg, tokens, cfg.remat, TRAIN["seq"])
+    bound_ms = flops / PEAK_FLOPS_FP32 * 1e3
+    print(f"[train] step ms p50 {ms_p50:.2f} (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}) after 5 warm-up steps; "
+          f"{tokens / ms_p50 * 1e3:.0f} tokens/s; bound {bound_ms:.2f} ms "
+          f"({flops / 1e12:.3f} TFLOP at the "
+          f"fp32 peak, TF32 off) = {bound_ms / ms_p50:.3f} of the step; "
+          f"peak {peak} bytes above the {base} already allocated")
+    first10, last10 = np.mean(losses[:10]), np.mean(losses[-10:])
+    print(f"[train] loss first10 {first10:.4f} last10 {last10:.4f}; "
+          f"entropy floor {floor:.4f}; uniform {np.log(cfg.vocab_size):.4f}")
+    check(failures, bool(np.all(np.isfinite(losses))), "train: a loss is "
+          "not finite")
+    check(failures, last10 < first10, "train: the loss did not decrease")
+    check(failures, report.failures == 1 and report.restores == 1
+          and len(replay) == TRAIN["fail_at"] - TRAIN["ckpt_every"],
+          f"train: {report.failures} failures, {report.restores} restores, "
+          f"{len(replay)} steps replayed")
+    worst = max(abs(replay[s] - first[s]) / abs(first[s]) for s in replay)
+    same = all(replay[s] == first[s] for s in replay)
+    print(f"[train] replayed losses: largest relative difference "
+          f"{worst:.3e}, bit-equal: {same}")
+    check(failures, worst <= TRAIN_TOL, f"train: a replayed loss differs "
+          f"by {worst:.3e} relative")
+
+    # remat full / dots / off, and the 8-bit AdamW state, at the phase's
+    # batch and at a training-size one ---------------------------------------
+    opt8 = dataclasses.replace(opt_cfg, state_bits=8)
+    small = (TRAIN["batch"], TRAIN["seq"], REMAT_STEPS, 3)
+    big = (TRAIN_BIG["batch"], TRAIN_BIG["seq"], TRAIN_BIG["steps"], 2)
+    for name, remat, policy, ocfg, size, profiled in (
+            ("remat full", True, "full", opt_cfg, small, True),
+            ("remat dots", True, "dots", opt_cfg, small, False),
+            ("remat off", False, "full", opt_cfg, small, True),
+            ("remat full, 8-bit AdamW state", True, "full", opt8, small,
+             False),
+            ("remat full", True, "full", opt_cfg, big, True),
+            ("remat dots", True, "dots", opt_cfg, big, False),
+            ("remat off", False, "full", opt_cfg, big, True)):
+        bsz, seq, nsteps, warm = size
+        c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        b0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rstate, rlog, _ = run_train(torch, c, ocfg, task, nsteps, batch=bsz,
+                                    seq=seq)
+        rms = float(np.median([t for _, _, t in rlog[warm:]]))
+        rb = train_flops(c, bsz * seq, remat and policy == "full", seq) \
+            / PEAK_FLOPS_FP32 * 1e3
+        print(f"[train] {bsz} x {seq} {name}: {rms:.2f} ms a step (bound "
+              f"{rb:.2f} = {rb / rms:.3f} of it), "
+              f"{bsz * seq / rms * 1e3:.0f} tokens/s, peak "
+              f"{torch.cuda.max_memory_allocated() - b0} bytes above {b0}; "
+              f"losses {rlog[0][1]:.4f} .. {rlog[-1][1]:.4f}")
+        if profiled:
+            profile_steps(torch, c, ocfg, task, rstate,
+                          f"train {bsz} x {seq}, {name}", batch=bsz, seq=seq)
+        del rstate
+    torch.cuda.empty_cache()
+
+    # (a') the train CLI on the card ----------------------------------------
+    train_cli_check(torch, cfg, out_dir, failures)
+
+    # (b) card against the CPU ----------------------------------------------
+    step = make_accum_train_step(cfg, opt_cfg, 1)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        p = params_to(tfm.init_params(cfg, seed=0, device="cuda"), dev)
+        sides[dev] = [p, adamw.init(p, opt_cfg)]
+    worst = 0.0
+    for s in range(3):
+        batch = task.batch(s, TRAIN["batch"], TRAIN["seq"])
+        m = {}
+        for dev, st in sides.items():
+            st[0], st[1], m[dev] = step(st[0], st[1], {
+                k: v.to(dev) for k, v in batch.items()})
+        g = [float(m["cuda"][k]) for k in ("loss", "grad_norm")]
+        c = [float(m["cpu"][k]) for k in ("loss", "grad_norm")]
+        rel = [abs(a - b) / abs(b) for a, b in zip(g, c)]
+        worst = max(worst, *rel)
+        print(f"[train] card vs CPU step {s}: loss {g[0]:.7f} / {c[0]:.7f}, "
+              f"grad norm {g[1]:.6f} / {c[1]:.6f}, relative "
+              f"{rel[0]:.3e} / {rel[1]:.3e}")
+    check(failures, worst <= CARD_CPU_TOL, f"train: card and CPU differ by "
+          f"{worst:.3e} relative")
+    del sides
+
+    # (c) checkpoint round trip ---------------------------------------------
+    path = str(out_dir / "trained")
+    ckpt.save(path, steps, state)
+    back, _ = ckpt.restore(path, state)
+    host = ckpt.flatten(bridge.load_checkpoint(path))
+    want = ckpt.flatten(state)
+    got = ckpt.flatten(back)
+    equal = (sorted(want) == sorted(got) == sorted(host)
+             and all(torch.equal(want[k], got[k])
+                     and torch.equal(want[k].cpu(), host[k]) for k in want))
+    print(f"[train] checkpoint of {len(want)} tensors: restore and bridge "
+          f"equal: {equal}")
+    check(failures, equal, "train: the checkpoint round trip differs")
+    trained = state["params"]
+    del state, back, host, got, want
+
+    # (d) serve the trained weights -----------------------------------------
+    rng = np.random.default_rng(5)
+    reqs = [task.batch(30_000 + i, 1, int(n))["tokens"][0].numpy()
+            for i, n in enumerate(rng.integers(32, 257, 16))]
+    short = [task.batch(40_000 + i, 1, n)["tokens"][0].numpy()
+             for i, n in enumerate((16, 29, 47, 64))]
+    sp = SamplingParams(max_tokens=32)
+    engines = {}
+    served = {}
+    build.reset_launches()                     # (d)'s and (e)'s runs start
+    for name, make_plan in (("mixed", mixed_plan), ("quant-only", quant_plan)):
+        eng = InferenceEngine.build(cfg, make_plan(trained), params=trained,
+                                    device="cuda", max_batch=8, block_size=16)
+        eng.serve(reqs, sp)         # captures every step shape it takes
+        torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        shapes0 = dict(build.LAUNCH_SHAPES)
+        res = serve_checked(torch, eng, "trained kv16", reqs, sp, before,
+                            failures)
+        counts = {k: build.LAUNCHES[k] - before.get(k, 0)
+                  for k in build.SOURCES}
+        shapes = {key[1:]: c - shapes0.get(key, 0)
+                  for key, c in build.LAUNCH_SHAPES.items()
+                  if key[0] == "quant_matmul"}
+        out = np.stack(res.outputs)
+        prev = np.concatenate([np.array([r[-1] for r in reqs])[:, None],
+                               out[:, :-1]], axis=1)
+        valid = np.mean([[o in task.succ[p] for p, o in zip(pr, ou)]
+                         for pr, ou in zip(prev, out)])
+        print(f"[train] {name} plan on the trained weights: launches "
+              f"{counts}; quant_matmul by (K, N) {shapes}; "
+              f"{valid:.4f} of emitted tokens are successors the task "
+              f"allows")
+        check_compared(failures, f"trained {name}")
+        per = (quant_launch_shapes(cfg) if name == "quant-only"
+               else {(cfg.d_model, cfg.vocab_size): 1})
+        for (k, n), c in per.items():
+            check(failures, shapes.get((k, n), 0) == c * res.steps,
+                  f"trained {name}: quant_matmul K{k}->N{n} "
+                  f"{shapes.get((k, n), 0)} launches, expected {c} a step "
+                  f"x {res.steps}")
+        lr_per = sum(lowrank_launch_shapes(cfg).values()) \
+            if name == "mixed" else 0
+        check(failures, counts["lowrank_qmm"] == lr_per * res.steps,
+              f"trained {name}: {counts['lowrank_qmm']} lowrank_qmm "
+              f"launches, expected {lr_per} a step x {res.steps}")
+        check(failures, counts["paged_attention"] == cfg.num_layers
+              * res.steps, f"trained {name}: {counts['paged_attention']} "
+              f"paged_attention launches")
+        cpu = InferenceEngine(cfg, params_to(eng.params, "cpu"),
+                              device=torch.device("cpu"), plan=eng.plan)
+        parity(torch, f"trained {eng.plan.label} kv16", eng, cpu, short,
+               SamplingParams(max_tokens=8), failures)
+        engines[name], served[name] = eng, res
+
+    # (e) what trained weights answer ---------------------------------------
+    acc = {}
+    for name, params in (("dense", trained),
+                         ("quant-only W4", engines["quant-only"].params),
+                         ("ITERA W4 r0.5", engines["mixed"].params)):
+        hits = []
+        with torch.inference_mode():
+            for i in range(6):
+                b = task.batch(10_000 + i, 8, 64, device="cuda")
+                h, _ = tfm.forward(params, b["tokens"], cfg)
+                pred = torch.argmax(tfm.logits_for(params, h, cfg), dim=-1)
+                hits.append(float((pred == b["labels"]).float().mean()))
+        acc[name] = float(np.mean(hits))
+    check_compared(failures, "trained accuracy")
+    print("[train] held-out greedy next-token accuracy (6 x 8 x 64 at step "
+          "10,000; the lm head W8A8 in both compressed plans): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()))
+    mixed = engines["mixed"]
+    seng = InferenceEngine(cfg, mixed.params, device=mixed.device,
+                           plan=mixed.plan, max_batch=8, block_size=16,
+                           speculate=DraftSpec(**SPEC))
+    seng.serve(reqs, sp)            # captures every step shape it takes
+    res = seng.serve(reqs, sp)
+    torch.cuda.synchronize()
+    check_compared(failures, "trained speculation")
+    print(f"[train] SPEC draft (k {SPEC['k']}, rank fraction "
+          f"{SPEC['rank_fraction']}) on the trained mixed plan: drafted "
+          f"{res.drafted}, accepted {res.accepted}, accept rate "
+          f"{res.accept_rate:.4f} (random weights: 0.033); {res.steps} steps "
+          f"against {served['mixed'].steps} plain; TPOT p50 "
+          f"{res.tpot_p50 * 1e3:.2f} ms against "
+          f"{served['mixed'].tpot_p50 * 1e3:.2f}, "
+          f"{res.tokens_per_second:.1f} tok/s against "
+          f"{served['mixed'].tokens_per_second:.1f}")
+    check(failures, all(np.array_equal(a, b) for a, b in
+                        zip(res.outputs, served["mixed"].outputs)),
+          "train: the speculative tokens differ from the plain serve's")
+    return dict(build.LAUNCHES)                # ... and end here
+
+
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
     """`prompts` (equal lengths) generated on the card and on the CPU: the
     tokens must be identical; every card lowrank_qmm launch on a code path
@@ -2067,9 +2509,12 @@ def main() -> int:
     failures = []
     rect = rectangular_phase(torch, cfg, eng, eng8, qeng, failures)
     end_phase("rectangular", failures)
+    failures = []
+    trained = train_phase(torch, cfg, failures)
+    end_phase("train", failures)
     launches = {name: sum(path.get(name, 0)
                           for path in (mixed, quant, sampled, speculated,
-                                       *paths.values(), rect))
+                                       *paths.values(), rect, trained))
                 for name in build.SOURCES}
     failures = []
     graphs_phase(torch, cfg, {"mixed kv16": eng, "mixed int8 KV": eng8,

@@ -17,30 +17,20 @@ Reads the framework-neutral form the reference writes with
 The result is the port's tree: nested dicts of tensors, with every
 QuantizedTensor rebuilt with its `wl/axis/packed/act_wl` and every node
 whose fields are exactly two such tensors `w1`, `w2` as a LowRankQ. Codes
-and scales are the reference's bytes, packed nibbles included.
+and scales are the reference's bytes, packed nibbles included. The key
+scheme is `checkpoint.ckpt`'s, which also writes it.
 """
 from __future__ import annotations
 
 import json
 import os
-import re
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import SEP, key_names, latest_step
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
-
-_SEP = "|"
-_TAGS = ("k", "x", "a")
-
-
-def _name(part: str) -> str:
-    tag, sep, name = part.partition(":")
-    if not sep or tag not in _TAGS:
-        raise ValueError(f"unsupported checkpoint key part {part!r} (expected "
-                         f"one of {[t + ':' for t in _TAGS]})")
-    return name
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -51,7 +41,7 @@ def _tensor(arr, device) -> torch.Tensor:
 
 
 def _put(tree: dict, key: str, value) -> None:
-    *parents, leaf = [_name(p) for p in key.split(_SEP)]
+    *parents, leaf = key_names(key)
     node = tree
     for p in parents:
         node = node.setdefault(p, {})
@@ -81,10 +71,10 @@ def from_flat(arrays: dict, quant_formats: dict | None = None, *,
     for qkey, fmt in (quant_formats or {}).items():
         fields = {}
         for key in arrays:
-            if key.startswith(qkey + _SEP):
+            if key.startswith(qkey + SEP):
                 rest = key[len(qkey) + 1:]
-                if _SEP not in rest:
-                    fields[_name(rest)] = key
+                if SEP not in rest:
+                    fields[key_names(rest)[0]] = key
         if set(fields) != {"values", "scale"}:
             raise ValueError(f"{qkey}: a quantized node needs arrays "
                              f"'values' and 'scale', found {sorted(fields)}")
@@ -106,13 +96,10 @@ def load_checkpoint(path: str, *, device="cpu") -> dict:
     reference's `ckpt.save` (a step directory, or the directory holding
     the steps, of which the latest is read)."""
     if not os.path.exists(os.path.join(path, "manifest.json")):
-        steps = sorted(d for d in os.listdir(path)
-                       if re.fullmatch(r"step_\d+", d)
-                       and os.path.exists(os.path.join(path, d,
-                                                       "manifest.json")))
-        if not steps:
+        step = latest_step(path)
+        if step is None:
             raise FileNotFoundError(f"no checkpoint in {path}")
-        path = os.path.join(path, steps[-1])
+        path = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:

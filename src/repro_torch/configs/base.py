@@ -3,7 +3,8 @@
 Only the fields the port reads are kept: dense layouts with causal
 attention (optionally windowed; `local_global_period` only so that the
 port can refuse the local/global pairing), the whole-sequence attention's
-implementation, the MLP and norm flavors, and the KV-cache word length.
+implementation, the MLP and norm flavors, the KV-cache word length, the
+input frontend, and the training-time policy (remat, the loss's chunk).
 Field names and defaults match the reference, so a config reads the same
 in both packages.
 """
@@ -39,12 +40,21 @@ class ModelConfig:
     # MLP flavor
     mlp_act: str = "swiglu"                 # swiglu | relu2 | gelu | geglu
 
+    # modality frontend stub: "none" -> token ids; "audio"/"vision" ->
+    # precomputed frame/patch embeddings are fed directly
+    frontend: str = "none"
+
     # numerics / norms
     kv_cache_bits: int = 16                 # 16 (model dtype) | 8 (int8+scales)
     norm: str = "rmsnorm"                   # rmsnorm | layernorm
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
+
+    # training-time policy
+    remat: bool = True
+    remat_policy: str = "full"              # full | dots (save matmul outs)
+    loss_chunk: int = 2048                  # sequence-chunked loss block
 
     def __post_init__(self):
         if self.head_dim is None:

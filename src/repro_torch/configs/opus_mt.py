@@ -35,4 +35,5 @@ def smoke() -> ModelConfig:
         norm="layernorm",
         pos_emb="sinusoidal",
         dtype="float32",
+        remat=False,
     )

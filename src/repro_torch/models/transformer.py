@@ -1,5 +1,7 @@
 """Decoder-only LM (port of `repro.models.transformer`) in the dense layout:
-the whole-sequence `forward` (the calibration pass SRA runs), the
+the whole-sequence `forward` (the calibration pass SRA runs, and the
+training forward, each layer under activation checkpointing when
+`cfg.remat`), the sequence-chunked training loss (`loss_fn`), the
 rectangular path (`init_cache`, `prefill` with its decode cache,
 `decode_step`) and the serving step over the blocked KV pool.
 
@@ -15,6 +17,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
@@ -81,22 +84,38 @@ def _index(node, i: int):
     return node[i]
 
 
+def _unstack(node, n: int) -> list:
+    """A stacked tree as n per-layer trees. Dense tensors are unbound, so
+    a gradient flows back to the stacked leaf as one stack of the
+    layers' gradients."""
+    if isinstance(node, dict):
+        parts = {k: _unstack(v, n) for k, v in node.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(node, torch.Tensor):
+        return list(torch.unbind(node))
+    return [_index(node, i) for i in range(n)]
+
+
 def split_layers(params, num_layers: int):
     """`params` with its stacked "layers" tree split into a list of
     per-layer trees (views, no copies): what the engine hands the step
     so the per-layer slicing is done once."""
-    return {**params, "layers": [_index(params["layers"], i)
-                                 for i in range(num_layers)]}
+    return {**params, "layers": _unstack(params["layers"], num_layers)}
 
 
 # --------------------------------------------------------------- forward --
 def embed(params, tokens, cfg, pos0=0):
-    """tokens (B, S) int; pos0: the absolute position of tokens[:, 0], for
-    the whole batch (a host int, or a 0-dim device tensor: rectangular
-    decode) or one for each row (a (B,) int tensor: serving)."""
+    """tokens (B, S) int, or precomputed embeddings (B, S, D) (the
+    frontend stub, `data.pipeline.lift_to_embeddings`); pos0: the
+    absolute position of tokens[:, 0], for the whole batch (a host int,
+    or a 0-dim device tensor: rectangular decode) or one for each row (a
+    (B,) int tensor: serving)."""
     dtype = dtype_of(cfg.dtype)
-    h = params["embed"][tokens.long()]
-    h = h * _embed_scale(cfg.d_model, dtype)
+    if tokens.ndim == 3:
+        h = tokens.to(dtype)
+    else:
+        h = params["embed"][tokens.long()]
+        h = h * _embed_scale(cfg.d_model, dtype)
     if cfg.pos_emb == "sinusoidal":
         ar = torch.arange(tokens.shape[1], device=h.device)
         if isinstance(pos0, torch.Tensor):
@@ -145,16 +164,51 @@ def _dense_body(cfg, h, lp, *, window, return_kv=False):
     return (h, kv) if return_kv else h
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of the linears' matmuls (no
+    batch dimensions, as jax's `dots_with_no_batch_dims_saveable`), and
+    recompute the rest in the backward pass."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg, fn):
+    """fn under activation checkpointing when `cfg.remat` and gradients
+    are being recorded: "full" keeps only the layer's inputs and
+    recomputes the layer in the backward pass, "dots" also keeps its
+    matmul outputs."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be full|dots, got "
+                         f"{cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw,
+                               **kwargs)
+
+    return run
+
+
 def forward(params, tokens, cfg):
-    """Whole sequences through the dense layout: tokens (B, S) int ->
-    (final-normed hidden (B, S, D), aux loss 0.0). Layers attend causally
-    within `cfg.attn_window`. The local/global pairing and the moe, ssm
-    and hybrid layouts are not ported yet."""
+    """Whole sequences through the dense layout: tokens (B, S) int (or
+    embeddings (B, S, D)) -> (final-normed hidden (B, S, D), aux loss
+    0.0). Layers attend causally within `cfg.attn_window`. The
+    local/global pairing and the moe, ssm and hybrid layouts are not
+    ported yet."""
     _check_dense(cfg)
     window = _window_for_layer(cfg, "global")
     h = embed(params, tokens, cfg)
+    body = _maybe_remat(cfg, _dense_body)
     for lp in _layer_list(params, cfg):
-        h = _dense_body(cfg, h, lp, window=window)
+        h = body(cfg, h, lp, window=window)
     return apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps), 0.0
 
 
@@ -165,6 +219,46 @@ def lm_head_weight(params, cfg):
 def logits_for(params, h, cfg):
     out = apply_linear(h, lm_head_weight(params, cfg), out_dtype=torch.float32)
     return softcap(out, cfg.final_softcap)
+
+
+# ------------------------------------------------------------------ loss --
+def _chunk_loss(hc, yc, w, cap):
+    """sum(lse - gold) over one chunk (B, c, D) of positions, float32."""
+    logits = softcap(apply_linear(hc, w, out_dtype=torch.float32), cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_loss(params, h, labels, cfg):
+    """Mean token cross-entropy over sequence chunks of `cfg.loss_chunk`
+    positions (the largest divisor of S at most that), each chunk's
+    logits recomputed in the backward pass, so the (B, S, V) logits never
+    exist whole. The chunks' sums accumulate in order from 0.0, in
+    float32, as the reference's scan."""
+    b, s, _ = h.shape
+    c = min(cfg.loss_chunk, s)
+    while s % c:
+        c -= 1
+    w = lm_head_weight(params, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        args = (h[:, i:i + c], labels[:, i:i + c], w, cfg.final_softcap)
+        if torch.is_grad_enabled():
+            part = ckpt.checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            part = _chunk_loss(*args)
+        total = total + part
+    return total / (b * s)
+
+
+def loss_fn(params, batch, cfg, *, aux_weight=0.01):
+    """(ce + aux_weight * aux, {"ce", "aux"}) of a batch {"tokens" or
+    "inputs_embeds", "labels"}; aux is 0.0 in the dense layout."""
+    inputs = batch.get("inputs_embeds", batch.get("tokens"))
+    h, aux = forward(params, inputs, cfg)
+    ce = chunked_loss(params, h, batch["labels"], cfg)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------- rectangular decode --

@@ -1,11 +1,13 @@
-"""Counter-based random numbers for the sampler: the port's copy of the
-three `jax.random` functions the reference's sampler calls, bit for bit
-(threefry2x32, with `jax_threefry_partitionable` on, as jax 0.9 has it by
-default).
+"""Counter-based random numbers: the port's copy of the `jax.random`
+functions the reference's sampler and its synthetic data call, bit for
+bit (threefry2x32, with `jax_threefry_partitionable` on, as jax 0.9 has
+it by default).
 
     key = prng_key(seed)          # jax.random.PRNGKey(seed)
     key = fold_in(key, data)      # jax.random.fold_in(key, data)
+    k1, k2 = split(key)           # jax.random.split(key)
     u = uniform(key, minval)      # jax.random.uniform(key, (), minval=minval)
+    t = randint(key, shape, lo, hi)   # jax.random.randint(..., jnp.int32)
 
 A key is an int64 tensor (..., 2) holding two uint32 words; every word is
 kept in an int64 and masked to 32 bits after each add and shift, so the
@@ -15,6 +17,8 @@ functions broadcast over leading dimensions: one call draws a whole
 (rows, candidates) grid of keys.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -64,12 +68,45 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
-def random_bits(key: torch.Tensor) -> torch.Tensor:
-    """32 random bits of a scalar draw: the partitionable layout takes
-    the counter (0, 0) for shape () and xors the two output words."""
-    z = torch.zeros_like(key[..., 0])
-    o1, o2 = threefry2x32(key[..., 0], key[..., 1], z, z)
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split: the ciphers of the counters (0, 0..num-1) under
+    `key`, (..., num, 2)."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    o1, o2 = threefry2x32(key[..., 0, None], key[..., 1, None],
+                          torch.zeros_like(lo), lo)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """32 random bits for each element of `shape` under each key, (...,
+    *shape): the partitionable layout takes the counter (0, i) for the
+    element at flat index i and xors the two output words."""
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise ValueError(f"{n} draws need a 64-bit counter")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    lead = (*key.shape[:-1], *([1] * len(shape)))
+    o1, o2 = threefry2x32(key[..., 0].reshape(lead),
+                          key[..., 1].reshape(lead), torch.zeros_like(lo), lo)
     return o1 ^ o2
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval, jnp.int32) of one
+    key: two 32-bit draws a value (from the key's two halves), reduced
+    modulo the span in uint32 arithmetic, as jax does. int32."""
+    lo32, hi32 = -2 ** 31, 2 ** 31 - 1
+    if not (lo32 <= minval <= hi32 and lo32 <= maxval <= hi32):
+        raise ValueError(f"[{minval}, {maxval}) is not an int32 range")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = (mult * mult & MASK) % span
+    off = ((higher % span) * mult & MASK) + lower % span
+    off = (off & MASK) % span
+    return (minval + off).to(torch.int32)
 
 
 def uniform(key: torch.Tensor, minval: float = 0.0) -> torch.Tensor:

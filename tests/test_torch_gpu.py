@@ -846,3 +846,67 @@ def test_paged_attention_smem_mirror_equals_library(cuda):
                 for bs in (4, 8, 16, 32, 64, 128):
                     assert pa.smem_bytes(qt, dh, quant, bs) == \
                         lib.paged_attention_smem_bytes(qt, dh, quant, bs)
+
+
+# ------------------------------------------------------------- training --
+def _smoke_train(device, steps=3):
+    """Losses and grad norms of `steps` train steps of opus-mt smoke from
+    seed-0 weights on Markov batches, on `device`."""
+    from repro_torch.api.engine import _full_fp32, params_to
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTask
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    _full_fp32()
+    cfg = get_config("opus-mt", smoke=True)
+    opt = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=steps)
+    params = params_to(tfm.init_params(cfg, seed=0), device)
+    state = adamw.init(params, opt)
+    step = make_train_step(cfg, opt)
+    task = MarkovTask(cfg.vocab_size, seed=0)
+    out = []
+    for s in range(steps):
+        params, state, m = step(params, state,
+                                task.batch(s, 4, 32, device=device))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def test_smoke_train_step_card_equals_cpu(cuda):
+    """Three smoke train steps from the same weights and batches: the
+    card's losses and grad norms within 1e-5 relative of the CPU's."""
+    for (lg, gg), (lc, gc_) in zip(_smoke_train(cuda),
+                                   _smoke_train(torch.device("cpu"))):
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        assert abs(gg - gc_) <= 1e-5 * abs(gc_)
+
+
+def test_checkpoint_round_trip_from_cuda_tensors(cuda, tmp_path):
+    """A train state and a compressed tree on the card saved and restored
+    onto the card: equal tensors, on the card; `bridge` reads the same."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import CompressionConfig, compress_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    cfg = get_config("opus-mt", smoke=True)
+    params = tfm.init_params(cfg, seed=1, device=cuda)
+    state = {"params": params,
+             "opt": adamw.init(params, adamw.AdamWConfig(state_bits=8))}
+    comp, _ = compress_params(params, CompressionConfig(method="itera",
+                                                        weight_wl=4))
+    for name, tree in (("state", state), ("compressed", comp)):
+        ckpt.save(str(tmp_path / name), 5, tree)
+        got, step = ckpt.restore(str(tmp_path / name), tree)
+        assert step == 5
+        a, b = ckpt.flatten(tree), ckpt.flatten(got)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert b[k].device.type == "cuda" and torch.equal(a[k], b[k]), k
+    host = ckpt.flatten(bridge.load_checkpoint(str(tmp_path / "compressed")))
+    for k, v in ckpt.flatten(comp).items():
+        assert torch.equal(host[k], v.cpu()), k
