@@ -21,7 +21,11 @@ fails:
    the lm head as a cascade at decode (M 8) and in the calibration
    forward (M 2048), and the svd plan's verify pass (M 64, the lm head
    at M 48); with the rectangular phase's prefill (M 1024, both plans'
-   layer linears); with the dse phase's batch of 512 rows -- timed beside
+   layer linears); with the dse phase's batch of 512 rows; with the moe
+   phase's shapes (the W8 lm head K 2048 -> N 102,400; R 1024 cascades at
+   M 8, 32 and 2048; attention at Dh 128, 16 heads, decode and a W 256
+   prefill; both kernels over deepseek-moe-16b's E 64 expert stacks at
+   capacities 1, 30 and 240, one launch a projection) -- timed beside
    its plain version, a PyTorch library yardstick and the least time the
    card could take (its bound), with a warning line wherever the kernel
    is slower than its plain version; each linear launch also replayed
@@ -125,7 +129,22 @@ fails:
    (the kernels' plain versions) and on the card; the greedy tokens must be identical, and so must the mixed
    plan's seeded sampled and speculative tokens; the phase-3 plans also
    generate from 4 prompts of 29 tokens (bucket 32) on both, greedy at
-   kv 16 and 8 and, for the mixed plan, sampled: identical tokens.
+   kv 16 and 8 and, for the mixed plan, sampled: identical tokens;
+5. moe: deepseek-moe-16b at its published widths (d_model 2048, 16 heads
+   of 128, 64 routed experts of d_ff 1408 top-6 at capacity factor 1.25,
+   2 shared, vocab 102,400), 4 of its 28 layers, fp32, seed-0 random
+   weights, compressed on the card under the mixed and the quant-only
+   plan (the router kept float; ITERA at 4 power iterations a rank-1
+   step, one expert stack's error printed at 4 and at the default 24);
+   8 requests of 32-256 prompt tokens, 16
+   new, served captured (greedy fp32 and int8 KV, sampled) and eagerly:
+   every step launches exactly 40 lowrank_qmm + 1 quant_matmul + 4
+   paged_attention (mixed) or 41 quant_matmul + 4 paged_attention
+   (quant-only), one launch for each projection of all 64 experts;
+   captured == eager tokens and counters; the copies routed and dropped
+   by step kind; a profile of each serve; generate of 8 x 128 prompts
+   timed with exact launches; card == CPU for 4 short requests greedy
+   and sampled and for a 4 x 29 generate, under both plans.
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -134,6 +153,7 @@ card's name and power limit as nvidia-smi gives them, and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -307,6 +327,8 @@ def check_quant_matmul(torch, timer, failures):
     cases += [(packed, 512, k, n) for packed in (False, True)
               for k, n in layer]
     cases.append((False, 512, 512, 32000))
+    # the moe phase's W8 lm head (deepseek-moe-16b: K 2048 -> N 102,400)
+    cases.append((False, 8, 2048, 102400))
     for packed, m, k, n in cases:
         qm = 7 if packed else 127
         xq = torch.randint(-127, 128, (m, k), generator=g,
@@ -402,6 +424,11 @@ def check_lowrank_qmm(torch, timer, failures):
     cases += [(8, 8, 48, 512, 384, 32000)]
     cases += [(8, 8, 2048, k, r, n) for r in (192, 256, 320, 384)
               for k, n in full]
+    # the moe phase's R 1024 cascades (deepseek-moe-16b's attention, K 2048
+    # -> N 2048, and its shared experts, 2048 -> 2816 -> 2048) at each
+    # tile height a serve step takes: 8 rows (W 1, 2), 32 (W 4), 2048
+    cases += [(4, 8, m, k, 1024, n) for m in (8, 32, 2048)
+              for k, n in MOE_DENSE]
     for wl, act_wl, m, k, r, n in cases:
         x = torch.randn((m, k), generator=g, device="cuda")
         xq, sx = quantize_acts(x, qmax(act_wl))
@@ -483,6 +510,134 @@ def check_lowrank_qmm(torch, timer, failures):
     return {**main, "max_abs_err": worst}
 
 
+# deepseek-moe-16b's widths in the moe phase: the routed experts' (K, N)
+# (gate and up, down) at R 704, the linears that stay single matrices at R
+# 1024 (attention, the shared experts' gate and up, their down), and the
+# capacities of its steps that phase 2 times: a decode step (C 1), a
+# W 32 chunk (30: tile height 32) and a W 256 chunk (240)
+MOE_EXPERTS = ((2048, 1408), (1408, 2048))
+MOE_DENSE = ((2048, 2048), (2048, 2816), (2816, 2048))
+MOE_E, MOE_R_EXPERT = 64, 704
+MOE_CAPACITIES = (1, 30, 240)
+
+
+def check_expert_stacks(torch, timer, failures):
+    """Both integer kernels over deepseek-moe-16b's expert stacks, E 64,
+    one launch a projection, at the moe phase's capacities: W4 `lowrank_qmm`
+    at R 704 and W4 `quant_matmul` (the quant-only plan), packed where the
+    packing rule packs the plan's factors. Each is held bit for bit to its
+    plain version and timed as phase 2's other rows (timer and graph
+    replay); the library yardstick is the `_int_mm` chain looped over the
+    64 experts, replayed in one CUDA graph. Returns (lowrank rows, quant
+    rows)."""
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import QuantizedTensor, pack_int4, packs, qmax
+    from repro_torch.hw.h100_model import PEAK_OPS_INT8
+    from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
+                                                 lowrank_qmm_plain)
+    from repro_torch.kernels.ops import (lrmm_hbm_bytes, qmm_hbm_bytes,
+                                         quantize_acts)
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_plain)
+    from repro_torch.kernels.ref import requant_rows
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    e, r = MOE_E, MOE_R_EXPERT
+    lrows, qrows, worst = [], [], 0.0
+
+    def codes(*shape):
+        return torch.randint(-7, 8, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    def stored(c, packed):
+        return pack_int4(c) if packed else c
+
+    print(f"  expert stacks, E {e}: kernel C K [R] N packed | kernel_ms "
+          "plain_ms library_ms (looped chain, graph) bound_us (bound by) "
+          "| graph_us")
+    for c in MOE_CAPACITIES:
+        for k, n in MOE_EXPERTS:
+            x = torch.randn((e, c, k), generator=g, device="cuda")
+            xq, sx = quantize_acts(x, 127)
+            # ---- the quant-only plan's expert projection
+            wp = packs(4, n)
+            wc = codes(e, k, n)
+            sw = torch.rand((e, 1, n), generator=g, device="cuda") * 0.01
+            wq = stored(wc, wp)
+            y = quant_matmul(xq, sx, wq, sw, w_packed=wp)
+            ref = quant_matmul_plain(xq, sx, wq, sw, w_packed=wp)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            worst = max(worst, err)
+            check(failures, torch.equal(y, ref),
+                  f"quant_matmul E={e} C={c} K={k} N={n} differs from plain "
+                  f"(max abs {err})")
+
+            def q_chain():
+                for i in range(e):
+                    int_mm(torch, xq[i], wc[i]).float() * sx[i] * sw[i]
+
+            node = QuantizedTensor(wq, sw, 4, 0, packed=wp)
+            b_ms, b_by = bound(qmm_hbm_bytes(c, node), 2 * e * c * k * n,
+                               PEAK_OPS_INT8)
+            row = dict(e=e, m=c, k=k, n=n, packed=wp,
+                       ms=timer(lambda: quant_matmul(xq, sx, wq, sw,
+                                                     w_packed=wp)),
+                       plain_ms=timer(lambda: quant_matmul_plain(
+                           xq, sx, wq, sw, w_packed=wp)),
+                       library_ms=graph_ms(torch, q_chain, n=3),
+                       bound_ms=b_ms, bound_by=b_by,
+                       graph_ms=graph_ms(torch, lambda: quant_matmul(
+                           xq, sx, wq, sw, w_packed=wp)))
+            qrows.append(row)
+            print(f"    quant_matmul {c:3d} {k:4d} {n:4d} {wp!s:5} | "
+                  f"{row['ms']:.4f} {row['plain_ms']:.4f} "
+                  f"{row['library_ms']:.4f} {b_ms * 1e3:.2f} ({b_by}) | "
+                  f"{row['graph_ms'] * 1e3:.2f}")
+            # ---- the mixed plan's ITERA cascade at R 704
+            w1p, w2p = packs(4, r), packs(4, n)
+            w1c, w2c = codes(e, k, r), codes(e, r, n)
+            s1 = torch.rand((e, 1, r), generator=g, device="cuda") * 0.1
+            s2 = torch.rand((e, r, 1), generator=g, device="cuda") * 0.1
+            args = (xq, sx, stored(w1c, w1p), s1, stored(w2c, w2p), s2)
+            kw = dict(w1_packed=w1p, w2_packed=w2p, act_qmax=127)
+            y = lowrank_qmm(*args, **kw)
+            ref = lowrank_qmm_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            worst = max(worst, err)
+            check(failures, torch.equal(y, ref),
+                  f"lowrank_qmm E={e} C={c} K={k} R={r} N={n} differs from "
+                  f"plain (max abs {err})")
+
+            def l_chain():
+                for i in range(e):
+                    t = int_mm(torch, xq[i], w1c[i]).float() * sx[i] * \
+                        s1[i] * s2[i].reshape(1, -1)
+                    tq, st = requant_rows(t, qmax(8))
+                    int_mm(torch, tq, w2c[i]).float() * st
+
+            node = LowRankQ(QuantizedTensor(args[2], s1, 4, 0, packed=w1p),
+                            QuantizedTensor(args[4], s2, 4, 1, packed=w2p))
+            b_ms, b_by = bound(lrmm_hbm_bytes(c, node),
+                               2 * e * c * r * (k + n), PEAK_OPS_INT8)
+            row = dict(e=e, m=c, k=k, r=r, n=n, wl=4, act_wl=8,
+                       ms=timer(lambda: lowrank_qmm(*args, **kw)),
+                       plain_ms=timer(lambda: lowrank_qmm_plain(*args, **kw)),
+                       library_ms=graph_ms(torch, l_chain, n=3),
+                       bound_ms=b_ms, bound_by=b_by,
+                       graph_ms=graph_ms(torch,
+                                         lambda: lowrank_qmm(*args, **kw)))
+            lrows.append(row)
+            print(f"    lowrank_qmm  {c:3d} {k:4d} {r} {n:4d} "
+                  f"{w1p!s:5}/{w2p!s:5} | {row['ms']:.4f} "
+                  f"{row['plain_ms']:.4f} {row['library_ms']:.4f} "
+                  f"{b_ms * 1e3:.2f} ({b_by}) | {row['graph_ms'] * 1e3:.2f}")
+    slower_than_plain("quant_matmul", qrows, ("e", "m", "k", "n", "packed"))
+    slower_than_plain("lowrank_qmm", lrows, ("e", "m", "k", "r", "n"))
+    return lrows, qrows, worst
+
+
 def slower_than_plain(name, rows, keys) -> None:
     """A warning line for every shape where the kernel took longer than
     its plain version."""
@@ -495,7 +650,7 @@ def slower_than_plain(name, rows, keys) -> None:
 
 
 # lowrank_qmm's code paths that phase 2 held bit for bit to the plain
-# version, as (bm, K, R, N, w1_packed, w2_packed): the keys of its
+# version, as (bm, K, R, N, w1_packed, w2_packed, E): the keys of its
 # launches in build.LAUNCH_SHAPES
 COMPARED: set = set()
 # phase 2's rows by case, read by the dse phase:
@@ -512,7 +667,7 @@ def check_compared(failures, label) -> None:
     seen = {key[1:] for key in build.LAUNCH_SHAPES if key[0] == "lowrank_qmm"}
     check(failures, seen <= COMPARED,
           f"{label}: lowrank_qmm launched at (bm, K, R, N, w1_packed, "
-          f"w2_packed) {sorted(seen - COMPARED)}, which phase 2 did not "
+          f"w2_packed, E) {sorted(seen - COMPARED)}, which phase 2 did not "
           f"compare with the plain version")
 
 
@@ -536,7 +691,8 @@ def quant_launch_shapes(cfg) -> dict:
 def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
     """A span batch over a pool with random history: ragged contexts, one
     idle row; decode (w == 1), speculative verify spans of 1 + 0-4
-    drafts (w == 8), or prefill chunks up to w tokens."""
+    drafts (w == 8), or prefill chunks up to w tokens. Each row's table
+    holds the blocks of its tokens, then the trash block 0."""
     if w == 1:
         ctx = [40, 511, 0, 130, 300, 75, 220, 480]
         ql = [1, 1, 0, 1, 1, 1, 1, 1]
@@ -575,46 +731,38 @@ def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
 
 def check_paged_attention(torch, timer, failures):
     from repro_torch.hw.h100_model import PEAK_FLOPS_FP32
-    from repro_torch.kernels.paged_attention import (attention_flops,
+    from repro_torch.kernels.paged_attention import (launch_work,
                                                      paged_attention,
-                                                     span_attend_gather,
-                                                     stream_hbm_bytes)
+                                                     span_attend_gather)
 
     g = torch.Generator(device="cuda").manual_seed(3)
     rows, worst = [], 0.0
-    print("  paged_attention: W kv_bits | kernel_ms plain_ms library_ms "
+    print("  paged_attention: W kv_bits H Dh | kernel_ms plain_ms library_ms "
           "bound_us (bound by) max_abs_err")
+    # opus-mt's 8 heads of 64; the moe phase's 16 heads of 128 at decode
+    # and in a W 256 prefill
+    shapes = ((1, 8, 64), (8, 8, 64), (256, 8, 64), (1, 16, 128),
+              (256, 16, 128))
     for kv_bits in (16, 8):
-        for w in (1, 8, 256):
-            q, pool, table, ctx_t, ql_t, ctx, ql = _span_batch(torch, g, w,
-                                                               kv_bits)
-            o = paged_attention(q, pool, table, ctx_t, ql_t)
+        for w, heads, dh in shapes:
+            q, pool, table, ctx_t, _, ctx, _ = _span_batch(
+                torch, g, w, kv_bits, h=heads, dh=dh)
+            # every position of every row, past q_len and idle rows too
+            o = paged_attention(q, pool, table, ctx_t)
             ref = span_attend_gather(q, pool, table, ctx_t)
             torch.cuda.synchronize()
-            err = 0.0
-            for r, n in enumerate(ql):
-                err = max(err, float((o[r, :n] - ref[r, :n]).abs().max())
-                          if n else 0.0)
-                check(failures, not o[r, n:].any(),
-                      f"paged_attention W={w} kv{kv_bits}: row {r} not zero "
-                      f"past q_len {n}")
+            err = float((o - ref).abs().max())
             # key splits that end mid-block (40 keys of 16-slot blocks) and
             # more splits than a short row has blocks
             for kps in (40, 16):
-                o2 = paged_attention(q, pool, table, ctx_t, ql_t,
+                o2 = paged_attention(q, pool, table, ctx_t,
                                      keys_per_split=kps)
                 torch.cuda.synchronize()
-                for r, n in enumerate(ql):
-                    e2 = (float((o2[r, :n] - ref[r, :n]).abs().max())
-                          if n else 0.0)
-                    err = max(err, e2)
-                    check(failures, not o2[r, n:].any(),
-                          f"paged_attention W={w} kv{kv_bits} split {kps}: "
-                          f"row {r} not zero past q_len {n}")
+                err = max(err, float((o2 - ref).abs().max()))
             worst = max(worst, err)
             check(failures, err <= TOL_ATTN,
-                  f"paged_attention W={w} kv{kv_bits}: max abs {err} > "
-                  f"{TOL_ATTN}")
+                  f"paged_attention W={w} Dh={dh} kv{kv_bits}: max abs {err} "
+                  f"> {TOL_ATTN}")
             # yardstick: SDPA over the gathered (dequantized) K/V view
             b, _, h, dh = q.shape
             bs = pool["k"].shape[1]
@@ -633,45 +781,52 @@ def check_paged_attention(torch, timer, failures):
             mask = (torch.arange(s, device="cuda")[None, None, :]
                     <= pos[:, :, None])[:, None]
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            t_k = timer(lambda: paged_attention(q, pool, table, ctx_t, ql_t))
+            t_k = timer(lambda: paged_attention(q, pool, table, ctx_t))
             t_p = timer(lambda: span_attend_gather(q, pool, table, ctx_t))
             t_l = library_ms(timer, lambda: sdpa(qq, kk, vv, attn_mask=mask))
-            nbytes = stream_hbm_bytes(ctx, ql, bs, h, dh,
-                                      kv_bits=8 if kv_bits == 8 else 32,
-                                      n_q_heads=h)
-            b_ms, b_by = bound(nbytes, attention_flops(ctx, ql, h, dh),
-                               PEAK_FLOPS_FP32)
-            print(f"    {w:3d} kv{kv_bits} | {t_k:.4f} {t_p:.4f} "
+            nbytes, flops = launch_work(table.tolist(), ctx, w, bs, h, dh,
+                                        kv_bits=8 if kv_bits == 8 else 32,
+                                        n_q_heads=h)
+            b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS_FP32)
+            print(f"    {w:3d} kv{kv_bits} {h:2d} {dh:3d} | {t_k:.4f} "
+                  f"{t_p:.4f} "
                   f"{t_l if t_l is None else round(t_l, 4)} {b_ms * 1e3:.4f} "
                   f"({b_by}) {err:.2e}")
-            rows.append(dict(w=w, kv_bits=kv_bits, ms=t_k, plain_ms=t_p,
-                             library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+            rows.append(dict(w=w, kv_bits=kv_bits, dh=dh, ms=t_k,
+                             plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                             bound_by=b_by))
     # the serving path's most frequent call: a decode step, fp32 pool
-    main = next(r for r in rows if (r["w"], r["kv_bits"]) == (1, 16))
+    main = next(r for r in rows
+                if (r["w"], r["kv_bits"], r["dh"]) == (1, 16, 64))
     return {**main, "max_abs_err": worst}
 
 
 # ------------------------------------------------------- phases 3 and 4 --
 
-def mixed_plan(params):
+EXCLUDE = r"(embed|norm|ln|lm_head)"
+# the moe phase also keeps the router float, as the reference's default
+MOE_EXCLUDE = r"(embed|router|norm|ln|lm_head)"
+
+
+def mixed_plan(params, exclude=EXCLUDE, power_iters=24):
     from repro_torch.api.plan import CompressionPlan, LayerPlan
 
     base = CompressionPlan.uniform(params, method="itera", weight_wl=4,
-                                   rank_fraction=0.5,
-                                   exclude=r"(embed|norm|ln|lm_head)")
+                                   rank_fraction=0.5, exclude=exclude,
+                                   power_iters=power_iters)
     return base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
                                                         8),),
                         label="itera_W4A8_r0.5+lm_head_W8A8")
 
 
-def quant_plan(params):
+def quant_plan(params, exclude=EXCLUDE):
     """The paper's quantization-only baseline: W4A8 for every attention and
     MLP linear (the §V-A engine, `quant_matmul`, for all of them) and the
     mixed plan's W8A8 lm head."""
     from repro_torch.api.plan import CompressionPlan, LayerPlan
 
     base = CompressionPlan.uniform(params, method="quant", weight_wl=4,
-                                   exclude=r"(embed|norm|ln|lm_head)")
+                                   exclude=exclude)
     return base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
                                                         8),),
                         label="quant_W4A8+lm_head_W8A8")
@@ -1374,7 +1529,7 @@ def model_row(key, engine, wl, failures) -> dict:
             m, k, n, r, weight_wl=wl, launch_s=0.0).latency_s)
         lib = build.load("lowrank_qmm", lr._SIGNATURES)
         t = lr.choose_tiles(m, r, n, sms, lib.lrmm_smem_bytes)
-        check(failures, (t.bm, k, r, n, w1p, w2p) in COMPARED,
+        check(failures, (t.bm, k, r, n, w1p, w2p, 1) in COMPARED,
               f"dse: {key}: phase 2 launched no bm {t.bm} partition")
         t1 = qm.choose_tiles(m, k, r, w1p, sms, qlib.qmm_smem_bytes)
         t2 = qm.choose_tiles(m, r, n, w2p, sms, qlib.qmm_smem_bytes)
@@ -2330,6 +2485,259 @@ def train_phase(torch, cfg, failures):
     return dict(build.LAUNCHES)                # ... and end here
 
 
+# ------------------------------------------------------------ moe phase --
+MOE_DEPTH = 4            # of deepseek-moe-16b's 28 layers
+# ITERA's power iterations a rank-1 step in the moe phase (the plans'
+# default is 24), for the phase's time: it compresses 4 x 3 stacks of 64
+# experts at R 704 on the card. The phase prints one stack's error at
+# both counts.
+MOE_POWER_ITERS = 4
+
+
+def moe_launches(cfg, plan: str) -> dict:
+    """Kernel launches of one serve step (or one generate pass, less
+    attention) of the moe model: each layer's 4 attention linears, its 3
+    expert projections (one launch for all experts each) and its 3 shared
+    ones, and the lm head."""
+    n = cfg.num_layers * (4 + 3 + 3)
+    if plan == "mixed":
+        return {"lowrank_qmm": n, "quant_matmul": 1,
+                "paged_attention": cfg.num_layers}
+    return {"quant_matmul": n + 1, "paged_attention": cfg.num_layers}
+
+
+def expert_bytes(params) -> int:
+    """Device bytes of every layer's routed-expert stacks (codes and
+    scales): what a decode step's expert launches must stream."""
+    from repro_torch.core.compress import flatten
+
+    total = 0
+    for path, leaf in flatten(params).items():
+        if "/experts/" not in path:
+            continue
+        for q in ([leaf.w1, leaf.w2] if hasattr(leaf, "w1") else [leaf]):
+            total += (q.values.numel() * q.values.element_size()
+                      + q.scale.numel() * 4)
+    return total
+
+
+@contextlib.contextmanager
+def routed_copies(moe):
+    """Every `moe.route` call's (tokens, capacity, target rows) inside the
+    block, by wrapping the function `moe_apply` calls: an eager run calls
+    it in every step, a captured step only at its capture."""
+    records, real = [], moe.route
+
+    def route(params, xt, cfg, capacity):
+        out = real(params, xt, cfg, capacity)
+        records.append((xt.shape[0], capacity, out[4]))
+        return out
+
+    moe.route = route
+    try:
+        yield records
+    finally:
+        moe.route = real
+
+
+def routing_stats(records, num_experts: int) -> dict:
+    """{tokens of a call: [calls, copies routed, copies dropped]} over
+    `routed_copies`' records (a decode step's calls have max_batch
+    tokens, a prefill chunk's more); a dropped copy's target is the dump
+    row E * C."""
+    out: dict = {}
+    for t, cap, tgt in records:
+        row = out.setdefault(t, [0, 0, 0])
+        row[0] += 1
+        row[1] += tgt.numel()
+        row[2] += int((tgt == num_experts * cap).sum())
+    return out
+
+
+def moe_phase(torch, failures):
+    """deepseek-moe-16b at its published widths, 4 of its 28 layers, fp32,
+    seed-0 random weights, compressed on the card under the mixed and the
+    quant-only plan; served captured (greedy fp32 and int8 KV, sampled)
+    and eagerly, with every step's launches checked exactly; routing
+    statistics by step kind; generate timed and held to the CPU's; card ==
+    CPU serves of 4 short requests. Returns the phase's launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        params_to)
+    from repro_torch.configs import get_config
+    from repro_torch.core.itera import itera_decompose, reconstruction_error
+    from repro_torch.hw.h100_model import HBM_BW
+    from repro_torch.kernels import build
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=MOE_DEPTH, dtype="float32")
+    m = cfg.moe
+    print(f"[moe] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}, {m.num_experts} experts of d_ff {cfg.d_ff} "
+          f"top-{m.top_k} + {m.num_shared} shared, capacity factor "
+          f"{m.capacity_factor}, vocab {cfg.vocab_size}; depth "
+          f"{cfg.num_layers} of 28, {cfg.dtype}: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{cfg.active_param_count() / 1e9:.3f} B active a token")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[moe] dense fp32 weights made on the card in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # one stack of routed experts (layer 0's up projection, r0.5) under
+    # ITERA W4 at the phase's power iterations and at the default
+    w = params["layers"]["moe"]["experts"]["up"][0]
+    for iters in (MOE_POWER_ITERS, 24):
+        t0 = time.perf_counter()
+        lr = itera_decompose(w, min(w.shape[-2:]) // 2, 4,
+                             power_iters=iters)
+        err = float(reconstruction_error(w, lr))
+        print(f"[moe] layer 0 experts/up {tuple(w.shape)}, ITERA W4 R "
+              f"{lr.rank}, {iters} power iterations: relative error "
+              f"{err:.6f}, {time.perf_counter() - t0:.1f} s")
+    del w, lr
+    engines = {}
+    for name, plan in (
+            ("mixed", mixed_plan(params, MOE_EXCLUDE,
+                                 power_iters=MOE_POWER_ITERS)),
+            ("quant-only", quant_plan(params, MOE_EXCLUDE))):
+        t0 = time.perf_counter()
+        eng = InferenceEngine.build(cfg, plan, params=params, device="cuda",
+                                    max_batch=8, block_size=16)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(failures, not any("router" in lp.path for lp in eng.plan.layers),
+              f"moe {name}: the router was compressed")
+        print(f"[moe] {name} ({eng.plan.label}): compressed on the card in "
+              f"{secs:.1f} s; weights {eng.weight_hbm_bytes() / 2**20:.1f} "
+              f"MiB, routed experts {expert_bytes(eng.params) / 2**20:.1f} "
+              f"MiB; {eng.report.summary()}")
+        engines[name] = eng
+    del params, eng
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(32, 257, 8)]
+    sp = SamplingParams(max_tokens=16)
+    sampled = SamplingParams(max_tokens=16, temperature=0.8, top_k=50,
+                             top_p=0.9, seed=7)
+    launches: collections.Counter = collections.Counter()
+    prompts = rng.integers(1, cfg.vocab_size, (8, 128)).astype(np.int32)
+    for name, eng in engines.items():
+        plan = "mixed" if name == "mixed" else "quant"
+        per_step = moe_launches(cfg, plan)
+        c8 = dataclasses.replace(cfg, kv_cache_bits=8)
+        eng8 = InferenceEngine(c8, eng.params, device=eng.device,
+                               plan=eng.plan, max_batch=8, block_size=16)
+        eager = InferenceEngine(cfg, eng.params, device=eng.device,
+                                plan=eng.plan, max_batch=8, block_size=16,
+                                cuda_graphs=False)
+        # warm-up: every step shape of the timed serves captured first
+        for e, s in ((eng, sp), (eng8, sp), (eng, sampled)):
+            e.serve(reqs, s)
+        torch.cuda.synchronize()
+        runs = {}
+        for label, e, s in (("greedy kv16", eng, sp),
+                            ("greedy int8 KV", eng8, sp),
+                            ("sampled kv16", eng, sampled),
+                            ("greedy kv16 eager", eager, sp)):
+            build.reset_launches()
+            # the routing of every step, from the eager run (a captured
+            # step records only at its capture)
+            with (routed_copies(moe) if e is eager
+                  else contextlib.nullcontext([])) as rec:
+                res = e.serve(reqs, s)
+                torch.cuda.synchronize()
+            counts, shapes = dict(build.LAUNCHES), dict(build.LAUNCH_SHAPES)
+            launches.update(counts)
+            runs[label] = (res, counts, shapes, rec)
+            check_compared(failures, f"moe {name} {label}")
+            want = {k: v * res.steps for k, v in per_step.items()}
+            check(failures, counts == want,
+                  f"moe {name} {label}: launches {counts} over {res.steps} "
+                  f"steps, expected {per_step} a step")
+            out = np.stack(res.outputs)
+            check(failures, out.shape == (len(reqs), s.max_tokens) and bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()),
+                f"moe {name} {label}: outputs {out.shape} out of range")
+            print(f"[moe] {name} {label}: {res.total_tokens} tokens, prompts "
+                  f"{min(res.prompt_lens)}-{max(res.prompt_lens)}, "
+                  f"{res.steps} steps; TPOT p50 {res.tpot_p50 * 1e3:.2f} ms, "
+                  f"TTFT p50 {res.ttft_p50 * 1e3:.1f} ms, "
+                  f"{res.tokens_per_second:.1f} tok/s; launches {counts} "
+                  f"({', '.join(f'{k} {v}' for k, v in per_step.items())} "
+                  "a step)")
+        (cap, ccounts, cshapes, _) = runs["greedy kv16"]
+        (eag, ecounts, eshapes, rec) = runs["greedy kv16 eager"]
+        check(failures, all(np.array_equal(a, b) for a, b in
+                            zip(cap.outputs, eag.outputs)),
+              f"moe {name}: eager and captured serve tokens differ")
+        check(failures, (ecounts, eshapes) == (ccounts, cshapes),
+              f"moe {name}: eager and captured launch counters differ")
+        for t, (calls, routed, dropped) in sorted(
+                routing_stats(rec, m.num_experts).items()):
+            kind = ("decode" if t == eng.max_batch
+                    else f"prefill W {t // eng.max_batch}")
+            print(f"[moe] {name} routing, {kind} steps ({t} positions, "
+                  f"capacity {moe.capacity_for(t, cfg)}): {calls // MOE_DEPTH}"
+                  f" steps, {routed} copies routed, {dropped} dropped "
+                  f"({100 * dropped / max(routed, 1):.1f}%)")
+        nbytes = expert_bytes(eng.params)
+        print(f"[moe] {name}: a decode step's expert launches stream "
+              f"{nbytes / 1e9:.4f} GB ({nbytes / MOE_DEPTH / 1e6:.1f} MB a "
+              f"layer): at least {nbytes / HBM_BW * 1e3:.4f} ms at "
+              f"{HBM_BW / 1e12:.2f} TB/s; TPOT p50 "
+              f"{cap.tpot_p50 * 1e3:.2f} ms")
+        profile_run(torch, lambda: eng.serve(reqs, sp).steps,
+                    f"moe {name} serve")
+        # generate: 8 prompts of 128 tokens, 16 new (one prefill, 15
+        # decode passes); launches exact, no paged attention
+        eng.generate(prompts, SamplingParams(max_tokens=2))    # warm-up
+        torch.cuda.synchronize()
+        build.reset_launches()
+        res = eng.generate(prompts, sp)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        launches.update(counts)
+        check_compared(failures, f"moe {name} generate")
+        want = {k: v * sp.max_tokens for k, v in per_step.items()
+                if k != "paged_attention"}
+        check(failures, counts == want,
+              f"moe {name} generate: launches {counts}, expected {want}")
+        print(f"[moe] {name} generate 8 x 128, 16 new: {res.seconds * 1e3:.1f}"
+              f" ms, {res.tokens_per_second:.1f} tok/s; launches {counts}")
+        del eng8, eager
+
+    # card == CPU: the same compressed tensors on the CPU (plain versions)
+    short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in (16, 27, 38, 48)]
+    rect = rng.integers(1, cfg.vocab_size, (4, 29)).astype(np.int32)
+    sp8 = SamplingParams(max_tokens=8)
+    sampled8 = SamplingParams(max_tokens=8, temperature=0.8, top_k=50,
+                              top_p=0.9, seed=7)
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        cpu = InferenceEngine(cfg, params_to(eng.params, "cpu"),
+                              device=torch.device("cpu"), plan=eng.plan,
+                              max_batch=8, block_size=16)
+        parity(torch, f"moe {name} kv16", eng, cpu, short, sp8, failures)
+        parity(torch, f"moe {name} kv16 sampled", eng, cpu, short, sampled8,
+               failures)
+        generate_parity(torch, f"moe {name}", eng, cpu, rect, sp8, failures)
+        print(f"[moe] {name}: CPU parity in {time.perf_counter() - t0:.1f} s")
+        del cpu
+    print(f"[moe] phase took {time.perf_counter() - t_phase:.1f} s")
+    engines.clear()
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
     """`prompts` (equal lengths) generated on the card and on the CPU: the
     tokens must be identical; every card lowrank_qmm launch on a code path
@@ -2421,6 +2829,9 @@ def main() -> int:
     kern = {"quant_matmul": check_quant_matmul(torch, timer, failures),
             "lowrank_qmm": check_lowrank_qmm(torch, timer, failures),
             "paged_attention": check_paged_attention(torch, timer, failures)}
+    _, _, worst = check_expert_stacks(torch, timer, failures)
+    for name in ("quant_matmul", "lowrank_qmm"):
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
     COMPARED.update(key[1:] for key in build.LAUNCH_SHAPES
                     if key[0] == "lowrank_qmm")
     end_phase("kernels", failures)
@@ -2566,7 +2977,16 @@ def main() -> int:
                failures)
     end_phase("parity", failures)
 
-    # ---- result ----------------------------------------------------------
+    # ---- the mixture-of-experts layout ------------------------------------
+    failures = []
+    for name, n in moe_phase(torch, failures).items():
+        launches[name] += n
+    end_phase("moe", failures)
+    return finish(torch, kern, launches)
+
+
+def finish(torch, kern, launches) -> int:
+    """Print the kernels' line, the card and the result; exit code 0."""
     srcs = {"quant_matmul": ("quant_matmul.cu", "quant_matmul.py:74"),
             "lowrank_qmm": ("lowrank_qmm.cu", "lowrank_qmm.py:93"),
             "paged_attention": ("paged_attention.cu",

@@ -1,11 +1,13 @@
-"""Architecture registry of the port. Only opus-mt is ported so far; the
+"""Architecture registry of the port: opus-mt (dense) and the two
+mixture-of-experts architectures, deepseek-moe-16b and mixtral-8x22b. The
 other architectures of `repro.configs` come with later slices."""
 from __future__ import annotations
 
-from repro_torch.configs import opus_mt
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import deepseek_moe_16b, mixtral_8x22b, opus_mt
+from repro_torch.configs.base import ModelConfig, MoEConfig
 
-_MODULES = {"opus-mt": opus_mt}
+_MODULES = {"opus-mt": opus_mt, "deepseek-moe-16b": deepseek_moe_16b,
+            "mixtral-8x22b": mixtral_8x22b}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -15,4 +17,4 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.full()
 
 
-__all__ = ["ModelConfig", "get_config"]
+__all__ = ["ModelConfig", "MoEConfig", "get_config"]

@@ -1,12 +1,13 @@
 """Model configuration schema (the port's copy of `repro.configs.base`).
 
-Only the fields the port reads are kept: dense layouts with causal
-attention (optionally windowed; `local_global_period` only so that the
-port can refuse the local/global pairing), the whole-sequence attention's
-implementation, the MLP and norm flavors, the KV-cache word length, the
-input frontend, and the training-time policy (remat, the loss's chunk).
-Field names and defaults match the reference, so a config reads the same
-in both packages.
+Only the fields the port reads are kept: the dense and mixture-of-experts
+layouts with causal attention (optionally windowed; `local_global_period`
+only so that the port can refuse the local/global pairing), the
+whole-sequence attention's implementation, the MLP and norm flavors, the
+experts (`MoEConfig`), the KV-cache word length, the input frontend, and
+the training-time policy (remat, the loss's chunk). Field names and
+defaults match the reference, so a config reads the same in both
+packages.
 """
 from __future__ import annotations
 
@@ -15,9 +16,18 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    num_shared: int = 0            # shared (always-on) experts, deepseek-style
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    layout: str = "dense"          # dense (the only layout ported so far)
+    layout: str = "dense"          # dense | moe (ssm, hybrid not ported)
     num_layers: int = 4
     d_model: int = 256
     num_heads: int = 4
@@ -40,6 +50,9 @@ class ModelConfig:
     # MLP flavor
     mlp_act: str = "swiglu"                 # swiglu | relu2 | gelu | geglu
 
+    # mixture-of-experts block (layout "moe")
+    moe: Optional[MoEConfig] = None
+
     # modality frontend stub: "none" -> token ids; "audio"/"vision" ->
     # precomputed frame/patch embeddings are fed directly
     frontend: str = "none"
@@ -59,3 +72,34 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), by the
+        reference's formula."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        n = V * d
+        if not self.tie_embeddings:
+            n += V * d
+        hd = self.head_dim
+        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+            + self.num_heads * hd * d
+        mlp = self._mlp_mats() * d * self.d_ff
+        if self.layout == "dense":
+            return n + L * (attn + mlp)
+        if self.layout == "moe":
+            e = self.moe.num_experts + self.moe.num_shared
+            return n + L * (attn + e * mlp + d * self.moe.num_experts)
+        raise NotImplementedError(f"layout {self.layout!r} is not ported yet")
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (moe: the top-k and shared experts
+        only)."""
+        if self.layout != "moe":
+            return self.param_count()
+        mlp = self._mlp_mats() * self.d_model * self.d_ff
+        e_all = self.moe.num_experts + self.moe.num_shared
+        e_act = self.moe.top_k + self.moe.num_shared
+        return self.param_count() - self.num_layers * (e_all - e_act) * mlp
+
+    def _mlp_mats(self) -> int:
+        return 3 if self.mlp_act in ("swiglu", "geglu") else 2

@@ -101,12 +101,12 @@ def pack_int4(codes: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of pack_int4 (sign-extends each nibble)."""
-    p = packed.to(torch.int32)
-    lo = p & 0x0F
-    hi = (p >> 4) & 0x0F
+    """Inverse of pack_int4 (sign-extends each nibble), in int8: the low
+    nibble shifted to the top and arithmetically back, the high nibble
+    shifted down arithmetically."""
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(packed, 4), 4)
+    hi = torch.bitwise_right_shift(packed, 4)
     out = torch.stack([lo, hi], dim=-1)
-    out = torch.where(out >= 8, out - 16, out).to(torch.int8)
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
 
 

@@ -13,8 +13,9 @@ through the kernels; `quant_matmul` also counts them by (K, N) in
 `LAUNCH_SHAPES`, which shows which linears a plan sent through it, and
 `lowrank_qmm` by its (padded) rank R in `LAUNCH_RANKS`, which shows the
 speculative draft's truncated cascades ran, and by (bm, K, R, N,
-w1_packed, w2_packed) in `LAUNCH_SHAPES` (bm the tile rows its partition
-chose), which shows which of the kernel's code paths a run took.
+w1_packed, w2_packed, E) in `LAUNCH_SHAPES` (bm the tile rows its
+partition chose, E the experts of a stacked launch, 1 for one matrix),
+which shows which of the kernel's code paths a run took.
 """
 from __future__ import annotations
 

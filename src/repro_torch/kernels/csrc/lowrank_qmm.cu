@@ -43,6 +43,13 @@
 // registers a thread and about 100 KB of shared memory at R 256, so two
 // fit an SM and all 16 clusters of a decode launch are resident at once.
 //
+// Expert stacks: a mixture-of-experts layer runs one projection of all E
+// experts as ONE launch, as the reference's vmap adds a grid axis to its
+// pallas_call. The grid's z axis is the expert: CTA (x, y, z) reads and
+// writes expert z's slice of every operand (contiguous (E, ...) stacks of
+// the 2-D shapes), and clusters stay along x, so each expert's launch is
+// the single-matrix launch unchanged; E = 1 is exactly that launch.
+//
 // Loads: every tile (Xq and W1 for phase 1, W2 for phase 2) streams
 // through one ring of STAGES shared-memory stages with 16-byte cp.async,
 // issued STAGES-1 steps ahead, so the copies of the next steps (phase 2's
@@ -146,6 +153,16 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int Cr = C / Cn, ir = rank / Cn, in = rank % Cn;
   // peers write into this CTA's shared memory only once all have started
   cluster_arrive();
+  {  // expert blockIdx.z's slice of each stacked operand
+    const size_t e = blockIdx.z;
+    xq += e * M * K;
+    sx += e * M;
+    w1 += e * K * (w1_packed ? R / 2 : R);
+    s1 += e * R;
+    w2 += e * R * (w2_packed ? N / 2 : N);
+    s2 += e * R;
+    y += e * M * N;
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -403,7 +420,7 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 template <int BM, int RS>
 int launch(const int8_t* xq, const float* sx, const int8_t* w1,
            const float* s1, const int8_t* w2, const float* s2, float* y,
-           int M, int K, int R, int N, int w1p, int w2p, int qm, int C,
+           int E, int M, int K, int R, int N, int w1p, int w2p, int qm, int C,
            int Cn, int Ncl, cudaStream_t stream) {
   const int sw = Ncl / Cn;
   const Layout L = layout(BM, RS, C, Cn, sw < NC ? sw : NC);
@@ -413,7 +430,7 @@ int launch(const int8_t* xq, const float* sx, const int8_t* w1,
       static_cast<int>(L.total));
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * ((N + Ncl - 1) / Ncl), (M + BM - 1) / BM, 1);
+  cfg.gridDim = dim3(C * ((N + Ncl - 1) / Ncl), (M + BM - 1) / BM, E);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = stream;
@@ -446,19 +463,22 @@ extern "C" long long lrmm_smem_bytes(int bm, int rs, int c, int cn,
 // Shapes: K % 16 == 0, R % 32 == 0, N % 32 == 0, pointers 16-byte
 // aligned; bm in {16, 32, 64}, rs in {32, 64, 128} with C * rs >= R;
 // C in {1, 2, 4, 8} CTAs per cluster, cn | C, ncl a multiple of 32 * cn.
-// The grid is C * ceil(N / ncl) CTAs along x by ceil(M / bm) along y.
-// Returns the launch's CUDA error.
+// The grid is C * ceil(N / ncl) CTAs along x by ceil(M / bm) along y by
+// E experts along z: every operand is a contiguous stack of E matrices
+// (xq (E, M, K), sx (E, M), w1 (E, K, R), s1 and s2 (E, R), w2 (E, R, N),
+// y (E, M, N); packed widths halved). Returns the launch's CUDA error.
 extern "C" int lrmm_launch(const int8_t* xq, const float* sx,
                            const int8_t* w1, const float* s1,
-                           const int8_t* w2, const float* s2, float* y, int M,
-                           int K, int R, int N, int w1_packed, int w2_packed,
-                           int act_qmax, int bm, int rs, int C, int cn,
-                           int ncl, void* stream) {
+                           const int8_t* w2, const float* s2, float* y, int E,
+                           int M, int K, int R, int N, int w1_packed,
+                           int w2_packed, int act_qmax, int bm, int rs, int C,
+                           int cn, int ncl, void* stream) {
+  if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LRMM_CASE(BM, RS)                                                   \
   if (bm == BM && rs == RS)                                                 \
-    return launch<BM, RS>(xq, sx, w1, s1, w2, s2, y, M, K, R, N, w1_packed, \
-                          w2_packed, act_qmax, C, cn, ncl, s);
+    return launch<BM, RS>(xq, sx, w1, s1, w2, s2, y, E, M, K, R, N,         \
+                          w1_packed, w2_packed, act_qmax, C, cn, ncl, s);
   LRMM_CASE(16, 32) LRMM_CASE(16, 64) LRMM_CASE(16, 128)
   LRMM_CASE(32, 32) LRMM_CASE(32, 64) LRMM_CASE(32, 128)
   LRMM_CASE(64, 32) LRMM_CASE(64, 64) LRMM_CASE(64, 128)

@@ -4,14 +4,15 @@
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py::
 // paged_attention (body `_kernel`). Query rows are (span position w, group
 // member g) pairs of one kv head, W*G of them per batch row. Row (w, g)
-// sits at position ctx + w and sees key slot kpos iff kpos <= ctx + w. The
-// kernel walks the row's block table by physical block id, visiting only
-// the ceil((ctx + q_len) / bs) valid blocks and never an entry at or past
-// that count (the trash-block padding). Scores are (q . k) * Dh^-0.5,
-// optionally tanh-softcapped, under an online softmax (running max,
-// denominator, numerator). int8 K/V are dequantized as (float)code * scale,
-// the reference's order. Idle rows (q_len == 0) and span positions past
-// q_len write zeros.
+// sits at position ctx + w and sees key slot kpos iff kpos <= ctx + w, over
+// the row's whole block-table view (MB * bs slots). That is the reference's
+// gather oracle (`models.attention._span_attend_gather`) at every span
+// position: past q_len, and in idle rows, too, whose values a
+// mixture-of-experts layer routes. The kernel walks the row's block table
+// by physical block id and visits no block past the last key its tile
+// sees. Scores are (q . k) * Dh^-0.5, optionally tanh-softcapped, under an
+// online softmax (running max, denominator, numerator). int8 K/V are
+// dequantized as (float)code * scale, the reference's order.
 //
 // The arithmetic after the fp32 inputs is float64, rounded once to fp32
 // at the output, as in the plain version (kernels/paged_attention.py).
@@ -47,8 +48,8 @@
 // - Prefill tiles (QT = 64 rows, 16 per warp): S = Q.K^T and O += P.V run
 //   on the FP64 tensor cores (mma.sync m8n8k4 .f64). A product of two
 //   fp32 values is exact in float64, so the float64 semantics stay. A warp
-//   whose rows all lie past the span, or a 32-key chunk that none of its
-//   rows sees (above the causal diagonal), is skipped. What remains is
+//   with no rows in the tile (past W * G), or a 32-key chunk that none of
+//   its rows sees (above the causal diagonal), is skipped. What remains is
 //   bound by the float64 exp of the softmax on the FP64 pipes, then by the
 //   products; the wrapper cuts long tiles into splits so that they do not
 //   hold the launch up.
@@ -142,7 +143,7 @@ struct Tile {
 
 __device__ __forceinline__ Tile locate(int cta, int tiles, int qt, int W,
                                        int H, int Hk, int bs, int MB,
-                                       const int* ctxs, const int* qls) {
+                                       const int* ctxs) {
   Tile t;
   const int tile = cta % tiles;
   t.hk = (cta / tiles) % Hk;
@@ -150,14 +151,9 @@ __device__ __forceinline__ Tile locate(int cta, int tiles, int qt, int W,
   t.G = H / Hk;
   t.row0 = tile * qt;
   t.ctx = ctxs[t.b];
-  const int ql = qls[t.b];
-  t.active = min(qt, max(0, ql * t.G - t.row0));  // valid rows of the tile
-  t.tile_keys = 0;
-  if (t.active > 0) {
-    const int nb = min((t.ctx + ql + bs - 1) / bs, MB);
-    const int last_pos = t.ctx + (t.row0 + t.active - 1) / t.G;
-    t.tile_keys = min(last_pos + 1, nb * bs);
-  }
+  t.active = min(qt, W * t.G - t.row0);  // rows of the tile
+  const int last_pos = t.ctx + (t.row0 + t.active - 1) / t.G;
+  t.tile_keys = min(last_pos + 1, MB * bs);
   return t;
 }
 
@@ -168,24 +164,12 @@ __device__ __forceinline__ float* out_row(float* out, const Tile& t, int i,
   return out + (((size_t)t.b * W + r / t.G) * H + t.hk * t.G + r % t.G) * dh;
 }
 
-// Zeros for tile rows past the span (their outputs exist but are unused).
-__device__ __forceinline__ void zero_tail(float* out, const Tile& t, int qt,
-                                          int W, int H, int dh) {
-  const int WG = W * t.G;
-  for (int idx = threadIdx.x; idx < qt * dh; idx += THREADS) {
-    const int i = idx / dh;
-    if (i >= t.active && t.row0 + i < WG)
-      out_row(out, t, i, W, H, dh)[idx % dh] = 0.0f;
-  }
-}
-
 template <int DH, bool QUANT, int QT>
 __global__ void __launch_bounds__(THREADS)
 attend_kernel(const float* __restrict__ q, const void* __restrict__ kp,
               const void* __restrict__ vp, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ bt,
-              const int* __restrict__ ctxs, const int* __restrict__ qls,
-              float* __restrict__ out, double* __restrict__ ws_ml,
+              const int* __restrict__ ctxs, float* __restrict__ out, double* __restrict__ ws_ml,
               double* __restrict__ ws_acc, int W, int H, int Hk, int bs,
               int MB, int kps, int tiles, double scale, double cap) {
   constexpr bool DECODE = QT <= 16;
@@ -195,10 +179,9 @@ attend_kernel(const float* __restrict__ q, const void* __restrict__ kp,
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = gridDim.y, split = blockIdx.y;
   const int cta = blockIdx.x * S + split;
-  const Tile tl = locate(blockIdx.x, tiles, QT, W, H, Hk, bs, MB, ctxs, qls);
-  if (S == 1) zero_tail(out, tl, QT, W, H, DH);
+  const Tile tl = locate(blockIdx.x, tiles, QT, W, H, Hk, bs, MB, ctxs);
   const int k_lo = split * kps;
-  if (tl.active == 0 || k_lo >= tl.tile_keys) return;
+  if (k_lo >= tl.tile_keys) return;
   const int k_hi = min(k_lo + kps, tl.tile_keys);
 
   float* Qs = reinterpret_cast<float*>(smem);
@@ -383,7 +366,7 @@ attend_kernel(const float* __restrict__ q, const void* __restrict__ kp,
       }
     } else {
       // ---- prefill: 32 keys at a time on the FP64 tensor cores -----------
-      // a warp whose 16 rows are all past the span, or a 32-key chunk that
+      // a warp with none of its 16 rows in the tile, or a 32-key chunk that
       // none of its rows sees, skips the work (warp-uniform)
       if (warp * 16 >= tl.active) continue;
       const int last_row = min(warp * 16 + 15, tl.active - 1);
@@ -524,7 +507,7 @@ attend_kernel(const float* __restrict__ q, const void* __restrict__ kp,
 }
 
 // Combine the splits of each tile row in split order (m, l, acc ->
-// acc_total / l_total) and round once to fp32; zeros past the span. A CTA
+// acc_total / l_total) and round once to fp32. A CTA
 // takes CR rows of a tile: the splits' (m, l) are loaded at once, one
 // thread a row derives the split factors exp(m_j - M) and l_total in split
 // order, then every (row, dim) of the CTA sums its acc_j in split order.
@@ -538,21 +521,15 @@ template <int DH, int QT>
 __global__ void __launch_bounds__(CTHREADS)
 combine_kernel(const double* __restrict__ ws_ml,
                const double* __restrict__ ws_acc, const int* __restrict__ ctxs,
-               const int* __restrict__ qls, float* __restrict__ out, int W,
-               int H, int Hk, int bs, int MB, int kps, int S, int tiles) {
+               float* __restrict__ out, int W, int H, int Hk, int bs, int MB,
+               int kps, int S, int tiles) {
   extern __shared__ double cs[];
   double* ml = cs;                 // CR x S (m, l) pairs
   double* fac = ml + CR * S * 2;   // CR x S factors exp(m_j - M)
   double* tot = fac + CR * S;      // CR denominators
-  const Tile tl = locate(blockIdx.x, tiles, QT, W, H, Hk, bs, MB, ctxs, qls);
+  const Tile tl = locate(blockIdx.x, tiles, QT, W, H, Hk, bs, MB, ctxs);
   const int r0 = blockIdx.y * CR, tid = threadIdx.x;
-  const int WG = W * tl.G, rows = max(0, min(CR, tl.active - r0));
-  // rows of this CTA past the span: zeros
-  for (int idx = tid; idx < CR * DH; idx += CTHREADS) {
-    const int i = r0 + idx / DH;
-    if (i >= tl.active && i < QT && tl.row0 + i < WG)
-      out_row(out, tl, i, W, H, DH)[idx % DH] = 0.0f;
-  }
+  const int rows = max(0, min(CR, tl.active - r0));
   if (rows == 0) return;
   const int ns = (tl.tile_keys + kps - 1) / kps;  // splits that ran
   const size_t base = (size_t)blockIdx.x * S;
@@ -587,8 +564,7 @@ combine_kernel(const double* __restrict__ ws_ml,
 
 template <int DH, bool QUANT, int QT>
 int launch(const float* q, const void* k, const void* v, const float* ks,
-           const float* vs, const int* bt, const int* ctx, const int* ql,
-           float* out, double* ws_ml, double* ws_acc, int B, int W, int H,
+           const float* vs, const int* bt, const int* ctx, float* out, double* ws_ml, double* ws_acc, int B, int W, int H,
            int Hk, int bs, int MB, int kps, int S, double scale, double cap,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(QT, DH, QUANT, bs);
@@ -599,7 +575,7 @@ int launch(const float* q, const void* k, const void* v, const float* ks,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (W * (H / Hk) + QT - 1) / QT;
   const dim3 grid(B * Hk * tiles, S);
-  kern<<<grid, THREADS, smem, stream>>>(q, k, v, ks, vs, bt, ctx, ql, out,
+  kern<<<grid, THREADS, smem, stream>>>(q, k, v, ks, vs, bt, ctx, out,
                                         ws_ml, ws_acc, W, H, Hk, bs, MB, kps,
                                         tiles, scale, cap);
   e = cudaGetLastError();
@@ -612,8 +588,8 @@ int launch(const float* q, const void* k, const void* v, const float* ks,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   combine_kernel<DH, QT><<<dim3(B * Hk * tiles, QT / CR), CTHREADS, csmem,
-                           stream>>>(ws_ml, ws_acc, ctx, ql, out, W, H, Hk,
-                                     bs, MB, kps, S, tiles);
+                           stream>>>(ws_ml, ws_acc, ctx, out, W, H, Hk, bs,
+                                     MB, kps, S, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,7 +604,7 @@ extern "C" long long paged_attention_smem_bytes(int qt, int dh, int quant,
 
 // q (B, W, H, Dh) f32; k/v (NB, bs, Hk, Dh) f32, or int8 with ks/vs
 // (NB, bs, Hk, 1) f32 scales when quant != 0; block_table (B, MB) i32;
-// ctx_lens, q_lens (B,) i32; out (B, W, H, Dh) f32. Dh in {32, 64, 128};
+// ctx_lens (B,) i32; out (B, W, H, Dh) f32. Dh in {32, 64, 128};
 // qt (query rows per tile) 16 or 64; each tile's keys go to
 // ceil(keys / kps) CTAs of S; with S > 1, ws_ml (tiles x S x qt x 2) and
 // ws_acc (tiles x S x qt x Dh) float64 hold their partials. Returns the
@@ -636,20 +612,20 @@ extern "C" long long paged_attention_smem_bytes(int qt, int dh, int quant,
 extern "C" int paged_attention_launch(
     const float* q, const void* k, const void* v, const float* ks,
     const float* vs, const int* block_table, const int* ctx_lens,
-    const int* q_lens, float* out, double* ws_ml, double* ws_acc, int B,
+    float* out, double* ws_ml, double* ws_acc, int B,
     int W, int H, int Hk, int Dh, int bs, int MB, int quant, int qt, int kps,
     int S, double scale, double softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_CASE(DH, QT)                                                    \
-  if (Dh == DH && qt == QT)                                                \
-    return quant ? launch<DH, true, QT>(q, k, v, ks, vs, block_table,      \
-                                        ctx_lens, q_lens, out, ws_ml,      \
-                                        ws_acc, B, W, H, Hk, bs, MB, kps,  \
-                                        S, scale, softcap, s)              \
-                 : launch<DH, false, QT>(q, k, v, ks, vs, block_table,     \
-                                         ctx_lens, q_lens, out, ws_ml,     \
-                                         ws_acc, B, W, H, Hk, bs, MB, kps, \
-                                         S, scale, softcap, s);
+#define PA_CASE(DH, QT)                                                   \
+  if (Dh == DH && qt == QT)                                               \
+    return quant ? launch<DH, true, QT>(q, k, v, ks, vs, block_table,     \
+                                        ctx_lens, out, ws_ml, ws_acc, B,  \
+                                        W, H, Hk, bs, MB, kps, S, scale,  \
+                                        softcap, s)                       \
+                 : launch<DH, false, QT>(q, k, v, ks, vs, block_table,    \
+                                         ctx_lens, out, ws_ml, ws_acc, B, \
+                                         W, H, Hk, bs, MB, kps, S, scale, \
+                                         softcap, s);
   PA_CASE(32, 16) PA_CASE(64, 16) PA_CASE(128, 16)
   PA_CASE(32, 64) PA_CASE(64, 64) PA_CASE(128, 64)
 #undef PA_CASE

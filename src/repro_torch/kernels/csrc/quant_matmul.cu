@@ -50,6 +50,11 @@
 //   arrive with the first step's copies.
 // The epilogue is the reference's, ((float)acc * sx) * sw, left to right
 // (built with --fmad=false), so Y is bit-equal to the plain version.
+//
+// Expert stacks: the grid's z axis is the expert of a stacked (E, ...)
+// operand set, so one launch runs one projection of every expert of a
+// mixture-of-experts layer (the reference's vmap of its pallas_call).
+// Each expert's CTAs are the single-matrix launch's; E = 1 is that launch.
 #include <cooperative_groups.h>
 
 #include "async_copy.cuh"
@@ -177,6 +182,14 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   const int rank = static_cast<int>(cluster.block_rank());
   // peers write into this CTA's shared memory only once all have started
   if (C > 1) cluster_arrive();
+  {  // expert blockIdx.z's slice of each stacked operand
+    const size_t e = blockIdx.z;
+    xq += e * M * K;
+    sx += e * M;
+    wq += e * K * (packed ? N / 2 : N);
+    sw += e * N;
+    y += e * M * N;
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -358,7 +371,7 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
 template <int BM, int BN>
 int launch(const int8_t* xq, const float* sx, const int8_t* wq,
-           const float* sw, float* y, int M, int K, int N, int packed,
+           const float* sw, float* y, int E, int M, int K, int N, int packed,
            int bk, int C, int kslice, cudaStream_t stream) {
   const Layout L = layout<BM, BN>(bk, packed, C, kslice);
   auto kern = qmm_kernel<BM, BN>;
@@ -373,7 +386,7 @@ int launch(const int8_t* xq, const float* sx, const int8_t* wq,
     allowed = L.total;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * ((N + BN - 1) / BN), (M + BM - 1) / BM, 1);
+  cfg.gridDim = dim3(C * ((N + BN - 1) / BN), (M + BM - 1) / BM, E);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = stream;
@@ -414,18 +427,21 @@ extern "C" long long qmm_smem_bytes(int bm, int bn, int bk, int packed,
 // QMM_TILES; bk % 32 == 0; kslice % 32 == 0 with c * kslice >= K >
 // (c - 1) * kslice (no CTA's K slice is empty); c in {1, 2, 4, 8} with
 // bn / c even. The grid is c * ceil(N / bn) CTAs along x by ceil(M / bm)
-// along y. Launches on `stream`; returns the launch's CUDA error.
+// along y by E experts along z, every operand a contiguous stack of E
+// matrices (xq (E, M, K), sx (E, M), wq (E, K, N) or (E, K, N / 2), sw
+// (E, N), y (E, M, N)). Launches on `stream`; returns the launch's CUDA
+// error.
 extern "C" int qmm_launch(const int8_t* xq, const float* sx,
-                          const int8_t* wq, const float* sw, float* y, int M,
-                          int K, int N, int packed, int bm, int bn, int bk,
-                          int c, int kslice, void* stream) {
+                          const int8_t* wq, const float* sw, float* y, int E,
+                          int M, int K, int N, int packed, int bm, int bn,
+                          int bk, int c, int kslice, void* stream) {
   if (K % 16 || N % 32 || bk % 32 || kslice % 32 || c * kslice < K ||
-      (c - 1) * kslice >= K)
+      (c - 1) * kslice >= K || E < 1 || E > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QMM_CASE(BM, BN)                                                    \
   if (bm == BM && bn == BN)                                                 \
-    return launch<BM, BN>(xq, sx, wq, sw, y, M, K, N, packed, bk, c,        \
+    return launch<BM, BN>(xq, sx, wq, sw, y, E, M, K, N, packed, bk, c,     \
                           kslice, s);
   QMM_TILES(QMM_CASE)
 #undef QMM_CASE

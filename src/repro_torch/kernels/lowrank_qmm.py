@@ -24,7 +24,7 @@ from repro_torch.kernels.ref import lowrank_qmm_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lrmm_launch": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _P)),
+                         _I, _I, _I, _I, _I, _I, _I, _P)),
     "lrmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I)),
 }
 CLUSTER = 8          # CTAs per cluster at most (the portable maximum)
@@ -49,7 +49,8 @@ class Tiles(typing.NamedTuple):
 
 def lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
                       w2_packed=False, act_qmax=127):
-    """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors)."""
+    """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors; one
+    matrix or an expert stack)."""
     w1 = unpack_int4(w1q) if w1_packed else w1q
     w2 = unpack_int4(w2q) if w2_packed else w2q
     return lowrank_qmm_ref(xq, sx, w1, s1, w2, s2, act_qmax)
@@ -91,7 +92,8 @@ def hbm_bytes_moved(m: int, k: int, r: int, n: int, w1_packed: bool,
             + (w1 + 2 * r * 4) * spans * rows + w2 * rows + m * n * 4)
 
 
-def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes) -> Tiles:
+def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes,
+                 experts: int = 1) -> Tiles:
     """The launch's partition, from the shapes, the card's SM count and
     `smem_bytes(bm, rs, cluster, cn, ncl)`, the kernel's shared memory per
     CTA.
@@ -104,7 +106,8 @@ def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes) -> Tiles:
     about one wave (7/8 of the SMs) -- a wider span recomputes phase 1
     less often -- and cn, the CTAs that split that span in phase 2, the
     most that leave each at least 32 columns. bm halves until a CTA fits
-    shared memory."""
+    shared memory. A stack of `experts` cascades launches `experts` times
+    the clusters, which counts towards the wave."""
     if r % 32 or n % 32 or r <= 0 or n <= 0:
         raise ValueError(f"lowrank_qmm kernel needs R % 32 == N % 32 == 0, "
                          f"got R={r} N={n}")
@@ -121,7 +124,7 @@ def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes) -> Tiles:
         top *= 2
     bm = 16 if m <= 16 else 32 if m <= 32 else 64
     while True:
-        m_blocks = -(-m // bm)
+        m_blocks = -(-m // bm) * experts
         ncl = top
         while ncl > 32 and m_blocks * -(-n // ncl) * c < num_sms * 7 / 8:
             ncl //= 2
@@ -142,43 +145,50 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
 
     xq (M, K) int8, sx (M, 1) f32; w1q (K, R) int8 or (K, R/2) packed
     along R, s1 (1, R) f32; w2q (R, N) int8 or (R, N/2) packed along N,
-    s2 (R, 1) f32. The CUDA kernel needs K % 16 == 0, R % 32 == 0 and
-    N % 32 == 0 (`ops.lrmm` pads to that) and R <= 1024."""
+    s2 (R, 1) f32. Or a stack of E such operand sets, a mixture-of-experts
+    projection: xq (E, M, K) ... s2 (E, R, 1) -> Y (E, M, N), in ONE
+    launch. The CUDA kernel needs K % 16 == 0, R % 32 == 0 and N % 32 == 0
+    (`ops.lrmm` pads to that) and R <= 1024."""
     if xq.device.type == "cpu":
         return lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2,
                                  w1_packed=w1_packed, w2_packed=w2_packed,
                                  act_qmax=act_qmax)
     if xq.device.type != "cuda":
         raise ValueError(f"lowrank_qmm runs on cuda or cpu, not {xq.device}")
-    m, k = xq.shape
-    r = w1q.shape[1] * 2 if w1_packed else w1q.shape[1]
-    n = w2q.shape[1] * 2 if w2_packed else w2q.shape[1]
+    lead = xq.shape[:-2]
+    e = xq.shape[0] if lead else 1
+    m, k = xq.shape[-2:]
+    r = w1q.shape[-1] * 2 if w1_packed else w1q.shape[-1]
+    n = w2q.shape[-1] * 2 if w2_packed else w2q.shape[-1]
+    if len(lead) > 1:
+        raise ValueError(f"lowrank_qmm takes (M, K) or (E, M, K) "
+                         f"activations, got {tuple(xq.shape)}")
     if k % 16 or r % 32 or n % 32:
         raise ValueError(f"lowrank_qmm kernel needs K % 16, R % 32, N % 32 "
                          f"== 0, got K={k} R={r} N={n}")
     if not 1 <= act_qmax <= 127:
         raise ValueError(f"act_qmax must be in [1, 127], got {act_qmax}")
     dev = xq.device
-    _check(xq, "xq", torch.int8, (m, k), dev, align=16)
-    _check(sx, "sx", torch.float32, (m, 1), dev)
-    _check(w1q, "w1q", torch.int8, (k, w1q.shape[1]), dev, align=16)
-    _check(s1, "s1", torch.float32, (1, r), dev)
-    _check(w2q, "w2q", torch.int8, (r, w2q.shape[1]), dev, align=16)
-    _check(s2, "s2", torch.float32, (r, 1), dev)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    _check(xq, "xq", torch.int8, (*lead, m, k), dev, align=16)
+    _check(sx, "sx", torch.float32, (*lead, m, 1), dev)
+    _check(w1q, "w1q", torch.int8, (*lead, k, w1q.shape[-1]), dev, align=16)
+    _check(s1, "s1", torch.float32, (*lead, 1, r), dev)
+    _check(w2q, "w2q", torch.int8, (*lead, r, w2q.shape[-1]), dev, align=16)
+    _check(s2, "s2", torch.float32, (*lead, r, 1), dev)
+    y = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y
     lib = build.load("lowrank_qmm", _SIGNATURES)
     tl = choose_tiles(m, r, n, build.sm_count(dev.index or 0),
-                      lib.lrmm_smem_bytes)
+                      lib.lrmm_smem_bytes, e)
     err = lib.lrmm_launch(xq.data_ptr(), sx.data_ptr(), w1q.data_ptr(),
                           s1.data_ptr(), w2q.data_ptr(), s2.data_ptr(),
-                          y.data_ptr(), m, k, r, n, int(w1_packed),
+                          y.data_ptr(), e, m, k, r, n, int(w1_packed),
                           int(w2_packed), int(act_qmax), tl.bm, tl.rs,
                           tl.cluster, tl.cn, tl.ncl, build.stream_handle(dev))
     build.check(err, "lowrank_qmm")
     build.LAUNCHES["lowrank_qmm"] += 1
     build.LAUNCH_RANKS[r] += 1
     build.LAUNCH_SHAPES["lowrank_qmm", tl.bm, k, r, n, bool(w1_packed),
-                        bool(w2_packed)] += 1
+                        bool(w2_packed), e] += 1
     return y

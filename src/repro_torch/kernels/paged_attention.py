@@ -5,7 +5,12 @@
 
 On a CUDA tensor `paged_attention` launches the kernel (or raises); on a
 CPU tensor it runs the plain version, which gathers each row's whole
-block-table view and takes one masked softmax over it.
+block-table view and takes one masked softmax over it. Both give the
+gather oracle's value at every span position of every row: past q_lens
+and in idle rows too, which a mixture-of-experts layer routes with the
+real tokens (the reference's own Pallas kernel gives zeros for idle rows
+and sees only the valid blocks past q_lens; its CPU oracle, which the
+port is held to, does not).
 
 Both take their arithmetic in float64 from the fp32 (or dequantized int8)
 inputs and round once to fp32. They sum in different orders, and the
@@ -32,7 +37,7 @@ NEG = -2.3819763e38  # large negative for masking in f32 (the reference's)
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    "paged_attention_launch": (_I, (_P,) * 11 + (_I,) * 11 + (_D, _D, _P)),
+    "paged_attention_launch": (_I, (_P,) * 10 + (_I,) * 11 + (_D, _D, _P)),
     "paged_attention_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I)),
 }
 QT_DECODE, QT_PREFILL = 16, 64  # query rows per CTA of the two tile kinds
@@ -87,8 +92,8 @@ def span_attend_gather(q, pool, block_table, ctx_lens, logit_softcap=0.0):
     """The plain version: gather the FULL logical pool view
     block_table -> (B, MB*bs, Hk, Dh) (dequantized whole when the pool is
     int8) and take one masked softmax over it. Query (r, i) sees slots at
-    positions <= ctx_lens[r] + i. Rows past q_lens hold garbage the
-    caller discards."""
+    positions <= ctx_lens[r] + i, in every row and at every span
+    position."""
     b, w, h, dh = q.shape
     _, bs, hk, _ = pool["k"].shape
     mb = block_table.shape[1]
@@ -114,19 +119,21 @@ def span_attend_gather(q, pool, block_table, ctx_lens, logit_softcap=0.0):
     return o.reshape(b, w, h, dh).to(q.dtype)
 
 
-def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
+def paged_attention(q, pool, block_table, ctx_lens, *,
                     logit_softcap: float = 0.0,
                     keys_per_split: int | None = None) -> torch.Tensor:
-    """Span queries against ONE layer's blocked pool, reading only valid
-    blocks.
+    """Span queries against ONE layer's blocked pool, reading no block
+    past the last key a query sees.
 
     q (B, W, H, Dh) f32 (post-RoPE); pool {"k", "v"[, "ks", "vs"]} with
     leaves (NB, bs, Hk, *), already holding this step's span K/V;
-    block_table (B, MB) int32; ctx_lens, q_lens (B,) int32. Returns
-    (B, W, H, Dh) f32: attention at span positions [:q_lens[r]] of every
-    row; the kernel writes zeros past them and for idle rows.
-    keys_per_split overrides the kernel's key split (`choose_splits`);
-    any positive count is exact, block-aligned or not."""
+    block_table (B, MB) int32; ctx_lens (B,) int32. Returns (B, W, H, Dh)
+    f32: query (r, i) attends over the slots at positions
+    <= ctx_lens[r] + i of row r's block-table view, at every span position
+    of every row (the gather oracle's values; how many of them are real
+    tokens does not enter). keys_per_split overrides the kernel's key
+    split (`choose_splits`); any positive count is exact, block-aligned
+    or not."""
     if q.device.type == "cpu":
         return span_attend_gather(q, pool, block_table, ctx_lens,
                                   logit_softcap)
@@ -150,7 +157,6 @@ def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
         _check(pool["vs"], "vs", torch.float32, (nb_, bs, hk, 1), dev)
     _check(block_table, "block_table", torch.int32, (b, mb), dev)
     _check(ctx_lens, "ctx_lens", torch.int32, (b,), dev)
-    _check(q_lens, "q_lens", torch.int32, (b,), dev)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -175,8 +181,8 @@ def paged_attention(q, pool, block_table, ctx_lens, q_lens, *,
         q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(),
         pool["ks"].data_ptr() if quant else None,
         pool["vs"].data_ptr() if quant else None,
-        block_table.data_ptr(), ctx_lens.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), ws_ml.data_ptr() if splits > 1 else None,
+        block_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+        ws_ml.data_ptr() if splits > 1 else None,
         ws_acc.data_ptr() if splits > 1 else None, b, w, h, hk, dh, bs, mb,
         int(quant), qt, kps, splits, float(dh) ** -0.5,
         float(logit_softcap), build.stream_handle(dev))
@@ -238,3 +244,27 @@ def attention_flops(ctx_lens, q_lens, h: int, dh: int) -> int:
         for i in range(int(ql)):
             total += (int(ctx) + i + 1) * 4 * dh * h
     return total
+
+
+def launch_work(block_table, ctx_lens, w: int, block_size: int, hk: int,
+                dh: int, *, kv_bits: int = 32,
+                n_q_heads: int | None = None) -> tuple[int, int]:
+    """(bytes, flops) one launch of `paged_attention` must move and do:
+    every span position of every row attends, so each row reads the
+    table entries up to its last query's position (ctx + W - 1, at most
+    MB * bs - 1), and each physical block they name is read once however
+    many rows name it; the fp32 queries and outputs of all B x W
+    positions are read and written once; 4 * Dh flops a (query, visible
+    key) pair, as in `attention_flops`. `stream_hbm_bytes` and
+    `attention_flops` count only the positions before q_lens."""
+    h = n_q_heads or hk
+    slots = len(block_table[0]) * block_size
+    blocks, flops = set(), 0
+    for row, ctx in zip(block_table, ctx_lens):
+        ctx = int(ctx)
+        blocks.update(int(x) for x in row[:-(-min(ctx + w, slots)
+                                           // block_size)])
+        flops += sum(min(ctx + i + 1, slots) for i in range(w)) * 4 * dh * h
+    nbytes = (len(blocks) * block_size * kv_bytes_per_token(hk, dh, kv_bits)
+              + 2 * len(ctx_lens) * w * h * dh * 4)
+    return int(nbytes), int(flops)

@@ -20,7 +20,7 @@ from repro_torch.kernels.ref import quant_matmul_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qmm_launch": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P)),
+                        _I, _I, _P)),
     "qmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I, _I)),
 }
 CLUSTER = 8            # CTAs per cluster at most (the portable maximum)
@@ -46,7 +46,8 @@ class Tiles(typing.NamedTuple):
 
 
 def quant_matmul_plain(xq, sx, wq, sw, *, w_packed: bool = False):
-    """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors)."""
+    """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors; one
+    matrix or an expert stack)."""
     return quant_matmul_ref(xq, sx, unpack_int4(wq) if w_packed else wq, sw)
 
 
@@ -107,7 +108,7 @@ def hbm_bytes_moved(m: int, k: int, n: int, packed: bool,
 
 
 def choose_tiles(m: int, k: int, n: int, packed: bool, num_sms: int,
-                 smem_bytes) -> Tiles:
+                 smem_bytes, experts: int = 1) -> Tiles:
     """The launch's partition, from the shapes, the card's SM count and
     `smem_bytes(bm, bn, bk, packed, cluster, kslice)`, the kernel's shared
     memory per CTA.
@@ -119,12 +120,14 @@ def choose_tiles(m: int, k: int, n: int, packed: bool, num_sms: int,
     of at least 64 rows, then halved while the last CTA's slice would be
     empty (K 528 at M 8). bk: a strip takes up to STRIP_STAGE weight
     bytes of its slice a step (a step costs a barrier however small),
-    wider tiles 128 rows; bk halves until a CTA fits two to an SM."""
+    wider tiles 128 rows; bk halves until a CTA fits two to an SM. A
+    stack of `experts` matrices launches `experts` times the tiles, which
+    counts towards filling the card."""
     if k <= 0 or n <= 0 or m < 0 or k % 16 or n % 32:
         raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 32 "
                          f"== 0, got K={k} N={n}")
     bm = 16 if m <= 16 else 64 if m <= 256 else 128
-    rows = max(1, -(-m // bm))
+    rows = max(1, -(-m // bm)) * experts
     bn = 128
     while bn > (32 if bm == 16 else 64) and rows * -(-n // bn) < num_sms:
         bn //= 2
@@ -169,33 +172,40 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
     """Y[M, N] f32 = (Xq @ Wq as f32) * sx * sw.
 
     xq (M, K) int8; sx (M, 1) f32; wq (K, N) int8, or (K, N/2) packed W4
-    nibbles along N when w_packed; sw (1, N) f32. The CUDA kernel copies
-    whole 16-byte chunks of weight rows, so it needs K % 16 == 0 and
-    N % 32 == 0 (`ops.qmm` pads to that)."""
+    nibbles along N when w_packed; sw (1, N) f32. Or a stack of E such
+    operand sets, a mixture-of-experts projection: xq (E, M, K) ... sw
+    (E, 1, N) -> Y (E, M, N), in ONE launch. The CUDA kernel copies whole
+    16-byte chunks of weight rows, so it needs K % 16 == 0 and N % 32 == 0
+    (`ops.qmm` pads to that)."""
     if xq.device.type == "cpu":
         return quant_matmul_plain(xq, sx, wq, sw, w_packed=w_packed)
     if xq.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cuda or cpu, not {xq.device}")
-    m, k = xq.shape
-    n = wq.shape[1] * 2 if w_packed else wq.shape[1]
+    lead = xq.shape[:-2]
+    e = xq.shape[0] if lead else 1
+    m, k = xq.shape[-2:]
+    n = wq.shape[-1] * 2 if w_packed else wq.shape[-1]
     if k % 16 or n % 32:
         raise ValueError(f"quant_matmul kernel needs K % 16 == 0 and N % 32 "
                          f"== 0, got K={k} N={n}")
+    if len(lead) > 1:
+        raise ValueError(f"quant_matmul takes (M, K) or (E, M, K) "
+                         f"activations, got {tuple(xq.shape)}")
     dev = xq.device
-    _check(xq, "xq", torch.int8, (m, k), dev, align=16)
-    _check(sx, "sx", torch.float32, (m, 1), dev)
-    _check(wq, "wq", torch.int8, (k, wq.shape[1]), dev, align=16)
-    _check(sw, "sw", torch.float32, (1, n), dev)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    _check(xq, "xq", torch.int8, (*lead, m, k), dev, align=16)
+    _check(sx, "sx", torch.float32, (*lead, m, 1), dev)
+    _check(wq, "wq", torch.int8, (*lead, k, wq.shape[-1]), dev, align=16)
+    _check(sw, "sw", torch.float32, (*lead, 1, n), dev)
+    y = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return y
     lib = build.load("quant_matmul", _SIGNATURES)
     tl = choose_tiles(m, k, n, w_packed, build.sm_count(dev.index or 0),
-                      lib.qmm_smem_bytes)
+                      lib.qmm_smem_bytes, e)
     err = lib.qmm_launch(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
-                         sw.data_ptr(), y.data_ptr(), m, k, n, int(w_packed),
-                         tl.bm, tl.bn, tl.bk, tl.cluster, tl.kslice,
-                         build.stream_handle(dev))
+                         sw.data_ptr(), y.data_ptr(), e, m, k, n,
+                         int(w_packed), tl.bm, tl.bn, tl.bk, tl.cluster,
+                         tl.kslice, build.stream_handle(dev))
     build.check(err, "quant_matmul")
     build.LAUNCHES["quant_matmul"] += 1
     build.LAUNCH_SHAPES["quant_matmul", k, n] += 1

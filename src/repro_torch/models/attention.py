@@ -265,6 +265,26 @@ def decode_attention(params, x1, cache, pos, cfg, *, window=None):
     return y, cache
 
 
+def _scatter_span(pool, blk, off, new):
+    """pool[key][blk, off] = new[key] for the (B, W) span slots of
+    `span_slots`. Real slots are distinct; every pad slot targets the
+    trash slot (0, 0), and there the last pad slot in (B, W) order wins,
+    as in the reference's scatter on its CPU. A scatter with repeated
+    targets keeps any one of them on the card (and on the CPU past a
+    size), and attention reads the trash block at positions past q_lens,
+    so the winner is written again, by a device-side index."""
+    pad = (blk == 0).reshape(-1)
+    order = torch.arange(pad.numel(), device=pad.device)
+    last = torch.where(pad, order, torch.full_like(order, -1)).max()
+    pick = last.clamp(min=0).reshape(1)
+    for key, val in new.items():
+        leaf = pool[key]
+        leaf[blk, off] = val
+        winner = torch.index_select(
+            val.reshape(pad.numel(), *val.shape[2:]), 0, pick)[0]
+        leaf[0, 0] = torch.where(last >= 0, winner, leaf[0, 0])
+
+
 def span_attention_paged(params, x, pool, block_table, ctx_lens, q_lens,
                          cfg):
     """Variable-width query spans against ONE layer's blocked KV pool.
@@ -292,15 +312,12 @@ def span_attention_paged(params, x, pool, block_table, ctx_lens, q_lens,
     if "ks" in pool:
         kq, ks1 = _quant_kv(k)
         vq, vs1 = _quant_kv(v)
-        pool["k"][blk, off] = kq
-        pool["v"][blk, off] = vq
-        pool["ks"][blk, off] = ks1
-        pool["vs"][blk, off] = vs1
+        new = {"k": kq, "v": vq, "ks": ks1, "vs": vs1}
     else:
-        pool["k"][blk, off] = k.to(pool["k"].dtype)
-        pool["v"][blk, off] = v.to(pool["v"].dtype)
+        new = {"k": k.to(pool["k"].dtype), "v": v.to(pool["v"].dtype)}
+    _scatter_span(pool, blk, off, new)
 
-    o = paged_attention(q.contiguous(), pool, block_table, ctx_lens, q_lens,
+    o = paged_attention(q.contiguous(), pool, block_table, ctx_lens,
                         logit_softcap=cfg.logit_softcap)
     y = apply_linear(o.reshape(b, w, h * hd), params["wo"])
     return y, pool

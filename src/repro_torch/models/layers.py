@@ -7,10 +7,11 @@ compressed node takes is decided by the kernel wrappers from the device
 of the tensors alone: the CUDA kernel for CUDA tensors, the plain version
 for CPU tensors. There is no mode switch.
 
-Reductions and transcendentals of the float path (the norms, GELU,
-sinusoids) are taken in float64 and rounded once to float32, so the CPU
-and CUDA runs very likely give the same bits there, where float32 `rsqrt`
-and `tanh` often differ between the two by an ulp. It is not certain:
+Reductions and transcendentals of the float path (the norms, GELU, SiLU,
+sinusoids, RoPE's cos and sin) are taken in float64 and rounded once to
+float32, so the CPU and CUDA runs very likely give the same bits there,
+where float32 `rsqrt`, `exp` and `tanh` often differ between the two by
+an ulp. It is not certain:
 float64 sums in another order or another libm may still round to a
 different float32 now and then. The reference takes them in float32,
 within 1e-5 of these.
@@ -66,11 +67,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.to(torch.float64), approximate="tanh").to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) (jax.nn.silu), in float64."""
+    return F.silu(x.to(torch.float64)).to(x.dtype)
+
+
 def mlp_apply(x, p, act: str):
+    """The MLP over x (..., K); with stacked weights (E, K, N) (the experts
+    of an MoE block) x is (E, C, K) and each linear one launch over all
+    E."""
     if act in ("swiglu", "geglu"):
         g = apply_linear(x, p["gate"])
         u = apply_linear(x, p["up"])
-        h = (F.silu(g) if act == "swiglu" else gelu(g)) * u
+        h = (silu(g) if act == "swiglu" else gelu(g)) * u
     elif act == "relu2":
         h = torch.square(F.relu(apply_linear(x, p["up"])))
     else:
@@ -82,17 +91,25 @@ def mlp_apply(x, p, act: str):
 def rope_freqs(head_dim: int, theta: float, rotary_pct: float = 1.0,
                device=None):
     rot = int(head_dim * rotary_pct) // 2 * 2
-    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32,
-                                        device=device) / rot))
-    return inv, rot
+    return _rope_inv(rot, theta, str(device or "cpu")), rot
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_inv(rot: int, theta: float, device: str) -> torch.Tensor:
+    # float32 on the CPU, then moved: the same bits on every device
+    inv = 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32)
+                           / rot))
+    return inv.to(device)
 
 
 def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0):
     """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
     inv, rot = rope_freqs(hd, theta, rotary_pct, device=x.device)
-    ang = positions[..., :, None].to(torch.float32) * inv
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    ang = (positions[..., :, None].to(torch.float32) * inv).to(
+        torch.float64)
+    cos = torch.cos(ang).to(torch.float32)[..., None, :]
+    sin = torch.sin(ang).to(torch.float32)[..., None, :]
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     y1 = x1 * cos - x2 * sin

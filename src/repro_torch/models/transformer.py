@@ -1,7 +1,8 @@
-"""Decoder-only LM (port of `repro.models.transformer`) in the dense layout:
-the whole-sequence `forward` (the calibration pass SRA runs, and the
-training forward, each layer under activation checkpointing when
-`cfg.remat`), the sequence-chunked training loss (`loss_fn`), the
+"""Decoder-only LM (port of `repro.models.transformer`) in the dense and
+mixture-of-experts layouts (an MoE block, `models.moe`, in place of every
+layer's MLP): the whole-sequence `forward` (the calibration pass SRA
+runs, and the training forward, each layer under activation
+checkpointing when `cfg.remat`), the sequence-chunked training loss (`loss_fn`), the
 rectangular path (`init_cache`, `prefill` with its decode cache,
 `decode_step`) and the serving step over the blocked KV pool.
 
@@ -22,28 +23,30 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_linear, apply_norm, dtype_of,
                                        mlp_apply, sinusoidal_emb, softcap)
 from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.kvblocks import check_paged_support
 
 
-def _check_dense(cfg) -> None:
-    if cfg.layout != "dense":
+def _check_layout(cfg) -> None:
+    if cfg.layout not in ("dense", "moe"):
         raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
 
 
 # ------------------------------------------------------------------ init --
 def init_params(cfg, *, seed: int = 0, device="cpu"):
-    """Random dense-layout parameters from a torch generator on `device`
-    (the same shapes and scales as the reference; not jax's numbers)."""
-    _check_dense(cfg)
+    """Random parameters of the dense or moe layout from a torch generator
+    on `device` (the same shapes and scales as the reference; not jax's
+    numbers)."""
+    _check_layout(cfg)
     dtype = dtype_of(cfg.dtype)
     g = torch.Generator(device=device).manual_seed(seed)
     d, L = cfg.d_model, cfg.num_layers
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def normal(*shape, std):
+    def normal(*shape, std, dtype=dtype):
         return torch.randn(shape, generator=g, dtype=dtype,
                            device=device) * std
 
@@ -54,10 +57,6 @@ def init_params(cfg, *, seed: int = 0, device="cpu"):
                                         device=device)}
         return {"gamma": torch.zeros((*lead, d), dtype=dtype, device=device)}
 
-    mlp = {"up": normal(L, d, cfg.d_ff, std=d ** -0.5),
-           "down": normal(L, cfg.d_ff, d, std=cfg.d_ff ** -0.5)}
-    if cfg.mlp_act in ("swiglu", "geglu"):
-        mlp["gate"] = normal(L, d, cfg.d_ff, std=d ** -0.5)
     p = {"embed": normal(cfg.vocab_size, d, std=0.02),
          "final_norm": norm(),
          "layers": {
@@ -66,8 +65,16 @@ def init_params(cfg, *, seed: int = 0, device="cpu"):
                       "wk": normal(L, d, hk * hd, std=d ** -0.5),
                       "wv": normal(L, d, hk * hd, std=d ** -0.5),
                       "wo": normal(L, h * hd, d, std=(h * hd) ** -0.5)},
-             "ln2": norm(L),
-             "mlp": mlp}}
+             "ln2": norm(L)}}
+    if cfg.layout == "moe":
+        p["layers"]["moe"] = moe_mod.moe_init(
+            cfg, lambda *shape, **kw: normal(L, *shape, **kw))
+    else:
+        mlp = {"up": normal(L, d, cfg.d_ff, std=d ** -0.5),
+               "down": normal(L, cfg.d_ff, d, std=cfg.d_ff ** -0.5)}
+        if cfg.mlp_act in ("swiglu", "geglu"):
+            mlp["gate"] = normal(L, d, cfg.d_ff, std=d ** -0.5)
+        p["layers"]["mlp"] = mlp
     if not cfg.tie_embeddings:
         p["lm_head"] = normal(d, cfg.vocab_size, std=d ** -0.5)
     return p
@@ -152,7 +159,16 @@ def _layer_list(params, cfg) -> list:
     return layers
 
 
+def _ffn(cfg, lp, hn):
+    """The layer's MLP, or its MoE block: (y, aux loss; 0.0 for an
+    MLP)."""
+    if "moe" in lp:
+        return moe_mod.moe_apply(lp["moe"], hn, cfg)
+    return mlp_apply(hn, lp["mlp"], cfg.mlp_act), 0.0
+
+
 def _dense_body(cfg, h, lp, *, window, return_kv=False):
+    """One attention + MLP (or MoE) block: (h, aux[, (k, v)])."""
     hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
     a = attn.attention(lp["attn"], hn, cfg, window=window,
                        return_kv=return_kv)
@@ -160,8 +176,9 @@ def _dense_body(cfg, h, lp, *, window, return_kv=False):
         a, kv = a
     h = h + a
     hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-    h = h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
-    return (h, kv) if return_kv else h
+    y, aux = _ffn(cfg, lp, hn)
+    h = h + y
+    return (h, aux, kv) if return_kv else (h, aux)
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -198,18 +215,21 @@ def _maybe_remat(cfg, fn):
 
 
 def forward(params, tokens, cfg):
-    """Whole sequences through the dense layout: tokens (B, S) int (or
-    embeddings (B, S, D)) -> (final-normed hidden (B, S, D), aux loss
-    0.0). Layers attend causally within `cfg.attn_window`. The
-    local/global pairing and the moe, ssm and hybrid layouts are not
-    ported yet."""
-    _check_dense(cfg)
+    """Whole sequences through the dense or moe layout: tokens (B, S) int
+    (or embeddings (B, S, D)) -> (final-normed hidden (B, S, D), aux
+    loss: the MoE blocks' load-balance losses summed over layers from
+    0.0, or 0.0 in the dense layout). Layers attend causally within
+    `cfg.attn_window`. The local/global pairing and the ssm and hybrid
+    layouts are not ported yet."""
+    _check_layout(cfg)
     window = _window_for_layer(cfg, "global")
     h = embed(params, tokens, cfg)
     body = _maybe_remat(cfg, _dense_body)
+    aux = 0.0
     for lp in _layer_list(params, cfg):
-        h = body(cfg, h, lp, window=window)
-    return apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps), 0.0
+        h, a = body(cfg, h, lp, window=window)
+        aux = aux + a
+    return apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps), aux
 
 
 def lm_head_weight(params, cfg):
@@ -254,7 +274,8 @@ def chunked_loss(params, h, labels, cfg):
 
 def loss_fn(params, batch, cfg, *, aux_weight=0.01):
     """(ce + aux_weight * aux, {"ce", "aux"}) of a batch {"tokens" or
-    "inputs_embeds", "labels"}; aux is 0.0 in the dense layout."""
+    "inputs_embeds", "labels"}; aux is the MoE load-balance loss, 0.0 in
+    the dense layout."""
     inputs = batch.get("inputs_embeds", batch.get("tokens"))
     h, aux = forward(params, inputs, cfg)
     ce = chunked_loss(params, h, batch["labels"], cfg)
@@ -266,7 +287,7 @@ def init_cache(cfg, batch, max_len, dtype=None, device="cpu"):
     """An empty decode cache {"kv": {"k", "v"[, "ks", "vs"]}}, each leaf
     stacked over layers: (L, B, size, Hk, *), size max_len, or
     min(attn_window, max_len) for a rolling cache."""
-    _check_dense(cfg)
+    _check_layout(cfg)
     window = _window_for_layer(cfg, "global")
     kv = attn.init_kv_cache(cfg, batch, max_len, window=window, dtype=dtype,
                             device=device)
@@ -284,13 +305,14 @@ def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
     right-padded to a length bucket pass their true last position; the
     pad positions' K/V sit in slots no decode query reaches before
     `decode_step` overwrites them."""
-    _check_dense(cfg)
+    _check_layout(cfg)
     window = _window_for_layer(cfg, "global")
     cdt = cache_dtype or dtype_of(cfg.dtype)
     h = embed(params, tokens, cfg)
     caches = []
     for lp in _layer_list(params, cfg):
-        h, (k, v) = _dense_body(cfg, h, lp, window=window, return_kv=True)
+        h, _, (k, v) = _dense_body(cfg, h, lp, window=window,
+                                   return_kv=True)
         caches.append(attn.build_cache_from_kv(
             k, v, window=window, max_len=max_len, dtype=cdt,
             quantized=cfg.kv_cache_bits == 8))
@@ -307,7 +329,7 @@ def decode_step(params, cache, tokens, pos, cfg):
     serves every position) or a host int, which becomes one. tokens (B, 1)
     int; the cache is updated in place. Returns (logits (B, 1, V) f32,
     cache)."""
-    _check_dense(cfg)
+    _check_layout(cfg)
     window = _window_for_layer(cfg, "global")
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
@@ -320,7 +342,7 @@ def decode_step(params, cache, tokens, pos, cfg):
                                      cfg, window=window)
         h = h + a
         hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-        h = h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+        h = h + _ffn(cfg, lp, hn)[0]
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     return logits_for(params, h, cfg), cache
 
@@ -349,7 +371,7 @@ def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg,
                                          ctx_lens, q_lens, cfg)
         h = h + a
         hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-        h = h + mlp_apply(hn, lp["mlp"], cfg.mlp_act)
+        h = h + _ffn(cfg, lp, hn)[0]
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     last = torch.clamp(q_lens.long() - 1, min=0)
     h1 = h[torch.arange(h.shape[0], device=h.device), last][:, None]

@@ -103,7 +103,7 @@ def row_keys(seed, rid, counter) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- sampler --
-def _window(scaled: torch.Tensor, cap: int):
+def lax_top_k(scaled: torch.Tensor, cap: int):
     """`lax.top_k(scaled, cap)`: the cap largest values of each row in
     descending order, the lower index first among equal values, and
     their token ids, from a topk over unique int64 keys."""
@@ -138,7 +138,7 @@ def sample_tokens(logits, temperature, top_k, top_p, keys) -> torch.Tensor:
     cap = min(v, TOPK_CAP)
     greedy = temperature <= 0.0
     scaled = logits / torch.where(greedy, 1.0, temperature)[:, None]
-    cand, cand_idx = _window(scaled, cap)
+    cand, cand_idx = lax_top_k(scaled, cap)
     k = torch.where((top_k <= 0) | (top_k > cap), cap, top_k).long()
     kth = torch.gather(cand, -1, (k - 1)[:, None])
     in_k = (torch.arange(cap, device=logits.device)[None, :]

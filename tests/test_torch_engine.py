@@ -278,7 +278,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.api, repro_torch.hw.dse, repro_torch.hw.h100_model, "
             "repro_torch.hw.engine_model, repro_torch.optim.adamw, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
-            "repro_torch.runtime.fault, repro_torch.checkpoint.ckpt; "
+            "repro_torch.runtime.fault, repro_torch.checkpoint.ckpt, "
+            "repro_torch.models.moe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -190,9 +190,9 @@ def test_forward_refuses_what_is_not_ported(weights):
     for entry in (ttfm.forward, ttfm.prefill):
         with pytest.raises(NotImplementedError, match="local/global"):
             entry(tp, toks, tc)
-    _, tc = _configs("opus", layout="moe")
+    _, tc = _configs("opus", layout="ssm")
     for entry in (ttfm.forward, ttfm.prefill):
-        with pytest.raises(NotImplementedError, match="moe"):
+        with pytest.raises(NotImplementedError, match="ssm"):
             entry(tp, toks, tc)
     _, tc = _configs("opus")
     x = torch.zeros((1, 4, tc.d_model))

@@ -213,7 +213,7 @@ def test_rectangular_path_refuses_unported_layouts():
     assert cache["kv"]["k"].shape == (2, 1, 8, 4, 16)
     with pytest.raises(NotImplementedError, match="not ported"):
         ttfm.decode_step(p, cache, toks[:, :1], 0,
-                         dataclasses.replace(tc, layout="moe"))
+                         dataclasses.replace(tc, layout="ssm"))
 
 
 # --------------------------------------------------------------- engine --

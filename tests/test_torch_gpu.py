@@ -8,6 +8,7 @@ imports nothing of jax, so it also runs where only the port is installed:
 (`--noconftest` skips the repository's conftest, which imports jax.)
 """
 import collections
+import dataclasses
 
 import numpy as np
 import pytest
@@ -165,7 +166,8 @@ def test_lowrank_qmm_allocates_only_y(cuda):
 @pytest.mark.parametrize("w", [1, 40])
 def test_paged_attention_kernel_equals_plain(cuda, kv_bits, w):
     """Decode (W = 1) and prefill spans, ragged contexts, one idle row,
-    G = 2 query heads per kv head; the kernel writes zeros past q_lens."""
+    G = 2 query heads per kv head; every position of every row, past
+    q_lens and in the idle row too."""
     rng = np.random.default_rng(kv_bits + w)
     bs, hk, hd = 16, 2, 64
     ctx = np.array([37, 0, 5, 100], np.int32)
@@ -188,14 +190,11 @@ def test_paged_attention_kernel_equals_plain(cuda, kv_bits, w):
     pool = {key: v.to(cuda) for key, v in pool.items()}
     q = torch.from_numpy(rng.standard_normal(
         (len(ctx), w, 2 * hk, hd)).astype(np.float32)).to(cuda)
-    tab, ctx_t, ql_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx, ql))
-    o = pa.paged_attention(q, pool, tab, ctx_t, ql_t)
+    tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx))
+    o = pa.paged_attention(q, pool, tab, ctx_t)
     torch.cuda.synchronize()
     ref = pa.span_attend_gather(q, pool, tab, ctx_t)
-    for r in range(len(ctx)):
-        torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
-                                   atol=1e-5)
-        assert not o[r, ql[r]:].any()        # idle and pad rows are zero
+    torch.testing.assert_close(o, ref, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -261,19 +260,16 @@ def _pa_case(rng, ctx, ql, kv_bits, bs=16, hk=2, g=2, hd=64):
 def test_paged_attention_splits(cuda, kv_bits, kps, ctx, ql):
     """Split-KV decode and prefill tiles against the plain version: splits
     that end mid-block (40 keys), more splits than valid blocks (16 keys),
-    one split (4096), and the chooser's own (None); zeros past q_len."""
+    one split (4096), and the chooser's own (None); every position."""
     rng = np.random.default_rng(sum(ctx) + kv_bits)
     q, pool, table, ctx, ql = _pa_case(rng, ctx, ql, kv_bits)
     pool = {key: v.to(cuda) for key, v in pool.items()}
     q = q.to(cuda)
-    tab, ctx_t, ql_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx, ql))
-    o = pa.paged_attention(q, pool, tab, ctx_t, ql_t, keys_per_split=kps)
+    tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx))
+    o = pa.paged_attention(q, pool, tab, ctx_t, keys_per_split=kps)
     torch.cuda.synchronize()
     ref = pa.span_attend_gather(q, pool, tab, ctx_t)
-    for r in range(len(ctx)):
-        torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
-                                   atol=1e-5)
-        assert not o[r, ql[r]:].any()
+    torch.testing.assert_close(o, ref, rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------- sampling on the card --
@@ -393,7 +389,7 @@ def test_quant_matmul_verify_lm_head_equals_plain(cuda):
 @pytest.mark.parametrize("kv_bits", [16, 8])
 def test_paged_attention_verify_spans(cuda, kv_bits):
     """Verify spans of 1 + drafts tokens (q_lens 1-5) in a W 8 bucket,
-    G = 1 as in opus-mt, with an idle row."""
+    G = 1 as in opus-mt, with an idle row; every position."""
     rng = np.random.default_rng(kv_bits)
     ctx = [40, 511, 0, 130, 300, 75, 220, 17]
     ql = [5, 3, 0, 1, 5, 2, 4, 5]
@@ -401,14 +397,11 @@ def test_paged_attention_verify_spans(cuda, kv_bits):
     q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 8 - q.shape[1]))
     pool = {key: v.to(cuda) for key, v in pool.items()}
     q = q.to(cuda)
-    tab, ctx_t, ql_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx, ql))
-    o = pa.paged_attention(q, pool, tab, ctx_t, ql_t)
+    tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx))
+    o = pa.paged_attention(q, pool, tab, ctx_t)
     torch.cuda.synchronize()
     ref = pa.span_attend_gather(q, pool, tab, ctx_t)
-    for r in range(len(ctx)):
-        torch.testing.assert_close(o[r, :ql[r]], ref[r, :ql[r]], rtol=0,
-                                   atol=1e-5)
-        assert not o[r, ql[r]:].any()
+    torch.testing.assert_close(o, ref, rtol=0, atol=1e-5)
 
 
 # ------------------------- the compression slice: svd plans, calibration --
@@ -571,14 +564,6 @@ def _counts():
             dict(build.LAUNCH_RANKS))
 
 
-def _pool_equal(a, b) -> bool:
-    """Two (L, NB, bs, Hk, *) pool leaves equal in every block but the
-    trash block 0, which every pad slot and idle row of a step writes at
-    once (a scatter with repeated targets keeps any one of the values)
-    and nothing reads."""
-    return torch.equal(a[:, 1:], b[:, 1:])
-
-
 @pytest.mark.parametrize("kv_bits", [16, 8])
 def test_decode_step_replay_equals_eager(cuda, kv_bits):
     """`decode_step` at a device position as a captured step: each replay's
@@ -670,8 +655,8 @@ def test_unified_step_replay_equals_eager(cuda, kv_bits):
                                    toks, cfg)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    for k in pool:      # block 0 is the trash block (see _pool_equal)
-        assert _pool_equal(pool[k], twin[k]), k
+    for k in pool:      # the trash block too: its last pad slot wins
+        assert torch.equal(pool[k], twin[k]), k
 
 
 @pytest.mark.parametrize("mode", ["greedy", "sampled_stops", "speculative"])
@@ -712,7 +697,7 @@ def test_captured_serve_equals_eager(cuda, kv_bits, mode):
             np.testing.assert_array_equal(a, b)
         assert counts == wcounts
         for k in pool:
-            assert _pool_equal(pool[k], wpool[k]), k
+            assert torch.equal(pool[k], wpool[k]), k
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
@@ -910,3 +895,89 @@ def test_checkpoint_round_trip_from_cuda_tensors(cuda, tmp_path):
     host = ckpt.flatten(bridge.load_checkpoint(str(tmp_path / "compressed")))
     for k, v in ckpt.flatten(comp).items():
         assert torch.equal(host[k], v.cpu()), k
+
+
+# ------------------------------------------------------- expert stacks --
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("e,m,k,r,n", [(1, 8, 512, 256, 2048),
+                                       (64, 1, 2048, 704, 1408),
+                                       (8, 40, 1408, 704, 2048),
+                                       (3, 100, 96, 64, 160)])
+def test_stacked_kernels_equal_plain(cuda, packed, e, m, k, r, n):
+    """Both kernels over an expert stack: one launch, bit-equal to the
+    plain version and to each expert's single-matrix launch."""
+    rng = np.random.default_rng(e + m)
+    wl = 4 if packed else 8
+    xq = _codes(rng, (e, m, k), 8).to(cuda)
+    sx = _uniform(rng, (e, m, 1), 0.01, 1).to(cuda)
+    w = _codes(rng, (e, k, n), wl).to(cuda)
+    wq = quant.pack_int4(w) if packed else w
+    sw = _uniform(rng, (e, 1, n), 0.001, 0.01).to(cuda)
+    before = build.LAUNCHES["quant_matmul"]
+    y = qm.quant_matmul(xq, sx, wq, sw, w_packed=packed)
+    assert build.LAUNCHES["quant_matmul"] == before + 1
+    assert torch.equal(y, qm.quant_matmul_plain(xq, sx, wq, sw,
+                                                w_packed=packed))
+    assert torch.equal(y[-1], qm.quant_matmul(
+        xq[-1].contiguous(), sx[-1].contiguous(), wq[-1].contiguous(),
+        sw[-1].contiguous(), w_packed=packed))
+    w1 = _codes(rng, (e, k, r), wl).to(cuda)
+    w2 = _codes(rng, (e, r, n), wl).to(cuda)
+    s1 = _uniform(rng, (e, 1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (e, r, 1), 0.01, 0.1).to(cuda)
+    args = (xq, sx, quant.pack_int4(w1) if packed else w1, s1,
+            quant.pack_int4(w2) if packed else w2, s2)
+    kw = dict(w1_packed=packed, w2_packed=packed)
+    before = build.LAUNCHES["lowrank_qmm"]
+    y = lr.lowrank_qmm(*args, **kw)
+    assert build.LAUNCHES["lowrank_qmm"] == before + 1
+    assert torch.equal(y, lr.lowrank_qmm_plain(*args, **kw))
+    assert torch.equal(y[0], lr.lowrank_qmm(
+        *(a[0].contiguous() for a in args), **kw))
+
+
+@pytest.mark.parametrize("plan", ["quant", "itera"])
+def test_moe_captured_serve_equals_eager_and_cpu(cuda, plan):
+    """deepseek-moe-16b smoke on the card: captured and eager serves give
+    the CPU's tokens and the same launch counters, one launch for each
+    expert projection of a layer."""
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        params_to)
+    from repro_torch.core.compress import CompressionConfig
+
+    from repro_torch.configs import get_config
+
+    spec = CompressionConfig(method=plan, weight_wl=4, rank_fraction=0.5)
+    # the smoke config with 2 heads of 32 (the kernel takes Dh 32, 64, 128)
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              num_heads=2, num_kv_heads=2, head_dim=32)
+    cpu = InferenceEngine.build(cfg, spec, device="cpu", max_batch=3,
+                                block_size=4, chunk_tokens=8)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, n).astype(np.int32) for n in (13, 5, 9)]
+    sp = SamplingParams(max_tokens=5)
+    want = cpu.serve(prompts, sp)
+    runs = []
+    for graphs in (False, True):
+        eng = InferenceEngine(cpu.cfg, params_to(cpu.params, cuda),
+                              device=cuda, plan=cpu.plan, max_batch=3,
+                              block_size=4, chunk_tokens=8,
+                              cuda_graphs=graphs)
+        build.reset_launches()
+        res = eng.serve(prompts, sp)
+        torch.cuda.synchronize()
+        runs.append(_counts())
+        for a, b in zip(res.outputs, want.outputs):
+            np.testing.assert_array_equal(a, b)
+    assert runs[0] == runs[1]
+    # a step: 2 layers x (4 attention + 3 expert + 3 shared projections)
+    # and the lm head, every one a single launch, and 2 attention launches
+    name = "quant_matmul" if plan == "quant" else "lowrank_qmm"
+    assert runs[0][0] == {name: (2 * (4 + 3 + 3) + 1) * res.steps,
+                          "paged_attention": 2 * res.steps}
+
+
+def test_unpack_int4_on_cuda_equals_cpu(cuda):
+    b = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
+    assert torch.equal(quant.unpack_int4(b.to(cuda)).cpu(),
+                       quant.unpack_int4(b))

@@ -1,0 +1,440 @@
+"""The mixture-of-experts layout of the port (`configs` for deepseek-moe-16b
+and mixtral-8x22b, `models.moe`, the expert axis of `kernels.ops` and of
+the kernels' plain versions, the MoE branch of `models.transformer`, and
+the engine's serve and generate over it) against the reference on the
+same weights.
+
+Weights are the smoke configs' from the reference's seed 0 (float32),
+dense or compressed by the reference, moved with `repro_torch.bridge`;
+inputs are numpy-seeded. The smoke configs are dropless (capacity factor
+at least E / k), so served tokens do not depend on what shares a step;
+the routing tests force a capacity of 1, where copies are dropped."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import engine as jengine
+from repro.api import plan as jplan
+from repro.checkpoint import ckpt as jck
+from repro.configs import get_config as j_get_config
+from repro.kernels import ref as jref
+from repro.models import moe as jmoe
+from repro.models import transformer as jtfm
+from repro_torch import bridge
+from repro_torch.api import engine as tengine
+from repro_torch.api import plan as tplan
+from repro_torch.checkpoint import ckpt as tck
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.core.compress import compress_params
+from repro_torch.core.quant import pack_int4
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.lowrank_qmm import lowrank_qmm_plain
+from repro_torch.kernels.quant_matmul import quant_matmul_plain
+from repro_torch.launch import serve as tserve
+from repro_torch.models.layers import mlp_apply
+from repro_torch.models import moe as tmoe
+from repro_torch.models import transformer as ttfm
+
+CPU = torch.device("cpu")
+ARCHS = ["deepseek-moe-16b", "mixtral-8x22b"]
+SAMPLED = dict(max_tokens=6, temperature=0.8, top_k=20, top_p=0.9, seed=3)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    """{(arch, plan): (reference params, port params, the reference's
+    compression report)}: the smoke model dense, quantization-only W4A8
+    and ITERA W4 at rank fraction 0.5, each compressed by the reference
+    and read back through its checkpoint."""
+    out = {}
+    for arch in ARCHS:
+        cfg = j_get_config(arch, smoke=True)
+        params = jtfm.init_params(jax.random.PRNGKey(0), cfg)
+        plans = {"dense": None,
+                 "quant": jplan.CompressionPlan.uniform(
+                     params, method="quant", weight_wl=4),
+                 "itera": jplan.CompressionPlan.uniform(
+                     params, method="itera", weight_wl=4,
+                     rank_fraction=0.5)}
+        for name, plan in plans.items():
+            jeng = jengine.InferenceEngine.build(cfg, plan, params=params)
+            path = tmp_path_factory.mktemp(f"ckpt_{arch}_{name}")
+            jck.save(str(path), 0, jeng.params)
+            out[arch, name] = (jeng.params, bridge.load_checkpoint(str(path)),
+                               jeng.report)
+    return out
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_and_param_counts_match_reference(arch, smoke):
+    jc, tc = j_get_config(arch, smoke=smoke), t_get_config(arch, smoke=smoke)
+    want = dataclasses.asdict(jc)
+    for name, value in dataclasses.asdict(tc).items():
+        assert value == want[name], name
+    assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
+    assert tc.active_param_count() < tc.param_count()
+
+
+# ------------------------------------------------------------- routing --
+def _reference_routing(lp, x, cfg, capacity):
+    """The reference's routing of x (B, S, D), step by step as
+    `repro.models.moe.moe_apply` takes it: (expert ids, target rows)."""
+    m = cfg.moe
+    xt = jnp.asarray(x).reshape(-1, x.shape[-1])
+    logits = xt.astype(jnp.float32) @ lp["router"]
+    probs = jax.nn.softmax(logits, axis=-1)
+    _, idx = jax.lax.top_k(probs, m.top_k)
+    mask = jax.nn.one_hot(idx, m.num_experts, dtype=jnp.int32).sum(1)
+    pos = jnp.take_along_axis(jnp.cumsum(mask, axis=0) - mask, idx, axis=1)
+    tgt = jnp.where(pos < capacity, idx * capacity + pos,
+                    m.num_experts * capacity)
+    return np.asarray(idx), np.asarray(tgt)
+
+
+@pytest.mark.parametrize("capacity", [None, 1])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_apply_routes_and_computes_as_reference(models, arch, capacity):
+    """Same expert ids, slots and drops (capacity 1 drops most copies),
+    output within 1e-6 relative and aux loss within two float32 ulps."""
+    jp, tp, _ = models[arch, "dense"]
+    jc, tc = j_get_config(arch, smoke=True), t_get_config(arch, smoke=True)
+    lj = jax.tree_util.tree_map(lambda a: a[1], jp["layers"]["moe"])
+    lt = ttfm.split_layers(tp, tc.num_layers)["layers"][1]["moe"]
+    x = np.random.default_rng(4).standard_normal(
+        (3, 11, jc.d_model)).astype(np.float32)
+    cap = capacity or tmoe.capacity_for(33, tc)
+    assert cap == (1 if capacity else max(1, int(
+        33 * jc.moe.top_k * jc.moe.capacity_factor / jc.moe.num_experts)))
+    idx_j, tgt_j = _reference_routing(lj, x, jc, cap)
+    _, _, idx_t, _, tgt_t = tmoe.route(
+        lt, torch.from_numpy(x).reshape(33, -1), tc, cap)
+    np.testing.assert_array_equal(idx_t.numpy(), idx_j)
+    np.testing.assert_array_equal(tgt_t.numpy(), tgt_j)
+    dropped = int((tgt_j == jc.moe.num_experts * cap).sum())
+    assert (dropped > 0) == (capacity == 1)
+    yj, aj = jmoe.moe_apply(lj, jnp.asarray(x), jc, capacity=capacity)
+    yt, at = tmoe.moe_apply(lt, torch.from_numpy(x), tc, capacity=capacity)
+    assert _rel(yt, yj) <= 1e-6
+    assert abs(float(at) - float(aj)) <= 2.4e-7
+
+
+def test_capacity_matches_the_reference_expression():
+    tc = t_get_config("deepseek-moe-16b")
+    for t in (1, 8, 128, 2048, 8 * 256, 65536):
+        want = max(1, int(t * 6 * 1.25 / 64))
+        want = -(-want // 512) * 512 if want > 512 else want
+        assert tmoe.capacity_for(t, tc) == want
+    assert tmoe.capacity_for(8, tc) == 1
+    assert tmoe.capacity_for(8 * 256, tc) == 240
+
+
+# ------------------------------------------------ the batched kernels --
+@pytest.mark.parametrize("experts", [1, 8])
+@pytest.mark.parametrize("packed", [False, True])
+def test_batched_plain_kernels_match_reference_vmap(packed, experts):
+    """The plain versions of both kernels over an expert stack, bit-equal
+    to the reference's `kernels.ref` under `jax.vmap`; each expert's slice
+    is the single-matrix call's."""
+    rng = np.random.default_rng(experts + 2 * packed)
+    e, m, k, r, n = experts, 5, 64, 32, 96
+    qw = 7 if packed else 127
+    xq = rng.integers(-127, 128, (e, m, k)).astype(np.int8)
+    sx = rng.random((e, m, 1)).astype(np.float32) + 0.01
+    w = rng.integers(-qw, qw + 1, (e, k, n)).astype(np.int8)
+    sw = (rng.random((e, 1, n)) * 0.01).astype(np.float32)
+    w1 = rng.integers(-qw, qw + 1, (e, k, r)).astype(np.int8)
+    w2 = rng.integers(-qw, qw + 1, (e, r, n)).astype(np.int8)
+    s1 = (rng.random((e, 1, r)) * 0.1).astype(np.float32)
+    s2 = (rng.random((e, r, 1)) * 0.1).astype(np.float32)
+    t = {k_: torch.from_numpy(v) for k_, v in dict(
+        xq=xq, sx=sx, w=w, sw=sw, w1=w1, w2=w2, s1=s1, s2=s2).items()}
+
+    def store(a):
+        return pack_int4(a) if packed else a
+
+    yq = quant_matmul_plain(t["xq"], t["sx"], store(t["w"]), t["sw"],
+                            w_packed=packed)
+    # jitted, as the reference runs: XLA turns requant's division by the
+    # constant qmax into the multiply by its reciprocal the port takes
+    want_q = jax.jit(jax.vmap(jref.quant_matmul_ref))(xq, sx, w, sw)
+    np.testing.assert_array_equal(yq.numpy(), np.asarray(want_q))
+    yl = lowrank_qmm_plain(t["xq"], t["sx"], store(t["w1"]), t["s1"],
+                           store(t["w2"]), t["s2"], w1_packed=packed,
+                           w2_packed=packed, act_qmax=127)
+    want_l = jax.jit(jax.vmap(jref.lowrank_qmm_ref))(xq, sx, w1, s1, w2, s2)
+    np.testing.assert_array_equal(yl.numpy(), np.asarray(want_l))
+    for i in range(e):
+        np.testing.assert_array_equal(
+            quant_matmul_plain(t["xq"][i], t["sx"][i], store(t["w"][i]),
+                               t["sw"][i], w_packed=packed).numpy(),
+            yq[i].numpy())
+
+
+@pytest.mark.parametrize("plan", ["quant", "itera"])
+def test_expert_stack_is_one_kernel_call(models, plan, monkeypatch):
+    """ops sends each projection of all experts to its kernel's wrapper
+    once, with the stack's leading axis."""
+    _, tp, _ = models["deepseek-moe-16b", plan]
+    tc = t_get_config("deepseek-moe-16b", smoke=True)
+    lp = ttfm.split_layers(tp, tc.num_layers)["layers"][0]["moe"]
+    name = "quant_matmul" if plan == "quant" else "lowrank_qmm"
+    real, calls = getattr(tops, name), []
+
+    def counting(xq, *args, **kw):
+        calls.append(tuple(xq.shape))
+        return real(xq, *args, **kw)
+
+    monkeypatch.setattr(tops, name, counting)
+    xb = torch.randn((tc.moe.num_experts, 4, tc.d_model))
+    y = mlp_apply(xb, lp["experts"], tc.mlp_act)
+    assert y.shape == xb.shape
+    assert len(calls) == 3 and all(s[:2] == (8, 4) for s in calls)
+
+
+# ------------------------------------------------------ whole sequences --
+def _silu32(x):
+    return torch.nn.functional.silu(x)
+
+
+def _rope32(x, positions, theta, rotary_pct=1.0):
+    """RoPE with cos and sin in float32, as the reference takes them."""
+    from repro_torch.models.layers import rope_freqs
+
+    inv, rot = rope_freqs(x.shape[-1], theta, rotary_pct, device=x.device)
+    ang = positions[..., :, None].to(torch.float32) * inv
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    yr = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_loss_and_grads_match_reference(models, arch, monkeypatch):
+    """The float model's loss (ce + 0.01 aux) within the dense model's
+    1.5e-7, its aux within two float32 ulps a layer, and each gradient
+    within 1.2e-6 relative (Frobenius). The dense model's 7.1e-7 does
+    not hold here, and the port's float64 SiLU and RoPE are not why: with
+    both taken in float32, as the reference takes them, the largest
+    gradient gap is within 10% of the port's (its float32 and the
+    reference's sum in other orders, which is the gap)."""
+    jp, _, _ = models[arch, "dense"]
+    jc, tc = j_get_config(arch, smoke=True), t_get_config(arch, smoke=True)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, jc.vocab_size, (2, 16)).astype(np.int32)
+    labels = rng.integers(0, jc.vocab_size, (2, 16)).astype(np.int32)
+    (lj, mj), gj = jax.value_and_grad(jtfm.loss_fn, has_aux=True)(
+        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}, jc)
+    gflat = jck._flatten(gj)
+
+    def largest_gap() -> float:
+        tp = bridge.from_flat(jck._flatten(jp))  # the fixture's stay frozen
+        leaves = tck.flatten(tp)
+        for v in leaves.values():
+            v.requires_grad_(True)
+        lt, mt = ttfm.loss_fn(tp, {"tokens": torch.from_numpy(toks),
+                                   "labels": torch.from_numpy(labels)}, tc)
+        lt.backward()
+        assert _rel(lt.item(), float(lj)) <= 1.5e-7
+        assert abs(float(mt["aux"]) - float(mj["aux"])) <= \
+            2.4e-7 * tc.num_layers
+        assert float(mt["aux"]) > 0
+        gaps = {key: _rel(v.grad.numpy(), gflat[key])
+                for key, v in leaves.items()}
+        for key, gap in gaps.items():
+            assert gap <= 1.2e-6, key
+        return max(gaps.values())
+
+    ported = largest_gap()
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import layers as tlayers
+
+    monkeypatch.setattr(tlayers, "silu", _silu32)
+    monkeypatch.setattr(tattn, "apply_rope", _rope32)
+    assert ported <= 1.1 * largest_gap()
+
+
+# ------------------------------------------------------- compression --
+@pytest.mark.parametrize("method", ["quant", "itera"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_plans_and_reports_match_reference(models, arch, method):
+    """The expert stacks (L, E, K, N) and the shared experts are planned
+    and compressed under the reference's paths, ranks and report (the
+    fixture's compression under the same plan); the router is not. The
+    report's fields follow from the shapes, so the port compresses with
+    one power iteration a rank-1 step."""
+    jp, tp, _ = models[arch, "dense"]
+    kw = dict(method=method, weight_wl=4, rank_fraction=0.5)
+    jpl = jplan.CompressionPlan.uniform(jp, **kw)
+    tpl = tplan.CompressionPlan.uniform(tp, **kw)
+    assert tpl.dumps() == jpl.dumps()
+    paths = [lp.path for lp in tpl.layers]
+    assert "layers/moe/experts/up" in paths
+    assert not any("router" in p for p in paths)
+    assert ("layers/moe/shared/gate" in paths) == (arch == "deepseek-moe-16b")
+    _, trep = compress_params(tp, dataclasses.replace(tpl, power_iters=1))
+    jrep = models[arch, method][2]
+    got = [(r.path, r.shape, r.method, r.rank, r.bits, r.nops_per_row)
+           for r in trep.layers]
+    want = [(r.path, tuple(r.shape), r.method, r.rank, r.bits,
+             r.nops_per_row) for r in jrep.layers]
+    assert got == want
+    assert trep.skipped_params == jrep.skipped_params
+
+
+# ------------------------------------------------------------ engines --
+def _engines(models, arch, plan):
+    jp, tp, _ = models[arch, plan]
+    jc, tc = j_get_config(arch, smoke=True), t_get_config(arch, smoke=True)
+    return (jengine.InferenceEngine(jc, jp, max_batch=3, block_size=4,
+                                    chunk_tokens=8),
+            tengine.InferenceEngine(tc, tp, device=CPU, max_batch=3,
+                                    block_size=4, chunk_tokens=8))
+
+
+@pytest.mark.parametrize("plan", ["quant", "itera"])
+def test_serve_and_generate_match_reference_engine(models, plan):
+    """deepseek-moe-16b smoke: greedy and seeded sampled tokens of ragged
+    serves (chunked prefill, idle rows) and of rectangular generates,
+    identical to the reference engine's."""
+    je, te = _engines(models, "deepseek-moe-16b", plan)
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(1, 256, n).astype(np.int32) for n in (13, 5, 9, 17)]
+    for sp in (dict(max_tokens=6), SAMPLED):
+        want = je.serve(reqs, jengine.SamplingParams(**sp))
+        got = te.serve(reqs, tengine.SamplingParams(**sp))
+        for a, b in zip(got.outputs, want.outputs):
+            np.testing.assert_array_equal(a, b)
+    prompts = rng.integers(1, 256, (3, 10)).astype(np.int32)
+    for sp in (dict(max_tokens=6), SAMPLED):
+        want = je.generate(prompts, jengine.SamplingParams(**sp))
+        got = te.generate(prompts, tengine.SamplingParams(**sp))
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert not te.bucket_prompts and not je.bucket_prompts
+    assert te.weight_hbm_bytes() == je.weight_hbm_bytes()
+
+
+@pytest.mark.parametrize("plan", ["quant", "itera"])
+def test_windowed_moe_generates_as_reference_and_refuses_serve(models, plan):
+    """mixtral-8x22b smoke (an 8-token window): generate's greedy and
+    sampled tokens are the reference's; serve is refused by both."""
+    je, te = _engines(models, "mixtral-8x22b", plan)
+    prompts = np.random.default_rng(8).integers(1, 256, (2, 12)).astype(
+        np.int32)
+    for sp in (dict(max_tokens=5), SAMPLED):
+        want = je.generate(prompts, jengine.SamplingParams(**sp))
+        got = te.generate(prompts, tengine.SamplingParams(**sp))
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+    for eng, sp in ((je, jengine), (te, tengine)):
+        with pytest.raises(NotImplementedError, match="window"):
+            eng.serve(list(prompts), sp.SamplingParams(max_tokens=2))
+
+
+# -------------------------------------------------------- checkpoints --
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_checkpoints_move_both_ways(models, arch, tmp_path):
+    """A reference ITERA checkpoint read by `bridge` is the reference's
+    bytes; the port's checkpoint of it is read back by `repro` exactly."""
+    jp, tp, _ = models[arch, "itera"]
+    jflat = jck._flatten(jp)
+    tflat = tck.flatten(tp)
+    assert sorted(tflat) == sorted(jflat)
+    for key, v in tflat.items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jflat[key]), key)
+    tck.save(str(tmp_path), 3, tp)
+    back, _ = jck.restore(str(tmp_path), jp)
+    jax.tree_util.tree_map(np.testing.assert_array_equal, back, jp)
+
+
+def test_cli_generates_and_serves_deepseek_smoke(capsys):
+    """`launch.serve --arch deepseek-moe-16b --smoke --device cpu`, in
+    lockstep and ragged, under a quantization-only W4 plan."""
+    argv = ["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--gen", "3",
+            "--compression", "quant", "--wl", "4"]
+    res = tserve.main(argv)
+    assert res.tokens.shape == (2, 3)
+    res = tserve.main(argv + ["--ragged"])
+    assert [len(o) for o in res.outputs] == [3, 3]
+    assert "[serve]" in capsys.readouterr().out
+
+
+def test_unpack_int4_every_byte_matches_reference():
+    """The int8-shift unpack (what the plain versions of the expert stacks
+    read) on all 256 byte values, as the reference unpacks them."""
+    from repro.core import quant as jquant
+    from repro_torch.core.quant import unpack_int4
+
+    b = np.arange(-128, 128, dtype=np.int8).reshape(2, 8, 16)
+    np.testing.assert_array_equal(unpack_int4(torch.from_numpy(b)).numpy(),
+                                  np.asarray(jquant.unpack_int4(b)))
+
+
+def test_span_scatter_keeps_the_last_pad_slot_at_any_size():
+    """Every pad slot of a span batch targets the trash slot (0, 0); the
+    port's scatter keeps the last one in (B, W) order, as the reference's
+    does, at a size where a plain repeated-index scatter on the CPU runs
+    in parallel (positions past q_lens attend over the trash block, and
+    an MoE layer routes them)."""
+    from repro.runtime import kvblocks as jkv
+    from repro_torch.models.attention import _scatter_span
+    from repro_torch.runtime import kvblocks as tkv
+
+    rng = np.random.default_rng(10)
+    b, w, bs, hk, hd = 8, 256, 16, 4, 32
+    ctx = rng.integers(0, 200, b).astype(np.int32)
+    ql = np.array([w, 3, 0, 10, 1, 0, 57, 2], np.int32)
+    mb = -(-int((ctx + w).max()) // bs)
+    table = np.zeros((b, mb), np.int32)
+    table[:] = 1 + np.arange(b * mb).reshape(b, mb)
+    pool = rng.standard_normal((1 + b * mb, bs, hk, hd)).astype(np.float32)
+    val = rng.standard_normal((b, w, hk, hd)).astype(np.float32)
+    blk, off = jkv.span_slots(jnp.asarray(table), jnp.asarray(ctx),
+                              jnp.asarray(ql), w, bs)
+    want = np.asarray(jnp.asarray(pool).at[blk, off].set(jnp.asarray(val)))
+    got = {"k": torch.from_numpy(pool.copy())}
+    _scatter_span(got, *tkv.span_slots(torch.from_numpy(table),
+                                       torch.from_numpy(ctx),
+                                       torch.from_numpy(ql), w, bs),
+                  {"k": torch.from_numpy(val)})
+    np.testing.assert_array_equal(got["k"].numpy(), want)
+
+
+@pytest.mark.parametrize("plan", ["quant", "itera"])
+def test_serve_with_binding_capacity_matches_reference_engine(models, plan):
+    """deepseek-moe-16b smoke at capacity factor 0.5, where a step drops
+    copies: ragged serves (chunked prefill, idle rows), greedy and
+    sampled, give the reference engine's tokens. Positions past q_lens
+    route with the real tokens and take expert slots first, so this holds
+    only while the port's attention there is the reference's."""
+    jp, tp, _ = models["deepseek-moe-16b", plan]
+    jc, tc = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=0.5)) for c in (
+            j_get_config("deepseek-moe-16b", smoke=True),
+            t_get_config("deepseek-moe-16b", smoke=True)))
+    assert tmoe.capacity_for(3 * 8, tc) < 3 * 8 * tc.moe.top_k \
+        // tc.moe.num_experts
+    je = jengine.InferenceEngine(jc, jp, max_batch=3, block_size=4,
+                                 chunk_tokens=8)
+    te = tengine.InferenceEngine(tc, tp, device=CPU, max_batch=3,
+                                 block_size=4, chunk_tokens=8)
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(1, 256, n).astype(np.int32) for n in (13, 5, 9, 17)]
+    for sp in (dict(max_tokens=6), SAMPLED):
+        want = je.serve(reqs, jengine.SamplingParams(**sp))
+        got = te.serve(reqs, tengine.SamplingParams(**sp))
+        flips = sum(int((np.asarray(a) != np.asarray(b)).sum())
+                    for a, b in zip(got.outputs, want.outputs))
+        assert flips == 0, f"{flips} of {sum(map(len, want.outputs))} differ"

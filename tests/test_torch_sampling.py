@@ -136,7 +136,7 @@ def test_candidate_window_is_lax_top_k():
                     [-0.0, 0.0, -0.0, 0.0, 3.0, 3.0, -1.0, 3.0]],
                    np.float32)
     wv, wi = jax.lax.top_k(jnp.asarray(x), 6)
-    cand, idx = tsmp._window(_t(x), 6)
+    cand, idx = tsmp.lax_top_k(_t(x), 6)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
     np.testing.assert_array_equal(cand.numpy().view(np.int32),
                                   np.asarray(wv).view(np.int32))

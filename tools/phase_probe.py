@@ -543,15 +543,15 @@ def probe_second(torch, cs, timer, res) -> None:
     g = torch.Generator(device="cuda").manual_seed(3)
     for kv_bits in (16, 8):
         for w in (1, 256):
-            q, pool, table, ctx_t, ql_t, _, _ = cs._span_batch(torch, g, w,
-                                                               kv_bits)
+            q, pool, table, ctx_t, _, _, _ = cs._span_batch(torch, g, w,
+                                                            kv_bits)
             b, _, h, _ = q.shape
             _, bs, hk, _ = pool["k"].shape
             qt, kps, splits = pa.choose_splits(b, hk, w, h // hk,
                                                table.shape[1], bs, 132)
 
             def call():
-                return pa.paged_attention(q, pool, table, ctx_t, ql_t)
+                return pa.paged_attention(q, pool, table, ctx_t)
 
             us = timer(call) * 1e3
             libs["paged_attention"].probe_clear()
