@@ -119,7 +119,7 @@ fails:
    the 16 requests and greedy and sampled generates of the 8 Markov-task
    prompts both captured and eagerly (`cuda_graphs=False`): identical
    tokens and launch counters; the graphs held, their capture seconds and
-   the memory they reserved; then five interleaved rounds of eager and
+   the memory they reserved; then three interleaved rounds of eager and
    captured serve (TPOT p50, TTFT p50, tok/s) and generate (prefill ms,
    decode ms a step, tok/s) of the mixed kv16 plan, median, min and max,
    and one serve and one generate of each under torch.profiler;
@@ -144,7 +144,25 @@ fails:
    captured == eager tokens and counters; the copies routed and dropped
    by step kind; a profile of each serve; generate of 8 x 128 prompts
    timed with exact launches; card == CPU for 4 short requests greedy
-   and sampled and for a 4 x 29 generate, under both plans.
+   and sampled and for a 4 x 29 generate, under both plans;
+6. bf16: the bfloat16 model dtype. phi3-medium-14b at its published
+   widths (d_model 5120, 40 heads of 128 over 10 KV heads, SwiGLU d_ff
+   17920, RMSNorm, RoPE, vocab 100,352), bfloat16, 4 of its 40 layers,
+   seed-0 random weights, compressed on the card under the mixed plan at
+   rank fraction 0.2 (ITERA W4A8, R 1024 and 256, at 4 power iterations
+   a rank-1 step; W8A8 lm head) and quant-only W4A8; 8 requests of
+   32-256 prompt tokens, 16 new, served captured (greedy with a bf16 and
+   an int8 pool; the mixed plan also sampled) and eagerly: every step
+   launches exactly 28 lowrank_qmm + 1 quant_matmul + 4 paged_attention
+   (mixed) or 29 quant_matmul + 4 paged_attention (quant-only), the
+   linears writing bf16 from their epilogues; captured == eager tokens;
+   a profile of each phi3 serve; then stablelm-12b (32 heads of 160 over 8, LayerNorm, 25% rotary),
+   bfloat16, 2 of 40 layers, quant-only, greedy at both pools; card ==
+   CPU for 4 short requests on every one of those paths. Phase 2
+   compares these models' launch shapes first: both integer kernels
+   with a bf16 output at every row count a step takes (bit-equal), and
+   bf16 attention at Dh 128 and 160 over a bf16 and an int8 pool
+   (within one bf16 ulp on at most 1e-4 of the outputs).
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -688,11 +706,15 @@ def quant_launch_shapes(cfg) -> dict:
     return {(d, d): 4 * n, (d, f): n, (f, d): n, (d, cfg.vocab_size): 1}
 
 
-def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
+def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16, hk=None,
+                dtype=None):
     """A span batch over a pool with random history: ragged contexts, one
     idle row; decode (w == 1), speculative verify spans of 1 + 0-4
     drafts (w == 8), or prefill chunks up to w tokens. Each row's table
-    holds the blocks of its tokens, then the trash block 0."""
+    holds the blocks of its tokens, then the trash block 0. The pool has
+    `hk` kv heads (default h); q and a kv-16 pool are fp32, or `dtype`."""
+    hk = hk or h
+    dtype = dtype or torch.float32
     if w == 1:
         ctx = [40, 511, 0, 130, 300, 75, 220, 480]
         ql = [1, 1, 0, 1, 1, 1, 1, 1]
@@ -709,7 +731,7 @@ def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
         need = -(-(ctx[r] + ql[r]) // bs)
         table[r, :need] = torch.arange(nxt, nxt + need)
         nxt += need
-    shape = (nxt, bs, h, dh)
+    shape = (nxt, bs, hk, dh)
     if kv_bits == 8:
         pool = {"k": torch.randint(-127, 128, shape, generator=g,
                                    device="cuda", dtype=torch.int8),
@@ -721,9 +743,9 @@ def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16):
                 "vs": torch.rand((*shape[:-1], 1), generator=g,
                                  device="cuda") * 0.02 + 0.005}
     else:
-        pool = {"k": torch.randn(shape, generator=g, device="cuda"),
-                "v": torch.randn(shape, generator=g, device="cuda")}
-    q = torch.randn((b, w, h, dh), generator=g, device="cuda")
+        pool = {"k": torch.randn(shape, generator=g, device="cuda").to(dtype),
+                "v": torch.randn(shape, generator=g, device="cuda").to(dtype)}
+    q = torch.randn((b, w, h, dh), generator=g, device="cuda").to(dtype)
     return (q, pool, table.cuda(), torch.tensor(ctx, dtype=torch.int32,
                                                 device="cuda"),
             torch.tensor(ql, dtype=torch.int32, device="cuda"), ctx, ql)
@@ -799,6 +821,224 @@ def check_paged_attention(torch, timer, failures):
     main = next(r for r in rows
                 if (r["w"], r["kv_bits"], r["dh"]) == (1, 16, 64))
     return {**main, "max_abs_err": worst}
+
+
+# bfloat16 models in the bf16 phase: phi3-medium-14b (d_model 5120, 40
+# heads of 128 over 10 KV heads, d_ff 17920) under the mixed plan (ITERA
+# W4A8 at rank fraction 0.2: R 1024 for the 5120-wide factors, R 256 for
+# wk and wv) and under quant-only W4A8, and stablelm-12b (32 heads of 160
+# over 8, d_ff 13824) under quant-only; both with the W8A8 lm head, K
+# 5120 -> N 100,352. A serve step's linears take 8 x W rows, W a power of
+# two up to the 256-token chunk.
+BF16_RANK_FRACTION = 0.2
+BF16_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+BF16_TIMED_ROWS = (8, 2048)       # of those, the rows phase 2 also times
+BF16_ATTN = ((40, 10, 128), (32, 8, 160))     # (H, Hk, Dh) of each model
+TOL_ULP_SHARE = 1e-4     # bf16 attention: share of outputs 1 ulp apart
+
+
+def bf16_geometry():
+    """The bf16 phase's linears: {(K, N): (wl, packed)} of quant_matmul (the
+    quant-only plans' layer linears and the W8 lm head) and {(K, R, N)}
+    of lowrank_qmm (the mixed plan's), from the two configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import packs
+
+    qmm, lrmm = {}, set()
+    for arch in ("phi3-medium-14b", "stablelm-12b"):
+        c = get_config(arch)
+        d, f = c.d_model, c.d_ff
+        kv = c.num_kv_heads * c.head_dim
+        for k, n in ((d, c.num_heads * c.head_dim), (d, kv), (d, f),
+                     (f, d)):
+            qmm[k, n] = (4, packs(4, n))
+        qmm[d, c.vocab_size] = (8, False)               # the W8 lm head
+        if arch == "phi3-medium-14b":
+            for k, n in ((d, d), (d, kv), (d, f), (f, d)):
+                lrmm.add((k, int(min(k, n) * BF16_RANK_FRACTION), n))
+    return qmm, sorted(lrmm)
+
+
+def _ulp_share(torch, o, ref):
+    """(max abs difference, share of elements that differ, whether each
+    difference is within one bf16 ulp of the larger value)."""
+    a, b = o.float(), ref.float()
+    diff = (a - b).abs()
+    ulp = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+    return (float(diff.max()), float((diff > 0).float().mean()),
+            bool((diff <= ulp).all()))
+
+
+def check_bf16_kernels(torch, timer, failures):
+    """Phase 2 for the bf16 models: both integer kernels with their bf16
+    epilogue at every (rows, K, [R,] N) a bf16 serve step launches,
+    bit-equal to the plain versions (timed at 8 and 2048 rows), and
+    paged attention at bf16 with a bf16 or int8 pool, Dh 128 and 160,
+    decode and a W 256 prefill, within one bf16 ulp on at most
+    TOL_ULP_SHARE of the outputs. Returns {kernel: worst max abs error}."""
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import QuantizedTensor, pack_int4, packable
+    from repro_torch.hw.h100_model import PEAK_FLOPS_BF16, PEAK_OPS_INT8
+    from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
+                                                 lowrank_qmm_plain)
+    from repro_torch.kernels.ops import (lrmm_hbm_bytes, qmm_hbm_bytes,
+                                         quantize_acts)
+    from repro_torch.kernels.paged_attention import (launch_work,
+                                                     paged_attention,
+                                                     span_attend_gather)
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_plain)
+    from repro_torch.kernels.ref import requant_rows
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = collections.Counter()
+    rows = {"quant_matmul": [], "lowrank_qmm": [], "paged_attention": []}
+    qmm_shapes, lrmm_shapes = bf16_geometry()
+    print("  bf16 quant_matmul: M K N packed | kernel_ms plain_ms "
+          "library_ms bound_us (bound by) | graph_us")
+    for (k, n), (wl, packed) in sorted(qmm_shapes.items()):
+        qm = 7 if wl == 4 else 127
+        w = torch.randint(-qm, qm + 1, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8)
+        wq = pack_int4(w) if packed else w
+        sw = torch.rand((1, n), generator=g, device="cuda") * 0.01
+        # the lm head takes one row per batch slot, the layers every M
+        for m in ((8,) if wl == 8 else BF16_ROWS):
+            xq = torch.randint(-127, 128, (m, k), generator=g,
+                               device="cuda", dtype=torch.int8)
+            sx = torch.rand((m, 1), generator=g, device="cuda") + 0.01
+            args = (xq, sx, wq, sw)
+            kw = dict(w_packed=packed, out_dtype=bf)
+            y = quant_matmul(*args, **kw)
+            ref = quant_matmul_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            worst["quant_matmul"] = max(worst["quant_matmul"], err)
+            check(failures, torch.equal(y.view(torch.int16),
+                                        ref.view(torch.int16)),
+                  f"bf16 quant_matmul M={m} K={k} N={n} differs from "
+                  f"plain (max abs {err})")
+            if m not in BF16_TIMED_ROWS:
+                continue
+            t_k = timer(lambda: quant_matmul(*args, **kw))
+            t_p = timer(lambda: quant_matmul_plain(*args, **kw))
+            t_l = library_ms(timer, lambda: (
+                int_mm(torch, xq, w).float() * sx * sw).to(bf))
+            node = QuantizedTensor(wq, sw, wl, 0, packed=packed)
+            b_ms, b_by = bound(qmm_hbm_bytes(m, node, out_bytes=2),
+                               2 * m * k * n, PEAK_OPS_INT8)
+            t_g = graph_ms(torch, lambda: quant_matmul(*args, **kw))
+            print(f"    {m:5d} {k:5d} {n:6d} {packed!s:5} | {t_k:.4f} "
+                  f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
+                  f"{b_ms * 1e3:.4f} ({b_by}) | {t_g * 1e3:.2f}")
+            rows["quant_matmul"].append(dict(m=m, k=k, n=n, ms=t_k,
+                                             plain_ms=t_p))
+    print("  bf16 lowrank_qmm: M K R N | kernel_ms plain_ms library_ms "
+          "bound_us (bound by) | graph_us")
+    for k, r, n in lrmm_shapes:
+        w1c = torch.randint(-7, 8, (k, r), generator=g, device="cuda",
+                            dtype=torch.int8)
+        w2c = torch.randint(-7, 8, (r, n), generator=g, device="cuda",
+                            dtype=torch.int8)
+        w1p = packable(QuantizedTensor(w1c, None, 4, 0))
+        w2p = packable(QuantizedTensor(w2c, None, 4, 1))
+        w1 = pack_int4(w1c) if w1p else w1c
+        w2 = pack_int4(w2c) if w2p else w2c
+        s1 = torch.rand((1, r), generator=g, device="cuda") * 0.1
+        s2 = torch.rand((r, 1), generator=g, device="cuda") * 0.1
+        kw = dict(w1_packed=w1p, w2_packed=w2p, act_qmax=127, out_dtype=bf)
+        for m in BF16_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda").to(bf)
+            xq, sx = quantize_acts(x, 127)
+            args = (xq, sx, w1, s1, w2, s2)
+            y = lowrank_qmm(*args, **kw)
+            ref = lowrank_qmm_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            worst["lowrank_qmm"] = max(worst["lowrank_qmm"], err)
+            check(failures, torch.equal(y.view(torch.int16),
+                                        ref.view(torch.int16)),
+                  f"bf16 lowrank_qmm M={m} K={k} R={r} N={n} differs from "
+                  f"plain (max abs {err})")
+            if m not in BF16_TIMED_ROWS:
+                continue
+
+            def chain():
+                t = int_mm(torch, xq, w1c).float() * sx * s1 * \
+                    s2.reshape(1, -1)
+                tq, st = requant_rows(t, 127)
+                return (int_mm(torch, tq, w2c).float() * st).to(bf)
+
+            t_k = timer(lambda: lowrank_qmm(*args, **kw))
+            t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
+            t_l = library_ms(timer, chain)
+            node = LowRankQ(QuantizedTensor(w1, s1, 4, 0, packed=w1p),
+                            QuantizedTensor(w2, s2, 4, 1, packed=w2p))
+            b_ms, b_by = bound(lrmm_hbm_bytes(m, node, out_bytes=2),
+                               2 * m * r * (k + n), PEAK_OPS_INT8)
+            t_g = graph_ms(torch, lambda: lowrank_qmm(*args, **kw))
+            print(f"    {m:5d} {k:5d} {r:4d} {n:5d} | {t_k:.4f} {t_p:.4f} "
+                  f"{t_l if t_l is None else round(t_l, 4)} "
+                  f"{b_ms * 1e3:.4f} ({b_by}) | {t_g * 1e3:.2f}")
+            rows["lowrank_qmm"].append(dict(m=m, k=k, r=r, n=n, ms=t_k,
+                                            plain_ms=t_p))
+    print("  bf16 paged_attention: W kv_bits H Hk Dh | kernel_ms plain_ms "
+          "library_ms bound_us (bound by) max_abs_err share_differing")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for kv_bits in (16, 8):
+        for h, hk, dh in BF16_ATTN:
+            for w in (1, 256):
+                q, pool, table, ctx_t, _, ctx, _ = _span_batch(
+                    torch, g, w, kv_bits, h=h, dh=dh, hk=hk, dtype=bf)
+                o = paged_attention(q, pool, table, ctx_t)
+                ref = span_attend_gather(q, pool, table, ctx_t)
+                torch.cuda.synchronize()
+                err, share, in_ulp = _ulp_share(torch, o, ref)
+                worst["paged_attention"] = max(worst["paged_attention"], err)
+                check(failures, in_ulp and share <= TOL_ULP_SHARE,
+                      f"bf16 paged_attention W={w} H={h} Dh={dh} "
+                      f"kv{kv_bits}: {share:.2e} of outputs differ (at "
+                      f"most {TOL_ULP_SHARE}), all within one ulp: "
+                      f"{in_ulp}")
+                b = q.shape[0]
+                bs = pool["k"].shape[1]
+                s = table.shape[1] * bs
+                bt = table.long()
+
+                def view(key):
+                    x = pool[key][bt].reshape(b, s, hk, dh).to(bf)
+                    if "ks" in pool:
+                        x = x * pool[key[0] + "s"][bt].reshape(
+                            b, s, hk, 1).to(bf)
+                    return x.repeat_interleave(h // hk, 2).transpose(
+                        1, 2).contiguous()
+
+                kk, vv = view("k"), view("v")
+                qq = q.transpose(1, 2).contiguous()
+                pos = ctx_t.long()[:, None] + torch.arange(w, device="cuda")
+                mask = (torch.arange(s, device="cuda")[None, None, :]
+                        <= pos[:, :, None])[:, None]
+                t_k = timer(lambda: paged_attention(q, pool, table, ctx_t))
+                t_p = timer(lambda: span_attend_gather(q, pool, table,
+                                                       ctx_t))
+                t_l = library_ms(timer, lambda: sdpa(qq, kk, vv,
+                                                     attn_mask=mask))
+                nbytes, flops = launch_work(table.tolist(), ctx, w, bs, hk,
+                                            dh, kv_bits=kv_bits,
+                                            n_q_heads=h, q_bytes=2)
+                b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS_BF16)
+                print(f"    {w:3d} kv{kv_bits} {h:2d} {hk:2d} {dh:3d} | "
+                      f"{t_k:.4f} {t_p:.4f} "
+                      f"{t_l if t_l is None else round(t_l, 4)} "
+                      f"{b_ms * 1e3:.4f} ({b_by}) {err:.2e} {share:.2e}")
+                rows["paged_attention"].append(dict(
+                    w=w, kv_bits=kv_bits, dh=dh, ms=t_k, plain_ms=t_p))
+    for name, keys in (("quant_matmul", ("m", "k", "n")),
+                       ("lowrank_qmm", ("m", "k", "r", "n")),
+                       ("paged_attention", ("w", "kv_bits", "dh"))):
+        slower_than_plain(f"bf16 {name}", rows[name], keys)
+    return dict(worst)
 
 
 # ------------------------------------------------------- phases 3 and 4 --
@@ -1922,7 +2162,7 @@ def launch_counts():
             dict(build.LAUNCH_RANKS))
 
 
-GRAPH_ROUNDS = 5         # interleaved eager / captured timing rounds
+GRAPH_ROUNDS = 3         # interleaved eager / captured timing rounds
 
 
 def graphs_phase(torch, cfg, engines, reqs, failures):
@@ -2738,6 +2978,186 @@ def moe_phase(torch, failures):
     return dict(launches)
 
 
+# ----------------------------------------------------------- bf16 phase --
+BF16_DEPTH = 4           # of phi3-medium-14b's 40 layers
+BF16_STABLELM_DEPTH = 2  # of stablelm-12b's 40
+# ITERA's power iterations a rank-1 step in the bf16 phase (the plans'
+# default is 24), for the phase's time, as the moe phase's
+BF16_POWER_ITERS = 4
+
+
+def bf16_mixed_plan(params):
+    """The bf16 phase's mixed plan: ITERA W4A8 at rank fraction 0.2 for
+    every attention and MLP linear (R 1024 at phi3's 5120-wide factors,
+    within `lowrank_qmm`'s 1024) and the W8A8 lm head."""
+    from repro_torch.api.plan import CompressionPlan, LayerPlan
+
+    base = CompressionPlan.uniform(params, method="itera", weight_wl=4,
+                                   rank_fraction=BF16_RANK_FRACTION,
+                                   exclude=EXCLUDE,
+                                   power_iters=BF16_POWER_ITERS)
+    return base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
+                                                        8),),
+                        label=f"itera_W4A8_r{BF16_RANK_FRACTION}"
+                              "+lm_head_W8A8")
+
+
+def dense_launches(cfg, plan: str) -> dict:
+    """Kernel launches of one serve step of a dense model: each layer's 7
+    linears (wq, wk, wv, wo, gate, up, down) and its attention, and the
+    lm head."""
+    n = 7 * cfg.num_layers
+    if plan == "mixed":
+        return {"lowrank_qmm": n, "quant_matmul": 1,
+                "paged_attention": cfg.num_layers}
+    return {"quant_matmul": n + 1, "paged_attention": cfg.num_layers}
+
+
+def bf16_serves(torch, name, per_step, reqs, runs, failures, launches):
+    """Serve `reqs` for each (label, engine, sampling) of `runs`, each
+    with the launch counters zeroed just before: launches exact a step,
+    every lowrank_qmm launch on a compared code path, outputs in range.
+    Returns {label: ServeResult}."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+
+    out = {}
+    for label, e, sp in runs:
+        build.reset_launches()
+        res = e.serve(reqs, sp)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        launches.update(counts)
+        check_compared(failures, f"bf16 {name} {label}")
+        want = {k: v * res.steps for k, v in per_step.items()}
+        check(failures, counts == want,
+              f"bf16 {name} {label}: launches {counts} over {res.steps} "
+              f"steps, expected {per_step} a step")
+        toks = np.stack(res.outputs)
+        check(failures, toks.shape == (len(reqs), sp.max_tokens) and bool(
+            ((toks >= 0) & (toks < e.cfg.vocab_size)).all()),
+            f"bf16 {name} {label}: outputs {toks.shape} out of range")
+        print(f"[bf16] {name} {label}: {res.total_tokens} tokens, prompts "
+              f"{min(res.prompt_lens)}-{max(res.prompt_lens)}, {res.steps} "
+              f"steps; TPOT p50 {res.tpot_p50 * 1e3:.2f} ms, TTFT p50 "
+              f"{res.ttft_p50 * 1e3:.1f} ms, {res.tokens_per_second:.1f} "
+              f"tok/s; launches {counts}")
+        out[label] = res
+    return out
+
+
+def bf16_phase(torch, failures):
+    """phi3-medium-14b at its published widths in bfloat16, 4 of its 40
+    layers, seed-0 random weights, compressed on the card under the mixed
+    plan (ITERA W4A8 r0.2, W8A8 lm head) and quant-only W4A8; served
+    captured (greedy with a bf16 and an int8 pool, seeded sampled) and
+    eagerly, launches exact a step; stablelm-12b (Dh 160, LayerNorm,
+    partial rotary), 2 of 40 layers, quant-only, greedy at both pools;
+    card == CPU for 4 short requests on every one of those paths.
+    Returns the phase's launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        params_to)
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    launches: collections.Counter = collections.Counter()
+    sp = SamplingParams(max_tokens=16)
+    sampled = SamplingParams(max_tokens=16, temperature=0.8, top_k=50,
+                             top_p=0.9, seed=7)
+    sp8 = SamplingParams(max_tokens=8)
+    sampled8 = SamplingParams(max_tokens=8, temperature=0.8, top_k=50,
+                              top_p=0.9, seed=7)
+    models = (("phi3-medium-14b", BF16_DEPTH,
+               (("mixed", bf16_mixed_plan), ("quant-only", quant_plan))),
+              ("stablelm-12b", BF16_STABLELM_DEPTH,
+               (("quant-only", quant_plan),)))
+    for arch, depth, plans in models:
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        print(f"[bf16] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads} "
+              f"heads of {cfg.head_dim} over {cfg.num_kv_heads} KV heads, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm}, "
+              f"rotary {cfg.rotary_pct}; depth {depth} of 40, {cfg.dtype}: "
+              f"{cfg.param_count() / 1e9:.3f} B parameters")
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[bf16] dense {cfg.dtype} weights made on the card in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        engines = {}
+        for name, make in plans:
+            t0 = time.perf_counter()
+            eng = InferenceEngine.build(cfg, make(params), params=params,
+                                        device="cuda", max_batch=8,
+                                        block_size=16)
+            torch.cuda.synchronize()
+            print(f"[bf16] {arch} {name} ({eng.plan.label}): compressed on "
+                  f"the card in {time.perf_counter() - t0:.1f} s; weights "
+                  f"{eng.weight_hbm_bytes() / 2**20:.1f} MiB; "
+                  f"{eng.report.summary()}")
+            engines[name] = eng
+        del params
+        torch.cuda.empty_cache()
+        reqs = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+                for n in rng.integers(32, 257, 8)]
+        short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+                 for n in (16, 27, 38, 48)]
+        for name, eng in engines.items():
+            per_step = dense_launches(
+                cfg, "mixed" if name == "mixed" else "quant")
+            eng8 = InferenceEngine(dataclasses.replace(cfg, kv_cache_bits=8),
+                                   eng.params, device=eng.device,
+                                   plan=eng.plan, max_batch=8, block_size=16)
+            runs = [("greedy bf16 KV", eng, sp), ("greedy int8 KV", eng8, sp)]
+            if arch == "phi3-medium-14b":
+                eager = InferenceEngine(cfg, eng.params, device=eng.device,
+                                        plan=eng.plan, max_batch=8,
+                                        block_size=16, cuda_graphs=False)
+                runs.append(("greedy bf16 KV eager", eager, sp))
+                if name == "mixed":
+                    runs.append(("sampled bf16 KV", eng, sampled))
+            for _, e, s in runs:            # warm-up: capture every shape
+                e.serve(reqs, s)
+            torch.cuda.synchronize()
+            res = bf16_serves(torch, f"{arch} {name}", per_step, reqs, runs,
+                              failures, launches)
+            if "greedy bf16 KV eager" in res:
+                cap, eag = res["greedy bf16 KV"], res["greedy bf16 KV eager"]
+                check(failures, all(np.array_equal(a, b) for a, b in
+                                    zip(cap.outputs, eag.outputs)),
+                      f"bf16 {arch} {name}: eager and captured serve tokens "
+                      f"differ")
+                profile_run(torch, lambda: eng.serve(reqs, sp).steps,
+                            f"bf16 {arch} {name} serve")
+            # card == CPU: the same compressed tensors on the CPU
+            t0 = time.perf_counter()
+            cpu_params = params_to(eng.params, "cpu")
+            for kv, e in ((16, eng), (8, eng8)):
+                c = dataclasses.replace(cfg, kv_cache_bits=kv)
+                cpu = InferenceEngine(c, cpu_params,
+                                      device=torch.device("cpu"),
+                                      plan=eng.plan, max_batch=8,
+                                      block_size=16)
+                label = f"bf16 {arch} {name} kv{kv}"
+                parity(torch, label, e, cpu, short, sp8, failures)
+                if kv == 16 and name == "mixed":
+                    parity(torch, f"{label} sampled", e, cpu, short,
+                           sampled8, failures)
+                del cpu
+            print(f"[bf16] {arch} {name}: CPU parity in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del cpu_params, eng8, runs
+        engines.clear()
+        torch.cuda.empty_cache()
+    print(f"[bf16] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
+
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
     """`prompts` (equal lengths) generated on the card and on the CPU: the
     tokens must be identical; every card lowrank_qmm launch on a code path
@@ -2832,6 +3252,8 @@ def main() -> int:
     _, _, worst = check_expert_stacks(torch, timer, failures)
     for name in ("quant_matmul", "lowrank_qmm"):
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
+    for name, err in check_bf16_kernels(torch, timer, failures).items():
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
     COMPARED.update(key[1:] for key in build.LAUNCH_SHAPES
                     if key[0] == "lowrank_qmm")
     end_phase("kernels", failures)
@@ -2982,6 +3404,12 @@ def main() -> int:
     for name, n in moe_phase(torch, failures).items():
         launches[name] += n
     end_phase("moe", failures)
+
+    # ---- the bfloat16 model dtype -------------------------------------------
+    failures = []
+    for name, n in bf16_phase(torch, failures).items():
+        launches[name] += n
+    end_phase("bf16", failures)
     return finish(torch, kern, launches)
 
 

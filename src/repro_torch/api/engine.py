@@ -78,9 +78,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _full_fp32() -> None:
-    """opus-mt is an fp32 model: keep every float32 product (compression's
-    power iterations included) in full float32 on the card; TF32 would
-    keep about three decimal digits."""
+    """Keep every float32 product on the card in full float32, whatever
+    the model's dtype: an fp32 model's float paths, and the float32
+    upcast a bfloat16 model is compressed from (ITERA's power iterations,
+    SVD), where TF32 would keep about three decimal digits and give other
+    codes than the CPU's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -18,7 +18,9 @@ The result is the port's tree: nested dicts of tensors, with every
 QuantizedTensor rebuilt with its `wl/axis/packed/act_wl` and every node
 whose fields are exactly two such tensors `w1`, `w2` as a LowRankQ. Codes
 and scales are the reference's bytes, packed nibbles included. The key
-scheme is `checkpoint.ckpt`'s, which also writes it.
+scheme is `checkpoint.ckpt`'s, which also writes it. bfloat16 arrays
+(2-byte void in the npz, "bfloat16" in the manifest's `dtypes`) become
+bfloat16 tensors byte for byte.
 """
 from __future__ import annotations
 
@@ -26,18 +28,11 @@ import json
 import os
 
 import numpy as np
-import torch
 
-from repro_torch.checkpoint.ckpt import SEP, key_names, latest_step
+from repro_torch.checkpoint.ckpt import (SEP, key_names, latest_step,
+                                         tensor_of)
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
-
-
-def _tensor(arr, device) -> torch.Tensor:
-    a = np.asarray(arr)
-    if a.dtype.kind not in "biuf":
-        raise TypeError(f"unsupported array dtype {a.dtype}")
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def _put(tree: dict, key: str, value) -> None:
@@ -63,9 +58,11 @@ def _lowrank(node):
 
 
 def from_flat(arrays: dict, quant_formats: dict | None = None, *,
-              device="cpu") -> dict:
+              device="cpu", dtypes: dict | None = None) -> dict:
     """The port's parameter tree from checkpoint-keyed arrays (see the
-    module docstring), on `device`."""
+    module docstring), on `device`; `dtypes` is the manifest's {key: dtype
+    name}, which a bfloat16 array needs."""
+    dtypes = dtypes or {}
     used = set()
     tree: dict = {}
     for qkey, fmt in (quant_formats or {}).items():
@@ -79,15 +76,17 @@ def from_flat(arrays: dict, quant_formats: dict | None = None, *,
             raise ValueError(f"{qkey}: a quantized node needs arrays "
                              f"'values' and 'scale', found {sorted(fields)}")
         used.update(fields.values())
-        q = QuantizedTensor(_tensor(arrays[fields["values"]], device),
-                            _tensor(arrays[fields["scale"]], device),
+        q = QuantizedTensor(tensor_of(arrays[fields["values"]],
+                                      dtypes.get(fields["values"])).to(device),
+                            tensor_of(arrays[fields["scale"]],
+                                      dtypes.get(fields["scale"])).to(device),
                             wl=int(fmt["wl"]), axis=int(fmt["axis"]),
                             packed=bool(fmt.get("packed", False)),
                             act_wl=int(fmt.get("act_wl", 8)))
         _put(tree, qkey, q)
     for key, arr in arrays.items():
         if key not in used:
-            _put(tree, key, _tensor(arr, device))
+            _put(tree, key, tensor_of(arr, dtypes.get(key)).to(device))
     return _lowrank(tree)
 
 
@@ -107,4 +106,5 @@ def load_checkpoint(path: str, *, device="cpu") -> dict:
     missing = sorted(set(manifest["keys"]) - set(arrays))
     if missing:
         raise KeyError(f"arrays.npz lacks manifest keys {missing[:5]}")
-    return from_flat(arrays, manifest.get("quant_formats", {}), device=device)
+    return from_flat(arrays, manifest.get("quant_formats", {}), device=device,
+                     dtypes=manifest.get("dtypes", {}))

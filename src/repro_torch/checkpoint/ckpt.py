@@ -18,6 +18,11 @@ and a dict key, "x:" and a field of a compressed node ("values", "scale";
 records each QuantizedTensor's {wl, axis, packed, act_wl}. `bridge`
 reads the same keys into a tree without a `like`.
 
+bfloat16 arrays are stored as the reference stores them: numpy has no
+bfloat16, so `arrays.npz` holds their bytes as 2-byte void (`|V2`) and the
+manifest's `dtypes` says "bfloat16". `host_array` and `tensor_of` move
+them byte for byte, never through float32.
+
 Restore never trusts a directory without a manifest (a crash mid-save
 leaves only *.tmp, which the next save removes).
 """
@@ -89,9 +94,37 @@ def quant_formats(tree, prefix: str = "") -> dict:
     return out
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy, taken now: later in-place updates do not reach it."""
-    return t.detach().to("cpu", copy=True).numpy()
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy, taken now: later in-place updates do not reach it; a
+    bfloat16 tensor as its bytes in 2-byte void (`|V2`), as the
+    reference's numpy writes bfloat16."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """The manifest's name of a tensor's dtype: numpy's, or "bfloat16"."""
+    if t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(np.dtype(str(t.dtype).removeprefix("torch.")))
+
+
+def tensor_of(arr, name: str | None = None) -> torch.Tensor:
+    """A CPU tensor of a checkpoint array: `name` "bfloat16" (the
+    manifest's dtype) reads 2-byte void as bfloat16 bytes; other void or
+    object arrays are refused."""
+    a = np.asarray(arr)
+    if name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise TypeError(f"a bfloat16 array needs 2-byte items, got "
+                            f"{a.dtype}")
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    if a.dtype.kind not in "biuf":
+        raise TypeError(f"unsupported array dtype {a.dtype}")
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
@@ -100,7 +133,9 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
     The tensors are copied to the host before this returns; with
     async_save the files are written on a thread, which is returned
     (join it)."""
-    arrays = {k: _host(v) for k, v in flatten(tree).items()}
+    flat = flatten(tree)
+    arrays = {k: host_array(v) for k, v in flat.items()}
+    dtypes = {k: dtype_name(v) for k, v in flat.items()}
     fmts = quant_formats(tree)
 
     def _write():
@@ -116,7 +151,7 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
             "step": step,
             "keys": sorted(arrays),
             "shapes": {k: list(v.shape) for k, v in arrays.items()},
-            "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+            "dtypes": dtypes,
             "quant_formats": fmts,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -211,12 +246,13 @@ def restore(ckpt_dir: str, like, step: int | None = None):
                     f"checkpoint was compressed under")
 
     leaves = {}
+    dtypes = manifest.get("dtypes", {})
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for key, leaf in flat.items():
             arr = data[key]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                                  f"expected {tuple(leaf.shape)}")
-            leaves[key] = torch.from_numpy(np.array(arr)).to(
+            leaves[key] = tensor_of(arr, dtypes.get(key)).to(
                 device=leaf.device, dtype=leaf.dtype)
     return _rebuild(like, leaves), step

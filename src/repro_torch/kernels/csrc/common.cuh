@@ -20,9 +20,32 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rt {
+
+// Element i of an output Y of float32 (bf16 == 0) or bfloat16: the
+// float32 value v, or v rounded once to the nearest even bfloat16 (the
+// reference's `.astype(bfloat16)` of its float32 result).
+__device__ __forceinline__ void store_y(void* y, size_t i, float v,
+                                        int bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(y)[i] = v;
+}
+
+// Elements i and i + 1 (i even) of Y: one 8-byte (fp32) or 4-byte (bf16)
+// store of a and b, each rounded as in `store_y`.
+__device__ __forceinline__ void store_y2(void* y, size_t i, float a, float b,
+                                         int bf16) {
+  if (bf16)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) + i) =
+        __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(y) + i) = make_float2(a, b);
+}
 
 // One m16n8k32 step: c += a (16x32 s8, row) * b (32x8 s8, col), s32 sums.
 // Fragment ownership (PTX ISA, m16n8k32 .s8): lane = 4*g + t;

@@ -138,8 +138,8 @@ __global__ void __launch_bounds__(THREADS, BM == 64 && RS == 128 ? 1 : 2)
 lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
             const int8_t* __restrict__ w1, const float* __restrict__ s1,
             const int8_t* __restrict__ w2, const float* __restrict__ s2,
-            float* __restrict__ y, int M, int K, int R, int N, int w1_packed,
-            int w2_packed, int qm, int Cn, int Ncl) {
+            void* __restrict__ y, int M, int K, int R, int N, int w1_packed,
+            int w2_packed, int qm, int Cn, int Ncl, int out_bf16) {
   // phase 1: T1 tiles of 16 x 8; with fewer tiles than warps, KW warps
   // share a tile, each taking every KW-th 32-deep slice of a step
   constexpr int T1 = (BM / 16) * (RS / 8);
@@ -161,8 +161,8 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     s1 += e * R;
     w2 += e * R * (w2_packed ? N / 2 : N);
     s2 += e * R;
-    y += e * M * N;
   }
+  const size_t y0 = blockIdx.z * static_cast<size_t>(M) * N;  // Y elements
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -382,7 +382,7 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
           float2 o;
           o.x = static_cast<float>(acc2[j][2 * h]) * st[row + 8 * h];
           o.y = static_cast<float>(acc2[j][2 * h + 1]) * st[row + 8 * h];
-          *reinterpret_cast<float2*>(y + (size_t)m * N + n) = o;
+          rt::store_y2(y, y0 + (size_t)m * N + n, o.x, o.y, out_bf16);
         }
       }
       continue;
@@ -410,7 +410,8 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       if (n >= N) continue;
       int sum = 0;
       for (int jr = 0; jr < Cr; ++jr) sum += red[(jr * BM + row) * share + cc];
-      y[(size_t)(m0 + row) * N + n] = static_cast<float>(sum) * st[row];
+      rt::store_y(y, y0 + (size_t)(m0 + row) * N + n,
+              static_cast<float>(sum) * st[row], out_bf16);
     }
   }
   // after the last cluster barrier no CTA touches another's shared memory,
@@ -419,9 +420,9 @@ lrmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
 template <int BM, int RS>
 int launch(const int8_t* xq, const float* sx, const int8_t* w1,
-           const float* s1, const int8_t* w2, const float* s2, float* y,
+           const float* s1, const int8_t* w2, const float* s2, void* y,
            int E, int M, int K, int R, int N, int w1p, int w2p, int qm, int C,
-           int Cn, int Ncl, cudaStream_t stream) {
+           int Cn, int Ncl, int out_bf16, cudaStream_t stream) {
   const int sw = Ncl / Cn;
   const Layout L = layout(BM, RS, C, Cn, sw < NC ? sw : NC);
   auto kern = lrmm_kernel<BM, RS>;
@@ -442,7 +443,7 @@ int launch(const int8_t* xq, const float* sx, const int8_t* w1,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, xq, sx, w1, s1, w2, s2, y, M, K, R, N,
-                         w1p, w2p, qm, Cn, Ncl);
+                         w1p, w2p, qm, Cn, Ncl, out_bf16);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -466,19 +467,22 @@ extern "C" long long lrmm_smem_bytes(int bm, int rs, int c, int cn,
 // The grid is C * ceil(N / ncl) CTAs along x by ceil(M / bm) along y by
 // E experts along z: every operand is a contiguous stack of E matrices
 // (xq (E, M, K), sx (E, M), w1 (E, K, R), s1 and s2 (E, R), w2 (E, R, N),
-// y (E, M, N); packed widths halved). Returns the launch's CUDA error.
+// y (E, M, N); packed widths halved). y is fp32, or bfloat16 when
+// out_bf16 != 0 (the fp32 value rounded once to nearest even). Returns
+// the launch's CUDA error.
 extern "C" int lrmm_launch(const int8_t* xq, const float* sx,
                            const int8_t* w1, const float* s1,
-                           const int8_t* w2, const float* s2, float* y, int E,
+                           const int8_t* w2, const float* s2, void* y, int E,
                            int M, int K, int R, int N, int w1_packed,
                            int w2_packed, int act_qmax, int bm, int rs, int C,
-                           int cn, int ncl, void* stream) {
+                           int cn, int ncl, int out_bf16, void* stream) {
   if (E < 1 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LRMM_CASE(BM, RS)                                                   \
   if (bm == BM && rs == RS)                                                 \
     return launch<BM, RS>(xq, sx, w1, s1, w2, s2, y, E, M, K, R, N,         \
-                          w1_packed, w2_packed, act_qmax, C, cn, ncl, s);
+                          w1_packed, w2_packed, act_qmax, C, cn, ncl,       \
+                          out_bf16, s);
   LRMM_CASE(16, 32) LRMM_CASE(16, 64) LRMM_CASE(16, 128)
   LRMM_CASE(32, 32) LRMM_CASE(32, 64) LRMM_CASE(32, 128)
   LRMM_CASE(64, 32) LRMM_CASE(64, 64) LRMM_CASE(64, 128)

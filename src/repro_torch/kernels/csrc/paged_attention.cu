@@ -55,7 +55,26 @@
 //   hold the launch up.
 // Shared-memory rows are padded so that the lanes of a warp read distinct
 // banks: K rows by Dh + 4 floats (or Dh + 16 bytes), V rows by Dh + 8.
+//
+// bfloat16 models (`attend_bf16_kernel`, paged_attention_bf16_launch): q,
+// the pool (or int8 codes with fp32 scales) and the output are bfloat16,
+// and the reference rounds inside the function: scores to fp32 (scaled in
+// fp32), the softmax's p to bfloat16 BEFORE the PV product, the output to
+// bfloat16. p's rounding needs the final max and denominator, which an
+// online softmax does not know while it sums P.V, so this kernel takes two
+// passes over the keys: the first finds each row's max m and denominator
+// l (online, float64), the second recomputes each score, rounds
+// p = exp(s - m) / l to fp32 and then bfloat16, and sums p * v in float64,
+// rounded to fp32 and then bfloat16 at the end. One CTA of 16 query rows
+// (4 warps, 4 rows each) takes all of its tile's keys, 64 at a time
+// through shared memory (int8 rows dequantized there as
+// bf16(code * bf16(scale)), the reference's order). Scores: a lane a key,
+// the products exact in fp32 and summed in float64 (rounded once to fp32,
+// as the plain version's float64 einsum is); P.V: a lane per 32-column
+// slice of Dh. No split over keys, no tensor cores: a first, simple
+// design; Dh 32, 64, 128 and 160.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
@@ -629,5 +648,232 @@ extern "C" int paged_attention_launch(
   PA_CASE(32, 16) PA_CASE(64, 16) PA_CASE(128, 16)
   PA_CASE(32, 64) PA_CASE(64, 64) PA_CASE(128, 64)
 #undef PA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------ bfloat16 --
+namespace {
+
+constexpr int BQT = 16;   // query rows per CTA
+constexpr int BKC = 64;   // keys staged per chunk
+constexpr int BROWS = BQT / WARPS;
+
+__host__ __device__ inline size_t bf16_smem_bytes(int dh) {
+  return (size_t)BQT * dh * 4                     // q rows as fp32
+         + (size_t)BKC * (dh + 2) * 2             // K chunk, padded rows
+         + (size_t)BKC * dh * 2                   // V chunk
+         + (size_t)WARPS * BROWS * BKC * 4;       // each warp's p rows
+}
+
+// Stage rows [c0, c0 + n) of the tile's keys into bf16 shared memory
+// (row stride `stride` elements), dequantizing int8 codes as
+// bf16(code * bf16(scale)).
+__device__ __forceinline__ void stage_bf16(
+    __nv_bfloat16* dst, int stride, const void* src, const float* sc,
+    const int* bt_row, int c0, int n, int bs, int Hk, int hk, int dh,
+    int quant) {
+  const int words = dh / 2;
+  for (int i = threadIdx.x; i < n * words; i += THREADS) {
+    const int r = i / words, w = i % words, key = c0 + r;
+    const size_t slot = (size_t)bt_row[key / bs] * bs + key % bs;
+    const size_t row = slot * Hk + hk;
+    __nv_bfloat162 v2;
+    if (quant) {
+      const char2 c = reinterpret_cast<const char2*>(
+          static_cast<const int8_t*>(src) + row * dh)[w];
+      const float s = __bfloat162float(__float2bfloat16_rn(sc[row]));
+      v2.x = __float2bfloat16_rn(static_cast<float>(c.x) * s);
+      v2.y = __float2bfloat16_rn(static_cast<float>(c.y) * s);
+    } else {
+      v2 = reinterpret_cast<const __nv_bfloat162*>(
+          static_cast<const __nv_bfloat16*>(src) + row * dh)[w];
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dst + r * stride + 2 * w) = v2;
+  }
+}
+
+// The score of q row `qr` (fp32 copies of bf16 values) against staged K
+// row `kr`: products exact in fp32, summed in float64, rounded to fp32,
+// scaled in fp32 (the exact product rounded once), softcapped in float64
+// and rounded again.
+template <int DH>
+__device__ __forceinline__ double score_bf16(const float* qr,
+                                             const __nv_bfloat16* kr,
+                                             float scale, double cap) {
+  double acc = 0.0;
+#pragma unroll 8
+  for (int d = 0; d < DH; d += 2) {
+    const float2 k2 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(kr + d));
+    acc += static_cast<double>(qr[d] * k2.x);
+    acc += static_cast<double>(qr[d + 1] * k2.y);
+  }
+  float s = static_cast<float>(acc);
+  s = static_cast<float>(static_cast<double>(s) * static_cast<double>(scale));
+  if (cap > 0.0) s = static_cast<float>(cap * tanh(s / cap));
+  return static_cast<double>(s);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+attend_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                   const void* __restrict__ kp, const void* __restrict__ vp,
+                   const float* __restrict__ ks, const float* __restrict__ vs,
+                   const int* __restrict__ bt, const int* __restrict__ ctxs,
+                   __nv_bfloat16* __restrict__ out, int W, int H, int Hk,
+                   int bs, int MB, int quant, float scale, double cap,
+                   int tiles) {
+  constexpr int KST = DH + 2, NT = DH / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(qs + BQT * DH);
+  __nv_bfloat16* Vs = Ks + BKC * KST;
+  float* ps = reinterpret_cast<float*>(Vs + BKC * DH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = blockIdx.x % tiles, hk = (blockIdx.x / tiles) % Hk;
+  const int b = blockIdx.x / tiles / Hk, G = H / Hk, row0 = tile * BQT;
+  const int ctx = ctxs[b], active = min(BQT, W * G - row0);
+  const int slots = MB * bs;
+  const int tile_keys = min(ctx + (row0 + active - 1) / G + 1, slots);
+  const int* bt_row = bt + (size_t)b * MB;
+  for (int i = threadIdx.x; i < active * DH; i += THREADS) {
+    const int r = row0 + i / DH;
+    qs[i] = __bfloat162float(
+        q[(((size_t)b * W + r / G) * H + hk * G + r % G) * DH + i % DH]);
+  }
+  int lim[BROWS];
+  double m[BROWS], l[BROWS], acc[BROWS][NT];
+#pragma unroll
+  for (int j = 0; j < BROWS; ++j) {
+    const int r = warp + WARPS * j;
+    lim[j] = r < active ? min(ctx + (row0 + r) / G, slots - 1) : -1;
+    m[j] = -INFINITY;
+    l[j] = 0.0;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[j][t] = 0.0;
+  }
+  // pass 1: each row's max and denominator
+  for (int c0 = 0; c0 < tile_keys; c0 += BKC) {
+    const int n = min(BKC, tile_keys - c0);
+    __syncthreads();
+    stage_bf16(Ks, KST, kp, ks, bt_row, c0, n, bs, Hk, hk, DH, quant);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BROWS; ++j) {
+      if (lim[j] < c0) continue;
+      const float* qr = qs + (warp + WARPS * j) * DH;
+      double sv[2], mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = lane + 32 * e;
+        sv[e] = -INFINITY;
+        if (kk < n && c0 + kk <= lim[j]) {
+          sv[e] = score_bf16<DH>(qr, Ks + kk * KST, scale, cap);
+          mx = fmax(mx, sv[e]);
+        }
+      }
+      const double mn = fmax(m[j], warp_max(mx));
+      double part = 0.0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (sv[e] != -INFINITY) part += exp(sv[e] - mn);
+      l[j] = (m[j] == -INFINITY ? 0.0 : l[j] * exp(m[j] - mn)) +
+             warp_sum(part);
+      m[j] = mn;
+    }
+  }
+  // pass 2: p rounded to bf16, then P.V in float64
+  float* pw = ps + warp * BROWS * BKC;
+  for (int c0 = 0; c0 < tile_keys; c0 += BKC) {
+    const int n = min(BKC, tile_keys - c0);
+    __syncthreads();
+    stage_bf16(Ks, KST, kp, ks, bt_row, c0, n, bs, Hk, hk, DH, quant);
+    stage_bf16(Vs, DH, vp, vs, bt_row, c0, n, bs, Hk, hk, DH, quant);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BROWS; ++j) {
+      if (lim[j] < c0) continue;
+      const float* qr = qs + (warp + WARPS * j) * DH;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = lane + 32 * e;
+        float p = 0.0f;
+        if (kk < n && c0 + kk <= lim[j]) {
+          const double s = score_bf16<DH>(qr, Ks + kk * KST, scale, cap);
+          p = __bfloat162float(__float2bfloat16_rn(
+              static_cast<float>(exp(s - m[j]) / l[j])));
+        }
+        pw[j * BKC + kk] = p;
+      }
+      __syncwarp();
+      const int last = min(n, lim[j] - c0 + 1);
+      for (int kk = 0; kk < last; ++kk) {
+        const double p = static_cast<double>(pw[j * BKC + kk]);
+        if (p == 0.0) continue;
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          acc[j][t] += p * static_cast<double>(
+                               __bfloat162float(Vs[kk * DH + lane + 32 * t]));
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BROWS; ++j) {
+    const int r = warp + WARPS * j;
+    if (r >= active) continue;
+    const int rr = row0 + r;
+    __nv_bfloat16* o =
+        out + (((size_t)b * W + rr / G) * H + hk * G + rr % G) * DH;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      o[lane + 32 * t] =
+          __float2bfloat16_rn(static_cast<float>(acc[j][t]));
+  }
+}
+
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, const float* ks,
+                const float* vs, const int* bt, const int* ctx, void* out,
+                int B, int W, int H, int Hk, int bs, int MB, int quant,
+                float scale, double cap, cudaStream_t stream) {
+  const size_t smem = bf16_smem_bytes(DH);
+  auto kern = attend_bf16_kernel<DH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (W * (H / Hk) + BQT - 1) / BQT;
+  kern<<<B * Hk * tiles, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, ks, vs, bt, ctx,
+      static_cast<__nv_bfloat16*>(out), W, H, Hk, bs, MB, quant, scale, cap,
+      tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shared memory of one CTA of the bfloat16 kernel at head dim dh.
+extern "C" long long paged_attention_bf16_smem_bytes(int dh) {
+  return static_cast<long long>(bf16_smem_bytes(dh));
+}
+
+// q (B, W, H, Dh) bf16; k/v (NB, bs, Hk, Dh) bf16, or int8 with ks/vs
+// (NB, bs, Hk, 1) f32 scales when quant != 0; block_table (B, MB) i32;
+// ctx_lens (B,) i32; out (B, W, H, Dh) bf16. Dh in {32, 64, 128, 160};
+// scale is fp32 Dh^-0.5. Returns the launch's CUDA error.
+extern "C" int paged_attention_bf16_launch(
+    const void* q, const void* k, const void* v, const float* ks,
+    const float* vs, const int* block_table, const int* ctx_lens, void* out,
+    int B, int W, int H, int Hk, int Dh, int bs, int MB, int quant,
+    double scale, double softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float sc = static_cast<float>(scale);
+#define PB_CASE(DH)                                                        \
+  if (Dh == DH)                                                            \
+    return launch_bf16<DH>(q, k, v, ks, vs, block_table, ctx_lens, out, B, \
+                           W, H, Hk, bs, MB, quant, sc, softcap, s);
+  PB_CASE(32) PB_CASE(64) PB_CASE(128) PB_CASE(160)
+#undef PB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

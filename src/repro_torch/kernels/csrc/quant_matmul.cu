@@ -4,7 +4,9 @@
 // (body `_kernel`, helper `unpack_int4_block`), the paper's dense MatMul
 // engine (§V-A). Inputs: int8 activation codes Xq (M, K) with per-row fp32
 // scales sx, int8 weight codes Wq (K, N) -- or packed W4, two nibbles per
-// byte along N, (K, N/2) -- with per-column fp32 scales sw. Output fp32.
+// byte along N, (K, N/2) -- with per-column fp32 scales sw. Output fp32,
+// or bfloat16 (a bfloat16 model): the epilogue rounds its fp32 value once
+// to nearest even as it stores it, the reference's `.astype(out_dtype)`.
 //
 // What bounds it on this card. The serving path runs it for the lm head of
 // every plan (M = the step's rows, K 512, N 32000, W8) and, under a
@@ -174,8 +176,8 @@ template <int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 2)
 qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
            const int8_t* __restrict__ wq, const float* __restrict__ sw,
-           float* __restrict__ y, int M, int K, int N, int packed, int BK,
-           int kslice) {
+           void* __restrict__ y, int M, int K, int N, int packed, int BK,
+           int kslice, int out_bf16) {
   using W = Warps<BM, BN>;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -188,8 +190,8 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     sx += e * M;
     wq += e * K * (packed ? N / 2 : N);
     sw += e * N;
-    y += e * M * N;
   }
+  const size_t y0 = blockIdx.z * static_cast<size_t>(M) * N;  // Y elements
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -297,7 +299,7 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
           float2 o;
           o.x = static_cast<float>(acc[i][j][2 * h]) * s * sw0;
           o.y = static_cast<float>(acc[i][j][2 * h + 1]) * s * sw1;
-          *reinterpret_cast<float2*>(y + (size_t)m * N + n) = o;
+          rt::store_y2(y, y0 + (size_t)m * N + n, o.x, o.y, out_bf16);
         }
       }
     }
@@ -341,8 +343,8 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       int sum = 0;
 #pragma unroll
       for (int j = 0; j < W::KW; ++j) sum += part[(j * BM + row) * BN + cc];
-      y[(size_t)(m0 + row) * N + n] =
-          static_cast<float>(sum) * sxs[row] * sws[cc];
+      rt::store_y(y, y0 + (size_t)(m0 + row) * N + n,
+              static_cast<float>(sum) * sxs[row] * sws[cc], out_bf16);
     }
     return;
   }
@@ -362,8 +364,9 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     if (n >= N) continue;
     int sum = 0;
     for (int j = 0; j < C; ++j) sum += red[(j * BM + row) * share + cc];
-    y[(size_t)(m0 + row) * N + n] =
-        static_cast<float>(sum) * sxs[row] * sws[rank * share + cc];
+    rt::store_y(y, y0 + (size_t)(m0 + row) * N + n,
+            static_cast<float>(sum) * sxs[row] * sws[rank * share + cc],
+            out_bf16);
   }
   // after the last cluster barrier no CTA touches another's shared memory,
   // so each may leave on its own
@@ -371,8 +374,8 @@ qmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
 
 template <int BM, int BN>
 int launch(const int8_t* xq, const float* sx, const int8_t* wq,
-           const float* sw, float* y, int E, int M, int K, int N, int packed,
-           int bk, int C, int kslice, cudaStream_t stream) {
+           const float* sw, void* y, int E, int M, int K, int N, int packed,
+           int bk, int C, int kslice, int out_bf16, cudaStream_t stream) {
   const Layout L = layout<BM, BN>(bk, packed, C, kslice);
   auto kern = qmm_kernel<BM, BN>;
   // raise the kernel's dynamic shared memory limit once, to the most any
@@ -398,7 +401,7 @@ int launch(const int8_t* xq, const float* sx, const int8_t* wq,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kern, xq, sx, wq, sw, y, M, K, N,
-                                     packed, bk, kslice);
+                                     packed, bk, kslice, out_bf16);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -429,12 +432,13 @@ extern "C" long long qmm_smem_bytes(int bm, int bn, int bk, int packed,
 // bn / c even. The grid is c * ceil(N / bn) CTAs along x by ceil(M / bm)
 // along y by E experts along z, every operand a contiguous stack of E
 // matrices (xq (E, M, K), sx (E, M), wq (E, K, N) or (E, K, N / 2), sw
-// (E, N), y (E, M, N)). Launches on `stream`; returns the launch's CUDA
-// error.
+// (E, N), y (E, M, N) of fp32, or of bfloat16 when out_bf16 != 0).
+// Launches on `stream`; returns the launch's CUDA error.
 extern "C" int qmm_launch(const int8_t* xq, const float* sx,
-                          const int8_t* wq, const float* sw, float* y, int E,
+                          const int8_t* wq, const float* sw, void* y, int E,
                           int M, int K, int N, int packed, int bm, int bn,
-                          int bk, int c, int kslice, void* stream) {
+                          int bk, int c, int kslice, int out_bf16,
+                          void* stream) {
   if (K % 16 || N % 32 || bk % 32 || kslice % 32 || c * kslice < K ||
       (c - 1) * kslice >= K || E < 1 || E > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -442,7 +446,7 @@ extern "C" int qmm_launch(const int8_t* xq, const float* sx,
 #define QMM_CASE(BM, BN)                                                    \
   if (bm == BM && bn == BN)                                                 \
     return launch<BM, BN>(xq, sx, wq, sw, y, E, M, K, N, packed, bk, c,     \
-                          kslice, s);
+                          kslice, out_bf16, s);
   QMM_TILES(QMM_CASE)
 #undef QMM_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -6,7 +6,8 @@ clusters that compute it; the wrapper allocates the output and nothing
 else. `choose_tiles` is the launch's partition, a pure function of the
 shapes, so it runs (and is tested) on the CPU. On a CUDA tensor
 `lowrank_qmm` launches the kernel (or raises); on a CPU tensor it runs the
-plain version.
+plain version. Y is float32, or bfloat16 rounded once to nearest even from
+the float32 value (the kernel's epilogue writes it), as `quant_matmul`'s.
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ import torch
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import build
 from repro_torch.kernels.build import SMEM_LIMIT
-from repro_torch.kernels.quant_matmul import _check
+from repro_torch.kernels.quant_matmul import _check, out_dtype_ok
 from repro_torch.kernels.ref import lowrank_qmm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lrmm_launch": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _P)),
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "lrmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I)),
 }
 CLUSTER = 8          # CTAs per cluster at most (the portable maximum)
@@ -48,12 +49,14 @@ class Tiles(typing.NamedTuple):
 
 
 def lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
-                      w2_packed=False, act_qmax=127):
+                      w2_packed=False, act_qmax=127, out_dtype=None):
     """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors; one
-    matrix or an expert stack)."""
+    matrix or an expert stack); a bfloat16 Y is the float32 one rounded to
+    nearest even."""
     w1 = unpack_int4(w1q) if w1_packed else w1q
     w2 = unpack_int4(w2q) if w2_packed else w2q
-    return lowrank_qmm_ref(xq, sx, w1, s1, w2, s2, act_qmax)
+    y = lowrank_qmm_ref(xq, sx, w1, s1, w2, s2, act_qmax)
+    return y.to(out_dtype_ok(out_dtype))
 
 
 NC = 128             # widest phase-2 column chunk a CTA accumulates at once
@@ -139,9 +142,11 @@ def choose_tiles(m: int, r: int, n: int, num_sms: int, smem_bytes,
 
 
 def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
-                w2_packed=False, act_qmax=127) -> torch.Tensor:
-    """Y[M, N] f32 = cascade((Xq @ W1q) @ W2q), requantized at the phase
-    boundary to ±act_qmax.
+                w2_packed=False, act_qmax=127,
+                out_dtype=None) -> torch.Tensor:
+    """Y[M, N] = cascade((Xq @ W1q) @ W2q), requantized at the phase
+    boundary to ±act_qmax, in out_dtype (float32 by default, or
+    bfloat16).
 
     xq (M, K) int8, sx (M, 1) f32; w1q (K, R) int8 or (K, R/2) packed
     along R, s1 (1, R) f32; w2q (R, N) int8 or (R, N/2) packed along N,
@@ -149,10 +154,11 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
     projection: xq (E, M, K) ... s2 (E, R, 1) -> Y (E, M, N), in ONE
     launch. The CUDA kernel needs K % 16 == 0, R % 32 == 0 and N % 32 == 0
     (`ops.lrmm` pads to that) and R <= 1024."""
+    out_dtype = out_dtype_ok(out_dtype)
     if xq.device.type == "cpu":
         return lowrank_qmm_plain(xq, sx, w1q, s1, w2q, s2,
                                  w1_packed=w1_packed, w2_packed=w2_packed,
-                                 act_qmax=act_qmax)
+                                 act_qmax=act_qmax, out_dtype=out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"lowrank_qmm runs on cuda or cpu, not {xq.device}")
     lead = xq.shape[:-2]
@@ -175,7 +181,7 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
     _check(s1, "s1", torch.float32, (*lead, 1, r), dev)
     _check(w2q, "w2q", torch.int8, (*lead, r, w2q.shape[-1]), dev, align=16)
     _check(s2, "s2", torch.float32, (*lead, r, 1), dev)
-    y = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((*lead, m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return y
     lib = build.load("lowrank_qmm", _SIGNATURES)
@@ -185,7 +191,9 @@ def lowrank_qmm(xq, sx, w1q, s1, w2q, s2, *, w1_packed=False,
                           s1.data_ptr(), w2q.data_ptr(), s2.data_ptr(),
                           y.data_ptr(), e, m, k, r, n, int(w1_packed),
                           int(w2_packed), int(act_qmax), tl.bm, tl.rs,
-                          tl.cluster, tl.cn, tl.ncl, build.stream_handle(dev))
+                          tl.cluster, tl.cn, tl.ncl,
+                          int(out_dtype == torch.bfloat16),
+                          build.stream_handle(dev))
     build.check(err, "lowrank_qmm")
     build.LAUNCHES["lowrank_qmm"] += 1
     build.LAUNCH_RANKS[r] += 1

@@ -3,7 +3,11 @@
 `qmm` and `lrmm` quantize the activations per row (clamp from the plan's
 act_wl carried on the weight node), pad to what the CUDA kernels take,
 and call the kernel wrappers, which launch the CUDA kernel on CUDA tensors
-and run the plain version on CPU tensors.
+and run the plain version on CPU tensors. The output is the kernels' own,
+float32 or bfloat16 (rounded once from float32 in their epilogue, the
+reference's `.astype`); the activations' scale of a bfloat16 x is rounded
+to bfloat16 first, as the reference computes `absmax / qm` in x's dtype
+(see `quantize_acts`).
 
 Padding: the CUDA kernels read activations 16 bytes at a time, so K pads
 to a multiple of 16. Both copy weight rows in whole 16-byte chunks with
@@ -32,7 +36,15 @@ from repro_torch.kernels.quant_matmul import quant_matmul
 
 def quantize_acts(x: torch.Tensor, qm: int = 127):
     """Per-row symmetric activation quantization into an int8 carrier,
-    clamped to ±qm = ±qmax(act_wl)."""
+    clamped to ±qm = ±qmax(act_wl).
+
+    The scale is `symmetric_scale` of the row absmax in x's dtype: for a
+    bfloat16 x, absmax * float32(1/qm) rounded to bfloat16 (PyTorch's
+    bfloat16 product with a scalar is the float32 one, rounded), which is
+    what the reference's jitted step computes for its bfloat16
+    `absmax / qm` (a multiply by the float32 reciprocal, then a convert to
+    bfloat16 that XLA keeps), then widened to float32; the codes divide
+    the bfloat16 x by it in float32, as the reference's promotion does."""
     sx = symmetric_scale(x.abs().amax(dim=-1, keepdim=True), qm)
     xq = torch.clamp(torch.round(x / sx), -qm, qm).to(torch.int8)
     return xq, sx
@@ -74,8 +86,8 @@ def qmm(x: torch.Tensor, w: QuantizedTensor, *, out_dtype=None
     xq, sx = quantize_acts(_rows(x, w, k), qmax(w.act_wl))
     sw = w.scale.reshape(*w.values.shape[:-2], 1, n)
     y = quant_matmul(*_qmm_args(xq, sx, w.values, sw, w.packed),
-                     w_packed=w.packed)[..., :n]
-    return y.to(out_dtype).reshape(*lead, n)
+                     w_packed=w.packed, out_dtype=out_dtype)
+    return y[..., :n].reshape(*lead, n)
 
 
 def lrmm(x: torch.Tensor, lr: LowRankQ, *, out_dtype=None,
@@ -102,9 +114,9 @@ def lrmm(x: torch.Tensor, lr: LowRankQ, *, out_dtype=None,
                          w_packed=w1p)[..., :r]
         tq, st = quantize_acts(t * s2.transpose(-1, -2), qm)
         ones = torch.ones((*e, 1, n), dtype=torch.float32, device=x.device)
-        y = quant_matmul(*_qmm_args(tq, st, w2v, ones, w2p),
-                         w_packed=w2p)[..., :n]
-        return y.to(out_dtype).reshape(*lead, n)
+        y = quant_matmul(*_qmm_args(tq, st, w2v, ones, w2p), w_packed=w2p,
+                         out_dtype=out_dtype)[..., :n]
+        return y.reshape(*lead, n)
     if _on_cuda(x):
         kp, rp, np_ = _up(k, 16), _up(r, 32), _up(n, 32)
         xq = _pad(xq, xq.shape[-2], kp).contiguous()
@@ -113,8 +125,8 @@ def lrmm(x: torch.Tensor, lr: LowRankQ, *, out_dtype=None,
         w2v = _pad(w2v, rp, np_ // 2 if w2p else np_).contiguous()
         s2 = _pad(s2, rp, 1, 1.0).contiguous()
     y = lowrank_qmm(xq, sx, w1v, s1, w2v, s2, w1_packed=w1p, w2_packed=w2p,
-                    act_qmax=qm)[..., :n]
-    return y.to(out_dtype).reshape(*lead, n)
+                    act_qmax=qm, out_dtype=out_dtype)[..., :n]
+    return y.reshape(*lead, n)
 
 
 def _qmm_args(xq, sx, wv, sw, packed):
@@ -133,23 +145,23 @@ def _experts(w: QuantizedTensor) -> int:
     return w.values.shape[0] if w.values.ndim == 3 else 1
 
 
-def qmm_hbm_bytes(m: int, w: QuantizedTensor) -> int:
+def qmm_hbm_bytes(m: int, w: QuantizedTensor, out_bytes: int = 4) -> int:
     """Least device bytes one qmm launch moves for an (m, K) input (m rows
     for each expert of a stack): the int8 activations and their scales,
     the resident weight bytes (halved when packed) and scales, and the
-    fp32 output, each once."""
+    output (`out_bytes` an element: 4 fp32, 2 bfloat16), each once."""
     k, n = w.shape[-2:]
-    return (_experts(w) * (m * k + m * 4 + m * n * 4) + w.values.numel()
-            + w.scale.numel() * 4)
+    return (_experts(w) * (m * k + m * 4 + m * n * out_bytes)
+            + w.values.numel() + w.scale.numel() * 4)
 
 
-def lrmm_hbm_bytes(m: int, lr: LowRankQ) -> int:
+def lrmm_hbm_bytes(m: int, lr: LowRankQ, out_bytes: int = 4) -> int:
     """Least device bytes one fused lrmm launch moves (m rows for each
     expert of a stack): activations, both resident factors and their
-    scales, and the output, each once; the (m, R) intermediate never
-    leaves the chip."""
+    scales, and the output (`out_bytes` an element), each once; the
+    (m, R) intermediate never leaves the chip."""
     k = lr.w1.shape[-2]
     n = lr.w2.shape[-1]
-    return (_experts(lr.w1) * (m * k + m * 4 + m * n * 4)
+    return (_experts(lr.w1) * (m * k + m * 4 + m * n * out_bytes)
             + lr.w1.values.numel() + lr.w2.values.numel()
             + (lr.w1.scale.numel() + lr.w2.scale.numel()) * 4)

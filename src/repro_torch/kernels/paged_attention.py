@@ -22,6 +22,14 @@ card and the CPU flips an int8 code and, through the layers, may flip a
 greedy token. The reference computes in fp32, within 1e-5 of this. The
 function itself is fp32 attention: float64 is the port's choice, for
 parity, and costs the kernel time above its fp32 bound.
+
+A bfloat16 model's attention (bfloat16 q, a bfloat16 pool or an int8 one
+with fp32 scales, a bfloat16 output) keeps the reference's rounding
+points (`attend_bf16`): int8 K/V dequantized as code.astype(bf16) *
+scale.astype(bf16), scores rounded to fp32 and scaled in fp32, the
+softmax's p rounded to bfloat16 before the PV product, the output rounded
+to fp32 and then bfloat16. Between those points both versions compute in
+float64. The kernel takes this path for Dh 32, 64, 128 and 160.
 """
 from __future__ import annotations
 
@@ -39,7 +47,12 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "paged_attention_launch": (_I, (_P,) * 10 + (_I,) * 11 + (_D, _D, _P)),
     "paged_attention_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I)),
+    "paged_attention_bf16_launch": (_I, (_P,) * 8 + (_I,) * 8
+                                    + (_D, _D, _P)),
+    "paged_attention_bf16_smem_bytes": (ctypes.c_longlong, (_I,)),
 }
+DH_FP32 = (32, 64, 128)          # head dims of the fp32 kernel
+DH_BF16 = (32, 64, 128, 160)     # head dims of the bfloat16 kernel
 QT_DECODE, QT_PREFILL = 16, 64  # query rows per CTA of the two tile kinds
 STAGE_KEYS = 64                 # keys the kernel stages per step
 _WARPS = 4
@@ -88,12 +101,35 @@ def softcap(x, cap: float):
     return cap * torch.tanh(x / cap) if cap > 0 else x
 
 
+def attend_bf16(qg, k, v, mask, cap: float = 0.0) -> torch.Tensor:
+    """Attention of a bfloat16 model at the reference's rounding points:
+    qg (B, Sq, Hk, G, Dh) bfloat16 queries grouped by kv head; k, v (B, Sk,
+    Hk, Dh) bfloat16; mask broadcastable to (B, Hk, G, Sq, Sk). Scores
+    q.k are rounded to fp32 (the reference's preferred_element_type) and
+    scaled by fp32 Dh^-0.5 in fp32, softcapped in float64 and rounded; the
+    softmax is float64, its p rounded to fp32 and then bfloat16 (the
+    reference's `p.astype(v.dtype)`); the PV product is float64, rounded
+    to fp32 and then bfloat16. Returns (B, Sq, Hk, G, Dh) bfloat16."""
+    dh = qg.shape[-1]
+    scale = torch.tensor(dh ** -0.5, dtype=torch.float32).item()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float64),
+                     k.to(torch.float64)).to(torch.float32)
+    s = (s.to(torch.float64) * scale).to(torch.float32).to(torch.float64)
+    if cap > 0:
+        s = (cap * torch.tanh(s / cap)).to(torch.float32).to(torch.float64)
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1).to(torch.float32).to(torch.bfloat16)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.float64),
+                     v.to(torch.float64))
+    return o.to(torch.float32).to(torch.bfloat16)
+
+
 def span_attend_gather(q, pool, block_table, ctx_lens, logit_softcap=0.0):
     """The plain version: gather the FULL logical pool view
     block_table -> (B, MB*bs, Hk, Dh) (dequantized whole when the pool is
     int8) and take one masked softmax over it. Query (r, i) sees slots at
     positions <= ctx_lens[r] + i, in every row and at every span
-    position."""
+    position. A bfloat16 q takes `attend_bf16`'s rounding points."""
     b, w, h, dh = q.shape
     _, bs, hk, _ = pool["k"].shape
     mb = block_table.shape[1]
@@ -104,12 +140,16 @@ def span_attend_gather(q, pool, block_table, ctx_lens, logit_softcap=0.0):
         if "ks" in pool:
             x = x * pool[key[0] + "s"][bt].reshape(b, mb * bs, hk, 1).to(
                 q.dtype)
-        return x.to(torch.float64)
+        return x if q.dtype == torch.bfloat16 else x.to(torch.float64)
 
     ck, cv = view("k"), view("v")
     pos = ctx_lens.long()[:, None] + torch.arange(w, device=q.device)[None]
     valid = (torch.arange(mb * bs, device=q.device)[None, None, :]
              <= pos[:, :, None])                                 # (B, W, S)
+    if q.dtype == torch.bfloat16:
+        o = attend_bf16(q.reshape(b, w, hk, h // hk, dh), ck, cv,
+                        valid[:, None, None], logit_softcap)
+        return o.reshape(b, w, h, dh)
     qg = q.to(torch.float64).reshape(b, w, hk, h // hk, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck) * (dh ** -0.5)
     s = softcap(s, logit_softcap)
@@ -125,10 +165,13 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     """Span queries against ONE layer's blocked pool, reading no block
     past the last key a query sees.
 
-    q (B, W, H, Dh) f32 (post-RoPE); pool {"k", "v"[, "ks", "vs"]} with
-    leaves (NB, bs, Hk, *), already holding this step's span K/V;
-    block_table (B, MB) int32; ctx_lens (B,) int32. Returns (B, W, H, Dh)
-    f32: query (r, i) attends over the slots at positions
+    q (B, W, H, Dh) f32 or bfloat16 (post-RoPE); pool {"k", "v"[, "ks",
+    "vs"]} with leaves (NB, bs, Hk, *) in q's dtype, or int8 with fp32
+    scales, already holding this step's span K/V; block_table (B, MB)
+    int32; ctx_lens (B,) int32. Returns (B, W, H, Dh) in q's dtype (a
+    bfloat16 q takes `attend_bf16`'s rounding points on both devices;
+    the kernel raises for a head dim it does not take, fp32 Dh 32 / 64 /
+    128, bfloat16 also 160): query (r, i) attends over the slots at positions
     <= ctx_lens[r] + i of row r's block-table view, at every span position
     of every row (the gather oracle's values; how many of them are real
     tokens does not enter). keys_per_split overrides the kernel's key
@@ -143,8 +186,13 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     nb_, bs, hk, _ = pool["k"].shape
     mb = block_table.shape[1]
     quant = "ks" in pool
-    if dh not in (32, 64, 128) or h % hk:
-        raise ValueError(f"paged_attention kernel needs Dh in (32, 64, 128) "
+    if q.dtype == torch.bfloat16:
+        return _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap)
+    if q.dtype != torch.float32:
+        raise TypeError(f"paged_attention takes a float32 or bfloat16 q, "
+                        f"not {q.dtype}")
+    if dh not in DH_FP32 or h % hk:
+        raise ValueError(f"paged_attention kernel needs Dh in {DH_FP32} "
                          f"and H % Hk == 0, got Dh={dh} H={h} Hk={hk}")
     dev = q.device
     # the kernel copies K/V rows 16 bytes at a time
@@ -191,6 +239,47 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     return out
 
 
+def _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap):
+    """The bfloat16 kernel (csrc `paged_attention_bf16_launch`): one CTA
+    of 16 query rows per (batch row, kv head, tile) takes all of its keys
+    in two passes (see the .cu file)."""
+    b, w, h, dh = q.shape
+    nb_, bs, hk, _ = pool["k"].shape
+    mb = block_table.shape[1]
+    quant = "ks" in pool
+    if dh not in DH_BF16 or h % hk:
+        raise ValueError(f"paged_attention bfloat16 kernel needs Dh in "
+                         f"{DH_BF16} and H % Hk == 0, got Dh={dh} H={h} "
+                         f"Hk={hk}")
+    dev = q.device
+    kv_dtype = torch.int8 if quant else torch.bfloat16
+    _check(q, "q", torch.bfloat16, (b, w, h, dh), dev)
+    _check(pool["k"], "k", kv_dtype, (nb_, bs, hk, dh), dev, 16)
+    _check(pool["v"], "v", kv_dtype, (nb_, bs, hk, dh), dev, 16)
+    if quant:
+        _check(pool["ks"], "ks", torch.float32, (nb_, bs, hk, 1), dev)
+        _check(pool["vs"], "vs", torch.float32, (nb_, bs, hk, 1), dev)
+    _check(block_table, "block_table", torch.int32, (b, mb), dev)
+    _check(ctx_lens, "ctx_lens", torch.int32, (b,), dev)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = build.load("paged_attention", _SIGNATURES)
+    if lib.paged_attention_bf16_smem_bytes(dh) > SMEM_LIMIT:
+        raise ValueError(f"paged_attention: Dh {dh} does not fit one CTA")
+    scale = torch.tensor(dh ** -0.5, dtype=torch.float32).item()
+    err = lib.paged_attention_bf16_launch(
+        q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(),
+        pool["ks"].data_ptr() if quant else None,
+        pool["vs"].data_ptr() if quant else None,
+        block_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(), b, w,
+        h, hk, dh, bs, mb, int(quant), scale, float(logit_softcap),
+        build.stream_handle(dev))
+    build.check(err, "paged_attention")
+    build.LAUNCHES["paged_attention"] += 1
+    return out
+
+
 def stream_hbm_bytes(ctx_lens, q_lens, block_size: int, hk: int, dh: int,
                      *, kv_bits: int = 32, n_q_heads: int | None = None
                      ) -> int:
@@ -212,11 +301,11 @@ def stream_hbm_bytes(ctx_lens, q_lens, block_size: int, hk: int, dh: int,
 def kv_bytes_per_token(hk: int, dh: int, kv_bits: int) -> int:
     """Device bytes one cached position takes across K and V in the port's
     pool: int8 codes and an fp32 scale per (token, head) at kv_bits 8,
-    else fp32."""
-    if kv_bits not in (8, 32):
-        raise ValueError(f"the port's pool is int8 (8) or fp32 (32), got "
-                         f"kv_bits={kv_bits}")
-    return 2 * hk * (dh + 4) if kv_bits == 8 else 2 * hk * dh * 4
+    else bfloat16 (16) or fp32 (32)."""
+    if kv_bits not in (8, 16, 32):
+        raise ValueError(f"the port's pool is int8 (8), bfloat16 (16) or "
+                         f"fp32 (32), got kv_bits={kv_bits}")
+    return 2 * hk * (dh + 4) if kv_bits == 8 else 2 * hk * dh * kv_bits // 8
 
 
 def gather_hbm_bytes(batch: int, max_blocks: int, block_size: int, hk: int,
@@ -247,15 +336,16 @@ def attention_flops(ctx_lens, q_lens, h: int, dh: int) -> int:
 
 
 def launch_work(block_table, ctx_lens, w: int, block_size: int, hk: int,
-                dh: int, *, kv_bits: int = 32,
-                n_q_heads: int | None = None) -> tuple[int, int]:
+                dh: int, *, kv_bits: int = 32, n_q_heads: int | None = None,
+                q_bytes: int = 4) -> tuple[int, int]:
     """(bytes, flops) one launch of `paged_attention` must move and do:
     every span position of every row attends, so each row reads the
     table entries up to its last query's position (ctx + W - 1, at most
     MB * bs - 1), and each physical block they name is read once however
-    many rows name it; the fp32 queries and outputs of all B x W
-    positions are read and written once; 4 * Dh flops a (query, visible
-    key) pair, as in `attention_flops`. `stream_hbm_bytes` and
+    many rows name it; the queries and outputs of all B x W positions
+    (`q_bytes` an element: 4 fp32, 2 bfloat16) are read and written
+    once; 4 * Dh flops a (query, visible key) pair, as in
+    `attention_flops`. `stream_hbm_bytes` and
     `attention_flops` count only the positions before q_lens."""
     h = n_q_heads or hk
     slots = len(block_table[0]) * block_size
@@ -266,5 +356,5 @@ def launch_work(block_table, ctx_lens, w: int, block_size: int, hk: int,
                                            // block_size)])
         flops += sum(min(ctx + i + 1, slots) for i in range(w)) * 4 * dh * h
     nbytes = (len(blocks) * block_size * kv_bytes_per_token(hk, dh, kv_bits)
-              + 2 * len(ctx_lens) * w * h * dh * 4)
+              + 2 * len(ctx_lens) * w * h * dh * q_bytes)
     return int(nbytes), int(flops)

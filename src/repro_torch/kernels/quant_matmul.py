@@ -5,6 +5,10 @@ version (port of `repro.kernels.quant_matmul`, the paper's §V-A engine).
 so it runs (and is tested) on the CPU. On a CUDA tensor `quant_matmul`
 launches the CUDA kernel (or raises); on a CPU tensor it runs the plain
 version. Nothing else chooses the path.
+
+Y is float32 or, with out_dtype bfloat16 (a bfloat16 model's linears),
+the float32 value rounded once to nearest even, as the reference's
+`.astype(out_dtype)`: the kernel writes it from its epilogue.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from repro_torch.kernels.ref import quant_matmul_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qmm_launch": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P)),
+                        _I, _I, _I, _P)),
     "qmm_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I, _I, _I)),
 }
 CLUSTER = 8            # CTAs per cluster at most (the portable maximum)
@@ -45,10 +49,26 @@ class Tiles(typing.NamedTuple):
         return self.cluster * -(-n // self.bn) * -(-m // self.bm)
 
 
-def quant_matmul_plain(xq, sx, wq, sw, *, w_packed: bool = False):
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def out_dtype_ok(out_dtype) -> torch.dtype:
+    """out_dtype (None: float32) if an integer kernel writes it, else
+    raise."""
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"the integer kernels write float32 or bfloat16, "
+                        f"not {out_dtype}")
+    return out_dtype
+
+
+def quant_matmul_plain(xq, sx, wq, sw, *, w_packed: bool = False,
+                       out_dtype=None):
     """The kernel's arithmetic in plain PyTorch (CPU or CUDA tensors; one
-    matrix or an expert stack)."""
-    return quant_matmul_ref(xq, sx, unpack_int4(wq) if w_packed else wq, sw)
+    matrix or an expert stack); a bfloat16 Y is the float32 one rounded to
+    nearest even."""
+    y = quant_matmul_ref(xq, sx, unpack_int4(wq) if w_packed else wq, sw)
+    return y.to(out_dtype_ok(out_dtype))
 
 
 # (bm, bn) tiles the kernel is compiled for (csrc/quant_matmul.cu QMM_TILES)
@@ -168,8 +188,10 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
-    """Y[M, N] f32 = (Xq @ Wq as f32) * sx * sw.
+def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False,
+                 out_dtype=None) -> torch.Tensor:
+    """Y[M, N] = (Xq @ Wq as f32) * sx * sw, in out_dtype (float32 by
+    default, or bfloat16).
 
     xq (M, K) int8; sx (M, 1) f32; wq (K, N) int8, or (K, N/2) packed W4
     nibbles along N when w_packed; sw (1, N) f32. Or a stack of E such
@@ -177,8 +199,10 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
     (E, 1, N) -> Y (E, M, N), in ONE launch. The CUDA kernel copies whole
     16-byte chunks of weight rows, so it needs K % 16 == 0 and N % 32 == 0
     (`ops.qmm` pads to that)."""
+    out_dtype = out_dtype_ok(out_dtype)
     if xq.device.type == "cpu":
-        return quant_matmul_plain(xq, sx, wq, sw, w_packed=w_packed)
+        return quant_matmul_plain(xq, sx, wq, sw, w_packed=w_packed,
+                                  out_dtype=out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cuda or cpu, not {xq.device}")
     lead = xq.shape[:-2]
@@ -196,7 +220,7 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
     _check(sx, "sx", torch.float32, (*lead, m, 1), dev)
     _check(wq, "wq", torch.int8, (*lead, k, wq.shape[-1]), dev, align=16)
     _check(sw, "sw", torch.float32, (*lead, 1, n), dev)
-    y = torch.empty((*lead, m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((*lead, m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return y
     lib = build.load("quant_matmul", _SIGNATURES)
@@ -205,7 +229,8 @@ def quant_matmul(xq, sx, wq, sw, *, w_packed: bool = False) -> torch.Tensor:
     err = lib.qmm_launch(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
                          sw.data_ptr(), y.data_ptr(), e, m, k, n,
                          int(w_packed), tl.bm, tl.bn, tl.bk, tl.cluster,
-                         tl.kslice, build.stream_handle(dev))
+                         tl.kslice, int(out_dtype == torch.bfloat16),
+                         build.stream_handle(dev))
     build.check(err, "quant_matmul")
     build.LAUNCHES["quant_matmul"] += 1
     build.LAUNCH_SHAPES["quant_matmul", k, n] += 1

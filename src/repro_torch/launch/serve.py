@@ -13,13 +13,18 @@ unless --no-prefix-cache); --speculate K drafts K tokens a round with the
 plan's cascade truncated to --draft-rank-fraction, and --stream prints
 tokens as they complete through `serve_stream` (both need --ragged).
 Requests are greedy unless --temperature > 0 (with --top-k / --top-p,
-seeded by --seed); --eos-id and --stop end a request early.
+seeded by --seed); --eos-id and --stop end a request early. --arch takes
+every name of `repro_torch.configs` (opus-mt, phi3-medium-14b,
+stablelm-12b, deepseek-moe-16b, mixtral-8x22b); the model's dtype is its
+config's (bfloat16 for the full phi3-medium-14b and stablelm-12b).
 
   python -m repro_torch.launch.serve --arch opus-mt --compression svd \
       --wl 8 --rank-fraction 0.75
   python -m repro_torch.launch.serve --arch opus-mt --plan plan.json \
       --prompt-len 128 --gen 32 --batch 16 --max-batch 8 --kv-bits 8 \
       --ragged --temperature 0.8 --top-k 50 --top-p 0.9 --speculate 4
+  python -m repro_torch.launch.serve --arch phi3-medium-14b --ragged \
+      --compression quant --wl 4 --batch 8
 
 It runs on the GPU; `--device cpu` runs the kernels' plain versions on
 the CPU instead (there is no silent fallback).

@@ -91,7 +91,8 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.frontend in ("audio", "vision"):
         raise NotImplementedError(f"the {cfg.frontend} frontend is not "
-                                  f"ported (the port has opus-mt only)")
+                                  f"ported yet (ROADMAP A3: chameleon, "
+                                  f"musicgen)")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 20, 5),
                                 state_bits=args.opt_bits)

@@ -12,7 +12,11 @@ kernel, so it is plain PyTorch here, in float64 (scores, softmax and the
 weighted sum), as the paged oracle and the norms are: the card and the
 CPU then very likely round to the same float32, where float32 sums in
 different orders would flip int8 activation codes of the next linear.
-The reference takes it in float32, within about 1e-5 of this.
+The reference takes it in float32, within about 1e-5 of this. A
+bfloat16 model's attention keeps the reference's rounding points instead
+(`kernels.paged_attention.attend_bf16`: scores rounded to float32, p to
+bfloat16 before the PV product, the output to bfloat16), float64 between
+them.
 
 The rectangular path keeps one contiguous cache per layer, (B, size, Hk,
 Dh), laid out by `build_cache_from_kv` from prefill's K/V: slot i holds
@@ -34,7 +38,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import symmetric_scale
-from repro_torch.kernels.paged_attention import NEG, paged_attention
+from repro_torch.kernels.paged_attention import (NEG, attend_bf16,
+                                                 paged_attention)
 from repro_torch.kernels.paged_attention import (  # noqa: F401 (re-export)
     span_attend_gather as _span_attend_gather,
 )
@@ -58,12 +63,22 @@ def _scores(q, k, cap):
 
 def _attend_block(q, k, v, mask, cap):
     """q grouped (B, Sq, Hk, G, Dh); k/v (B, Sk, Hk, Dh); mask (..., Sq,
-    Sk) -> (B, Sq, H, Dh), in the inputs' dtype (float64 here)."""
-    s = torch.where(mask, _scores(q, k, cap), NEG)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    Sk) -> (B, Sq, H, Dh), in the inputs' dtype: float64, or bfloat16 at
+    the reference's rounding points (`attend_bf16`)."""
+    if q.dtype == torch.bfloat16:
+        o = attend_bf16(q, k, v, mask, cap)
+    else:
+        s = torch.where(mask, _scores(q, k, cap), NEG)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     b, sq, hk, g, d = o.shape
     return o.reshape(b, sq, hk * g, d)
+
+
+def _wide(t):
+    """What `_attend_block` takes: float64, or a bfloat16 model's own
+    bfloat16 values."""
+    return t if t.dtype == torch.bfloat16 else t.to(torch.float64)
 
 
 def _causal_mask(q_pos, k_pos, window):
@@ -98,8 +113,8 @@ def attention(params, x, cfg, *, window=None, positions=None,
     kv = (k, v)
     if return_kv and cfg.kv_cache_bits == 8:
         k, v = _fake_quant_kv(k), _fake_quant_kv(v)
-    qg = _group_q(q.to(torch.float64), hk)
-    k, v = k.to(torch.float64), v.to(torch.float64)
+    qg = _group_q(_wide(q), hk)
+    k, v = _wide(k), _wide(v)
 
     impl = cfg.attn_impl
     if impl == "auto":
@@ -240,9 +255,10 @@ def decode_attention(params, x1, cache, pos, cfg, *, window=None):
         vq, vs1 = _quant_kv(v)
         for name, x in (("k", kq), ("v", vq), ("ks", ks1), ("vs", vs1)):
             cache[name].index_copy_(1, at, x)
-        # the reference's dequantization, in float32, then widened
-        ck = cache["k"].to(torch.float32) * cache["ks"]
-        cv = cache["v"].to(torch.float32) * cache["vs"]
+        # the reference's dequantization, code.astype(q.dtype) *
+        # scale.astype(q.dtype)
+        ck = cache["k"].to(q.dtype) * cache["ks"].to(q.dtype)
+        cv = cache["v"].to(q.dtype) * cache["vs"].to(q.dtype)
     else:
         cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
@@ -258,8 +274,8 @@ def decode_attention(params, x1, cache, pos, cfg, *, window=None):
     else:
         valid = idx <= slot
 
-    qg = _group_q(q.to(torch.float64), hk)
-    o = _attend_block(qg, ck.to(torch.float64), cv.to(torch.float64),
+    qg = _group_q(_wide(q), hk)
+    o = _attend_block(qg, _wide(ck.to(q.dtype)), _wide(cv.to(q.dtype)),
                       valid[None, None, None, None, :], cfg.logit_softcap)
     y = apply_linear(o.to(x1.dtype).reshape(b, 1, h * hd), params["wo"])
     return y, cache

@@ -15,6 +15,17 @@ an ulp. It is not certain:
 float64 sums in another order or another libm may still round to a
 different float32 now and then. The reference takes them in float32,
 within 1e-5 of these.
+
+In a bfloat16 model the reference rounds to bfloat16 after every
+operation whose result is bfloat16 (XLA computes each in float32 and
+converts, and keeps those converts in its compiled step), so the port
+rounds at the same points: the norms' product with gamma, RoPE's float32
+result, the residual sums and products (PyTorch's own bfloat16
+arithmetic, float32 then rounded), and each step of SiLU's and GELU's
+decomposition (`silu`, `gelu`). Between those points it computes in
+float32 where an operation is exact or correctly rounded on both devices
+(+, *, /) and in float64 for the transcendentals, rounded to float32 and
+then to bfloat16.
 """
 from __future__ import annotations
 
@@ -39,37 +50,84 @@ def apply_linear(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- norms --
-def rmsnorm(x, gamma, eps=1e-5):
+def rmsnorm(x, gamma, eps=1e-5, dtype=None):
+    """RMSNorm of x (any float dtype), in `dtype` (default x's)."""
+    dtype = dtype or x.dtype
     x64 = x.to(torch.float64)
     var = (x64 ** 2).mean(dim=-1, keepdim=True)
     y = (x64 / torch.sqrt(var + eps)).to(torch.float32)
-    return y.to(x.dtype) * (1.0 + gamma.to(x.dtype))
+    return y.to(dtype) * (1.0 + gamma.to(dtype))
 
 
-def layernorm(x, gamma, beta, eps=1e-5):
-    """LayerNorm with the population variance, as the reference."""
+def layernorm(x, gamma, beta, eps=1e-5, dtype=None):
+    """LayerNorm with the population variance, as the reference, in
+    `dtype` (default x's)."""
+    dtype = dtype or x.dtype
     x64 = x.to(torch.float64)
     mu = x64.mean(dim=-1, keepdim=True)
     var = ((x64 - mu) ** 2).mean(dim=-1, keepdim=True)
     y = ((x64 - mu) / torch.sqrt(var + eps)).to(torch.float32)
-    return y.to(x.dtype) * gamma.to(x.dtype) + beta.to(x.dtype)
+    return y.to(dtype) * gamma.to(dtype) + beta.to(dtype)
 
 
-def apply_norm(x, p, kind: str, eps: float):
+def apply_norm(x, p, kind: str, eps: float, dtype=None):
     if kind == "layernorm":
-        return layernorm(x, p["gamma"], p["beta"], eps)
-    return rmsnorm(x, p["gamma"], eps)
+        return layernorm(x, p["gamma"], p["beta"], eps, dtype)
+    return rmsnorm(x, p["gamma"], eps, dtype)
+
+
+def add_norm(h, a, p, kind: str, eps: float):
+    """(h + a, its norm): the residual sum in h's dtype, and the norm that
+    follows it. For bfloat16 h the norm reads the sum before its rounding
+    to bfloat16, h + a in float32: in the reference's compiled step the
+    norm's `x.astype(float32)` right after the bfloat16 add lets XLA
+    (allowed excess precision) drop that add's rounding there, while the
+    residual stream itself keeps it."""
+    s = h + a
+    if h.dtype != torch.bfloat16:
+        return s, apply_norm(s, p, kind, eps)
+    wide = h.to(torch.float32) + a.to(torch.float32)
+    return s, apply_norm(wide, p, kind, eps, h.dtype)
 
 
 # ------------------------------------------------------------------ MLPs --
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    """A float32 (or float64) result rounded as a bfloat16 operation's:
+    to float32, then to the nearest even bfloat16; returned widened to
+    float32 for the next operation."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """tanh-approximate GELU (jax.nn.gelu's default), in float64."""
-    return F.gelu(x.to(torch.float64), approximate="tanh").to(x.dtype)
+    """tanh-approximate GELU (jax.nn.gelu's default), in float64; for a
+    bfloat16 x as the reference's bfloat16 graph:
+    x * (0.5 * (1 + tanh(c * (x + k * x**3)))), c and k constants in
+    bfloat16, every step rounded to bfloat16."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x.to(torch.float64), approximate="tanh").to(x.dtype)
+    xf = x.to(torch.float32)
+    c = _bf(torch.tensor((2 / torch.pi) ** 0.5))
+    k = _bf(torch.tensor(0.044715))
+    x3 = _bf(_bf(xf * xf) * xf)
+    u = _bf(c * _bf(xf + _bf(k * x3)))
+    th = _bf(torch.tanh(u.to(torch.float64)))
+    cdf = _bf(0.5 * _bf(1.0 + th))
+    return (xf * cdf).to(torch.bfloat16)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(x) (jax.nn.silu), in float64."""
-    return F.silu(x.to(torch.float64)).to(x.dtype)
+    """x * sigmoid(x) (jax.nn.silu), in float64; for a bfloat16 x as XLA
+    runs the reference's bfloat16 graph: x * (1 / (1 + exp(-x))), each
+    step rounded to bfloat16."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x.to(torch.float64)).to(x.dtype)
+    xf = x.to(torch.float32)
+    sig = _bf(1.0 / _bf(1.0 + _bf(_exp_f32(-xf))))
+    return (xf * sig).to(torch.bfloat16)
 
 
 def mlp_apply(x, p, act: str):

@@ -24,7 +24,8 @@ from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (apply_linear, apply_norm, dtype_of,
+from repro_torch.models.layers import (add_norm, apply_linear, apply_norm,
+                                       dtype_of,
                                        mlp_apply, sinusoidal_emb, softcap)
 from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.kvblocks import check_paged_support
@@ -174,8 +175,7 @@ def _dense_body(cfg, h, lp, *, window, return_kv=False):
                        return_kv=return_kv)
     if return_kv:
         a, kv = a
-    h = h + a
-    hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+    h, hn = add_norm(h, a, lp["ln2"], cfg.norm, cfg.norm_eps)
     y, aux = _ffn(cfg, lp, hn)
     h = h + y
     return (h, aux, kv) if return_kv else (h, aux)
@@ -340,8 +340,7 @@ def decode_step(params, cache, tokens, pos, cfg):
         a, _ = attn.decode_attention(lp["attn"], hn,
                                      {k: v[i] for k, v in kv.items()}, pos,
                                      cfg, window=window)
-        h = h + a
-        hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+        h, hn = add_norm(h, a, lp["ln2"], cfg.norm, cfg.norm_eps)
         h = h + _ffn(cfg, lp, hn)[0]
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     return logits_for(params, h, cfg), cache
@@ -369,8 +368,7 @@ def unified_step(params, pool, block_tables, ctx_lens, q_lens, inputs, cfg,
         hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
         a, _ = attn.span_attention_paged(lp["attn"], hn, pl, block_tables,
                                          ctx_lens, q_lens, cfg)
-        h = h + a
-        hn = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+        h, hn = add_norm(h, a, lp["ln2"], cfg.norm, cfg.norm_eps)
         h = h + _ffn(cfg, lp, hn)[0]
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     last = torch.clamp(q_lens.long() - 1, min=0)

@@ -202,9 +202,11 @@ def copy_block(pool, src: int, dst: int) -> None:
 def init_paged_cache(cfg, num_blocks: int, block_size: int, device,
                      dtype=None):
     """Physical pool tensors for every layer: {"k","v"} of shape
-    (L, num_blocks, block_size, Hk, Dh), plus {"ks","vs"} fp32 scale
-    planes (L, num_blocks, block_size, Hk, 1) when cfg.kv_cache_bits == 8
-    (int8 codes, scales initialised to 1 as in the reference)."""
+    (L, num_blocks, block_size, Hk, Dh) in the model's dtype (bfloat16
+    for a bfloat16 model) at kv_cache_bits 16, or int8 codes plus
+    {"ks","vs"} fp32 scale planes (L, num_blocks, block_size, Hk, 1) when
+    cfg.kv_cache_bits == 8 (scales initialised to 1 as in the
+    reference)."""
     from repro_torch.models.layers import dtype_of
 
     check_paged_support(cfg)

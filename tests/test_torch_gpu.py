@@ -981,3 +981,119 @@ def test_unpack_int4_on_cuda_equals_cpu(cuda):
     b = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
     assert torch.equal(quant.unpack_int4(b.to(cuda)).cpu(),
                        quant.unpack_int4(b))
+
+
+# ---------------------------------------------------------- bfloat16 --
+@pytest.mark.parametrize("m,k,n,packed,e", [
+    (8, 5120, 1280, True, 1),     # decode strip, K split over a cluster
+    (8, 17920, 5120, True, 1),    # phi3's mlp/down at decode
+    (8, 5120, 100352, False, 1),  # the bf16 model's lm head shape (W8)
+    (300, 512, 544, False, 1),    # ragged M and N, 128 x 64 tiles
+    (2048, 512, 2048, True, 1),   # wide prefill tile
+    (5, 256, 512, True, 4),       # an expert stack
+])
+def test_quant_matmul_bf16_epilogue_equals_plain(cuda, m, k, n, packed, e):
+    """The kernel's bf16 epilogue is the plain float32 value rounded to
+    nearest even, bit for bit, at every kind of tile."""
+    rng = np.random.default_rng(m + k + n + e)
+    lead = (e,) if e > 1 else ()
+    xq = _codes(rng, (*lead, m, k), 8).to(cuda)
+    sx = _uniform(rng, (*lead, m, 1), 0.01, 1).to(cuda)
+    w = _codes(rng, (*lead, k, n), 4 if packed else 8).to(cuda)
+    wq = quant.pack_int4(w) if packed else w
+    sw = _uniform(rng, (*lead, 1, n), 0.001, 0.01).to(cuda)
+    before = build.LAUNCHES["quant_matmul"]
+    y = qm.quant_matmul(xq, sx, wq, sw, w_packed=packed,
+                        out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["quant_matmul"] == before + 1
+    assert y.dtype == torch.bfloat16
+    want = qm.quant_matmul_plain(xq, sx, wq, sw, w_packed=packed,
+                                 out_dtype=torch.bfloat16)
+    assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("m,k,r,n,packed", [
+    (8, 5120, 1024, 5120, True),     # phi3 wq/wo at rank fraction 0.2
+    (8, 5120, 256, 1280, True),      # phi3 wk/wv
+    (8, 17920, 1024, 5120, True),    # phi3 mlp/down
+    (300, 5120, 1024, 17920, True),  # a prefill chunk through mlp/up
+    (37, 512, 288, 544, False),      # ragged everything, carrier layout
+])
+def test_lowrank_qmm_bf16_epilogue_equals_plain(cuda, m, k, r, n, packed):
+    """The cascade's bf16 epilogue is the plain float32 value rounded to
+    nearest even, bit for bit."""
+    rng = np.random.default_rng(m + k + r + n)
+    wl = 4 if packed else 8
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w1 = _codes(rng, (k, r), wl).to(cuda)
+    w2 = _codes(rng, (r, n), wl).to(cuda)
+    if packed:
+        w1, w2 = quant.pack_int4(w1), quant.pack_int4(w2)
+    s1 = _uniform(rng, (1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (r, 1), 0.01, 0.1).to(cuda)
+    kw = dict(w1_packed=packed, w2_packed=packed, act_qmax=127,
+              out_dtype=torch.bfloat16)
+    before = build.LAUNCHES["lowrank_qmm"]
+    y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lowrank_qmm"] == before + 1
+    want = lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2, **kw)
+    assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+
+
+def _assert_bf16_attention_close(o, ref):
+    """The bf16 kernel against its plain version: equal bits but for at
+    most 1 element in 10,000, and those within one bf16 ulp (float64 sums
+    in other orders meeting a bf16 rounding boundary of p or the
+    output)."""
+    assert o.dtype == ref.dtype == torch.bfloat16
+    a, b = o.float(), ref.float()
+    diff = (a - b).abs()
+    ulp = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+    assert bool((diff <= ulp).all())
+    assert (diff > 0).float().mean().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dh", [128, 160])
+@pytest.mark.parametrize("kv_bits", [16, 8])
+@pytest.mark.parametrize("ctx,ql", [
+    ([37, 0, 5, 100], [1, 0, 1, 1]),       # decode, one idle row
+    ([0, 48, 7, 200], [64, 0, 20, 3]),     # prefill spans, G 4 (W*G 256)
+])
+def test_paged_attention_bf16_equals_plain(cuda, dh, kv_bits, ctx, ql):
+    """bf16 q over a bf16 pool (kv 16) or int8 codes with fp32 scales,
+    Dh 128 (phi3) and 160 (stablelm), 4 query heads a kv head, every
+    position of every row."""
+    rng = np.random.default_rng(dh + kv_bits + sum(ql))
+    q, pool, table, ctx_a, _ = _pa_case(rng, ctx, ql, kv_bits, g=4, hd=dh)
+    q = q.to(torch.bfloat16)
+    if kv_bits == 16:
+        pool = {k: v.to(torch.bfloat16) for k, v in pool.items()}
+    pool = {key: v.to(cuda) for key, v in pool.items()}
+    tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx_a))
+    before = build.LAUNCHES["paged_attention"]
+    o = pa.paged_attention(q.to(cuda), pool, tab, ctx_t)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["paged_attention"] == before + 1
+    _assert_bf16_attention_close(
+        o, pa.span_attend_gather(q.to(cuda), pool, tab, ctx_t))
+
+
+def test_paged_attention_bf16_refuses_what_it_cannot_take(cuda):
+    """A bf16 q over an fp32 pool, and a head dim the kernel lacks, raise
+    on the card: nothing falls back to the plain version."""
+    rng = np.random.default_rng(0)
+    q, pool, table, ctx, _ = _pa_case(rng, [3], [1], 16, hd=64)
+    tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx))
+    pool = {key: v.to(cuda) for key, v in pool.items()}
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_attention(q.to(cuda, torch.bfloat16), pool, tab, ctx_t)
+    q, pool, table, ctx, _ = _pa_case(rng, [3], [1], 16, hd=96)
+    pool = {key: v.to(cuda, torch.bfloat16) for key, v in pool.items()}
+    with pytest.raises(ValueError, match="Dh"):
+        pa.paged_attention(q.to(cuda, torch.bfloat16), pool, tab, ctx_t)
+    with pytest.raises(ValueError, match="Dh"):
+        pa.paged_attention(q.to(cuda), {k: v.float() for k, v in
+                                        pool.items()}, tab, ctx_t)

@@ -345,13 +345,15 @@ def test_h100_model_restricts_engines_and_prices_launches():
 
 
 def test_attention_byte_models():
-    """The port's pool: fp32, or int8 codes with an fp32 scale per
-    (token, head); the streaming kernel reads only valid blocks, the
-    plain gather the whole table view and float64 copies of it."""
+    """The port's pool: fp32, bfloat16 (a bf16 model's), or int8 codes
+    with an fp32 scale per (token, head); other widths are refused; the
+    streaming kernel reads only valid blocks, the plain gather the whole
+    table view and float64 copies of it."""
     assert tpa.kv_bytes_per_token(4, 64, 32) == 2 * 4 * 64 * 4
+    assert tpa.kv_bytes_per_token(4, 64, 16) == 2 * 4 * 64 * 2
     assert tpa.kv_bytes_per_token(4, 64, 8) == 2 * (4 * 64 + 4 * 4)
     with pytest.raises(ValueError, match="kv_bits"):
-        tpa.kv_bytes_per_token(4, 64, 16)
+        tpa.kv_bytes_per_token(4, 64, 4)
     ctx, ql = [400, 290, 0, 500], [8, 1, 0, 8]
     for kv in (32, 8):
         s = tpa.stream_hbm_bytes(ctx, ql, 16, 4, 64, kv_bits=kv, n_q_heads=8)

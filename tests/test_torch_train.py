@@ -296,12 +296,34 @@ def test_prefetcher_yields_steps_in_order():
 
 
 # --------------------------------------------------------- resilient loop --
-def _run_loop(mod, *, inject, fail_from=None, max_failures=3):
+class _StepClock:
+    """A deterministic `time.monotonic`: it reads `t`, which only a step
+    moves, by 1.0 s or by `slow` s for the steps in `slow_steps`. So each
+    step times the same in both loops and no wall-clock hiccup flags a
+    straggler in one loop and not in the other."""
+
+    def __init__(self, slow_steps=(), slow=10.0):
+        self.t, self.slow_steps, self.slow = 0.0, set(slow_steps), slow
+
+    def __call__(self) -> float:
+        return self.t
+
+    def tick(self, step: int) -> None:
+        self.t += self.slow if step in self.slow_steps else 1.0
+
+
+def _run_loop(mod, monkeypatch, *, inject, fail_from=None, max_failures=3,
+              slow_steps=()):
     """A deterministic loop: the state counts steps, the loss is a
-    function of the step, saves every 3 steps into a dict."""
+    function of the step, saves every 3 steps into a dict; each step
+    takes 1 s of `_StepClock` time, `slow_steps` 10 s."""
     saved = {0: 0}
+    clock = _StepClock(slow_steps)
+    monkeypatch.setattr(mod.time, "monotonic", clock)
+    remeshes = []
 
     def step_fn(state, step):
+        clock.tick(step)
         if fail_from is not None and step >= fail_from:
             raise ValueError(f"step {step} fails")
         return state + 1, {"loss": 0.5 * step}
@@ -315,21 +337,34 @@ def _run_loop(mod, *, inject, fail_from=None, max_failures=3):
 
     loop = mod.ResilientLoop(step_fn, save_fn, restore_fn, ckpt_every=3,
                              max_failures=max_failures,
-                             inject_failure_at=inject)
+                             inject_failure_at=inject,
+                             on_straggler=lambda: remeshes.append(clock.t))
     try:
         out = loop.run(0, 0, 10)
     except RuntimeError as e:
         out = str(e)
-    return out, dataclasses.asdict(loop.report)
+    return out, dataclasses.asdict(loop.report), remeshes
 
 
-@pytest.mark.parametrize("case", ["injected", "failures run out", "clean"])
-def test_resilient_loop_report_matches_reference(case):
+@pytest.mark.parametrize("case", ["injected", "failures run out", "clean",
+                                  "stragglers"])
+def test_resilient_loop_report_matches_reference(case, monkeypatch):
+    """The whole report, straggler events included, on the step clock;
+    "stragglers" makes steps 4-6 and 8 slow: three in a row call
+    `on_straggler` once (patience 3), and step 8 is one more event."""
     kw = {"injected": dict(inject=7),
           "failures run out": dict(inject=None, fail_from=5,
                                    max_failures=2),
-          "clean": dict(inject=None)}[case]
-    assert _run_loop(tfault, **kw) == _run_loop(jfault, **kw)
+          "clean": dict(inject=None),
+          "stragglers": dict(inject=None, slow_steps=(4, 5, 6, 8))}[case]
+    got = _run_loop(tfault, monkeypatch, **kw)
+    assert got == _run_loop(jfault, monkeypatch, **kw)
+    report = got[1]
+    if case == "stragglers":
+        assert report["straggler_events"] == 4
+        assert report["remesh_events"] == 1 and len(got[2]) == 1
+    else:
+        assert report["straggler_events"] == 0 and not got[2]
 
 
 # ------------------------------------------------------------------- CLI --
