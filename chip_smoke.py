@@ -707,15 +707,18 @@ def quant_launch_shapes(cfg) -> dict:
 
 
 def _span_batch(torch, g, w, kv_bits, b=8, h=8, dh=64, bs=16, hk=None,
-                dtype=None):
+                dtype=None, lens=None):
     """A span batch over a pool with random history: ragged contexts, one
     idle row; decode (w == 1), speculative verify spans of 1 + 0-4
-    drafts (w == 8), or prefill chunks up to w tokens. Each row's table
-    holds the blocks of its tokens, then the trash block 0. The pool has
-    `hk` kv heads (default h); q and a kv-16 pool are fp32, or `dtype`."""
+    drafts (w == 8), or prefill chunks up to w tokens; or the (contexts,
+    query lengths) `lens`. Each row's table holds the blocks of its
+    tokens, then the trash block 0. The pool has `hk` kv heads (default
+    h); q and a kv-16 pool are fp32, or `dtype`."""
     hk = hk or h
     dtype = dtype or torch.float32
-    if w == 1:
+    if lens is not None:
+        ctx, ql = lens
+    elif w == 1:
         ctx = [40, 511, 0, 130, 300, 75, 220, 480]
         ql = [1, 1, 0, 1, 1, 1, 1, 1]
     elif w == 8:
@@ -835,6 +838,11 @@ BF16_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 BF16_TIMED_ROWS = (8, 2048)       # of those, the rows phase 2 also times
 BF16_ATTN = ((40, 10, 128), (32, 8, 160))     # (H, Hk, Dh) of each model
 TOL_ULP_SHARE = 1e-4     # bf16 attention: share of outputs 1 ulp apart
+# untimed bf16 attention comparisons: a decode whose longest row reaches
+# 4096 keys (8 key splits), and key splits forced mid-block (W 1 and 256)
+BF16_LONG_DECODE = ([4095, 1000, 0, 2047, 3000, 17, 4000, 511],
+                    [1, 1, 0, 1, 1, 1, 1, 1])
+BF16_FORCED_SPLITS = ((1, 100), (256, 200))   # (W, keys_per_split)
 
 
 def bf16_geometry():
@@ -874,11 +882,13 @@ def check_bf16_kernels(torch, timer, failures):
     epilogue at every (rows, K, [R,] N) a bf16 serve step launches,
     bit-equal to the plain versions (timed at 8 and 2048 rows), and
     paged attention at bf16 with a bf16 or int8 pool, Dh 128 and 160,
-    decode and a W 256 prefill, within one bf16 ulp on at most
-    TOL_ULP_SHARE of the outputs. Returns {kernel: worst max abs error}."""
+    decode and a W 256 prefill (timed), a 4096-key decode and forced key
+    splits (untimed), within one bf16 ulp on at most TOL_ULP_SHARE of the
+    outputs. Returns {kernel: worst max abs error}."""
     from repro_torch.core.itera import LowRankQ
     from repro_torch.core.quant import QuantizedTensor, pack_int4, packable
-    from repro_torch.hw.h100_model import PEAK_FLOPS_BF16, PEAK_OPS_INT8
+    from repro_torch.hw.h100_model import (PEAK_FLOPS_BF16,
+                                           PEAK_FLOPS_FP64_TC, PEAK_OPS_INT8)
     from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
                                                  lowrank_qmm_plain)
     from repro_torch.kernels.ops import (lrmm_hbm_bytes, qmm_hbm_bytes,
@@ -984,23 +994,28 @@ def check_bf16_kernels(torch, timer, failures):
             rows["lowrank_qmm"].append(dict(m=m, k=k, r=r, n=n, ms=t_k,
                                             plain_ms=t_p))
     print("  bf16 paged_attention: W kv_bits H Hk Dh | kernel_ms plain_ms "
-          "library_ms bound_us (bound by) max_abs_err share_differing")
+          "library_ms bound_us (bound by) f64_floor_us max_abs_err "
+          "share_differing")
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def compare(label, q, pool, table, ctx_t, **kw):
+        o = paged_attention(q, pool, table, ctx_t, **kw)
+        ref = span_attend_gather(q, pool, table, ctx_t)
+        torch.cuda.synchronize()
+        err, share, in_ulp = _ulp_share(torch, o, ref)
+        worst["paged_attention"] = max(worst["paged_attention"], err)
+        check(failures, in_ulp and share <= TOL_ULP_SHARE,
+              f"bf16 paged_attention {label}: {share:.2e} of outputs differ "
+              f"(at most {TOL_ULP_SHARE}), all within one ulp: {in_ulp}")
+        return err, share
+
     for kv_bits in (16, 8):
         for h, hk, dh in BF16_ATTN:
             for w in (1, 256):
                 q, pool, table, ctx_t, _, ctx, _ = _span_batch(
                     torch, g, w, kv_bits, h=h, dh=dh, hk=hk, dtype=bf)
-                o = paged_attention(q, pool, table, ctx_t)
-                ref = span_attend_gather(q, pool, table, ctx_t)
-                torch.cuda.synchronize()
-                err, share, in_ulp = _ulp_share(torch, o, ref)
-                worst["paged_attention"] = max(worst["paged_attention"], err)
-                check(failures, in_ulp and share <= TOL_ULP_SHARE,
-                      f"bf16 paged_attention W={w} H={h} Dh={dh} "
-                      f"kv{kv_bits}: {share:.2e} of outputs differ (at "
-                      f"most {TOL_ULP_SHARE}), all within one ulp: "
-                      f"{in_ulp}")
+                err, share = compare(f"W={w} H={h} Dh={dh} kv{kv_bits}", q,
+                                     pool, table, ctx_t)
                 b = q.shape[0]
                 bs = pool["k"].shape[1]
                 s = table.shape[1] * bs
@@ -1028,12 +1043,30 @@ def check_bf16_kernels(torch, timer, failures):
                                             dh, kv_bits=kv_bits,
                                             n_q_heads=h, q_bytes=2)
                 b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS_BF16)
+                # the float64 floor: QK^T in both passes and PV, 6 * Dh
+                # flops a visible pair, at the FP64 tensor-core peak
+                f64_us = 1.5 * flops / PEAK_FLOPS_FP64_TC * 1e6
                 print(f"    {w:3d} kv{kv_bits} {h:2d} {hk:2d} {dh:3d} | "
                       f"{t_k:.4f} {t_p:.4f} "
                       f"{t_l if t_l is None else round(t_l, 4)} "
-                      f"{b_ms * 1e3:.4f} ({b_by}) {err:.2e} {share:.2e}")
+                      f"{b_ms * 1e3:.4f} ({b_by}) {f64_us:.2f} {err:.2e} "
+                      f"{share:.2e}")
                 rows["paged_attention"].append(dict(
                     w=w, kv_bits=kv_bits, dh=dh, ms=t_k, plain_ms=t_p))
+    for h, hk, dh in BF16_ATTN:
+        for kv_bits in (16, 8):
+            batch = _span_batch(torch, g, 1, kv_bits, h=h, dh=dh, hk=hk,
+                                dtype=bf, lens=BF16_LONG_DECODE)
+            err, share = compare(f"4096-key decode H={h} Dh={dh} "
+                                 f"kv{kv_bits}", *batch[:4])
+            print(f"    untimed: 4096-key decode kv{kv_bits} {h:2d} {hk:2d} "
+                  f"{dh:3d} | {err:.2e} {share:.2e}")
+        for w, kps in BF16_FORCED_SPLITS:
+            batch = _span_batch(torch, g, w, 16, h=h, dh=dh, hk=hk, dtype=bf)
+            err, share = compare(f"W={w} H={h} Dh={dh} keys_per_split={kps}",
+                                 *batch[:4], keys_per_split=kps)
+            print(f"    untimed: W {w} keys_per_split {kps} {h:2d} {hk:2d} "
+                  f"{dh:3d} | {err:.2e} {share:.2e}")
     for name, keys in (("quant_matmul", ("m", "k", "n")),
                        ("lowrank_qmm", ("m", "k", "r", "n")),
                        ("paged_attention", ("w", "kv_bits", "dh"))):

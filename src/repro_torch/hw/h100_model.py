@@ -55,6 +55,7 @@ HBM_BW = 3.35e12                  # B/s, 80 GB of HBM3
 PEAK_OPS_INT8 = 1979e12           # int8 tensor-core OP/s (a wgmma rate)
 PEAK_FLOPS_FP32 = 67e12           # fp32 FLOP/s outside the tensor cores
 PEAK_FLOPS_BF16 = 989e12          # bf16 tensor-core FLOP/s, dense
+PEAK_FLOPS_FP64_TC = 67e12        # float64 tensor-core FLOP/s (DMMA)
 NVLINK_BW = 450e9                 # B/s each way to the host's other cards
 PCIE_BW = 64e9                    # B/s each way, PCIe Gen5 x16
 # The fixed time of one launch inside a replayed CUDA graph: the smallest

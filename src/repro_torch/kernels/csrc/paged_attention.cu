@@ -58,26 +58,55 @@
 //
 // bfloat16 models (`attend_bf16_kernel`, paged_attention_bf16_launch): q,
 // the pool (or int8 codes with fp32 scales) and the output are bfloat16,
-// and the reference rounds inside the function: scores to fp32 (scaled in
-// fp32), the softmax's p to bfloat16 BEFORE the PV product, the output to
-// bfloat16. p's rounding needs the final max and denominator, which an
-// online softmax does not know while it sums P.V, so this kernel takes two
-// passes over the keys: the first finds each row's max m and denominator
-// l (online, float64), the second recomputes each score, rounds
-// p = exp(s - m) / l to fp32 and then bfloat16, and sums p * v in float64,
-// rounded to fp32 and then bfloat16 at the end. One CTA of 16 query rows
-// (4 warps, 4 rows each) takes all of its tile's keys, 64 at a time
-// through shared memory (int8 rows dequantized there as
-// bf16(code * bf16(scale)), the reference's order). Scores: a lane a key,
-// the products exact in fp32 and summed in float64 (rounded once to fp32,
-// as the plain version's float64 einsum is); P.V: a lane per 32-column
-// slice of Dh. No split over keys, no tensor cores: a first, simple
-// design; Dh 32, 64, 128 and 160.
+// and the reference rounds inside the function: int8 K/V dequantized as
+// bf16(code * bf16(scale)), scores to fp32 (scaled in fp32, softcapped
+// and rounded again), the softmax's p to fp32 and then bfloat16 BEFORE
+// the PV product, the output to fp32 and then bfloat16. Between those
+// points the kernel computes in float64, as the plain version does. p's
+// rounding needs each row's final max m and denominator l, which an
+// online softmax does not know while it sums P.V, so the kernel takes two
+// passes over the keys: pass 1 finds m and l (online, float64), pass 2
+// recomputes each score, rounds p = exp(s - m) / l and sums p * v.
+// - The keys of a tile are split over a thread-block cluster of S <= 8
+//   CTAs (the wrapper plans S from the shapes alone, so that a decode
+//   step covers the card). Rank r takes the keys [r * kps, ...). After
+//   pass 1 each CTA pushes its rows' (m, l) into every peer's shared
+//   memory (DSMEM); after a cluster barrier each combines the S of them
+//   in rank order, so all derive the same (m, l), deterministically and
+//   without atomics. After pass 2 each CTA pushes its float64 P.V
+//   partials of a column to the rank that owns the column, which sums
+//   them in rank order and rounds once.
+// - Both products run on the FP64 tensor cores (mma.sync m8n8k4 .f64, as
+//   the fp32 kernel's prefill tiles): a product of two bf16 values, or of
+//   bf16 p and a bf16 v, is exact in float64, so only the order of the
+//   float64 sums differs from the plain version. 8 warps a CTA, each 8
+//   query rows by the 8-key n-tiles it takes. Decode tiles (W*G <= 16;
+//   8 rows a tile) give each warp one n-tile of every 64-key stage, and
+//   the warps' (m, l) and partials are combined in warp order; prefill
+//   tiles (64 rows) give each warp 8 rows and every key, and skip the
+//   n-tiles above its rows' causal diagonal.
+// - K/V come through a two-stage ring of 64-key stages with 16-byte
+//   cp.async, the next stage loading while the current one is consumed,
+//   across the pass boundary too. int8 codes and their scales land raw
+//   and are widened to bf16 in place once a stage has landed (each key
+//   once, not once per warp that reads it). A split of at most two stages
+//   loads V with K in pass 1 and keeps both resident for pass 2, which
+//   then loads nothing; a longer one streams K in pass 1 and K and V
+//   again in pass 2. Rows are padded by 32 bytes, so the fragment loads
+//   fall on distinct banks; lane t of a QK^T product reads Dh elements
+//   4t ... 4t + 3 of each 16 as one 8-byte load for four k-steps.
+// What bounds it: at decode the K/V bytes and latency (each CTA's chain
+// of loads, barriers and dependent products); a W 256 prefill tile the
+// FP64 tensor cores (6 * Dh flops a visible (query, key) pair: QK^T in
+// both passes and PV), then the float64 exp. Dh 32, 64, 128 and 160.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -654,226 +683,529 @@ extern "C" int paged_attention_launch(
 // ------------------------------------------------------------ bfloat16 --
 namespace {
 
-constexpr int BQT = 16;   // query rows per CTA
-constexpr int BKC = 64;   // keys staged per chunk
-constexpr int BROWS = BQT / WARPS;
+constexpr int BTHREADS = 256, BWARPS = BTHREADS / 32;
+constexpr int BKC = 64;          // keys a ring stage holds
+constexpr int BQT_DECODE = 8, BQT_PREFILL = 64;  // query rows of a tile
+constexpr int BCLUSTER = 8;      // most key splits (cluster ranks) a tile takes
 
-__host__ __device__ inline size_t bf16_smem_bytes(int dh) {
-  return (size_t)BQT * dh * 4                     // q rows as fp32
-         + (size_t)BKC * (dh + 2) * 2             // K chunk, padded rows
-         + (size_t)BKC * dh * 2                   // V chunk
-         + (size_t)WARPS * BROWS * BKC * 4;       // each warp's p rows
+// Byte stride of a bf16 row in shared memory (Q, K and V): 2 * Dh bytes
+// and 32 of padding, so that the 8-byte fragment loads of a half warp (4
+// rows) and the 2-byte ones of a warp (4 rows of 8 columns) fall on
+// distinct banks. An int8 row lands raw in the second half of its row
+// (bytes Dh ... 2 Dh - 1) and is widened in place.
+__host__ __device__ constexpr int brow(int dh) { return dh * 2 + 32; }
+
+// Where the regions of a CTA's dynamic shared memory start: the Q tile
+// (bf16); each row's final (M, L) and, where warps split the keys, each
+// warp's (m, l); the (m, l) the cluster's CTAs exchange (S slots a row);
+// for decode tiles, the P.V column shares received from the cluster; then
+// one region that holds the two ring stages during the passes and, after
+// them, decode tiles' per-warp P.V partials or prefill tiles' received
+// shares.
+struct BLayout {
+  size_t q, stat, mlx, recv, ring, stage, wpart, total;
+};
+
+__host__ __device__ inline BLayout bf16_layout(int qt, int dh, bool quant,
+                                               int S) {
+  const int wk = BWARPS * 8 / qt;  // warps along the keys: 8 or 1
+  const bool own_recv = qt == BQT_DECODE;
+  const size_t recv = S > 1 ? (size_t)S * qt * ((dh + S - 1) / S) * 8 : 0;
+  const size_t wpart = wk > 1 ? (size_t)wk * qt * dh * 8 : 0;
+  BLayout L;
+  L.q = 0;
+  L.stat = (size_t)qt * brow(dh);
+  L.mlx = L.stat + (size_t)qt * 16 * (wk > 1 ? 1 + wk : 1);
+  L.recv = L.mlx + (size_t)S * qt * 16;
+  L.ring = L.recv + (own_recv ? recv : 0);
+  L.stage = (size_t)BKC * 2 * brow(dh) + (quant ? BKC * 8 : 0);
+  L.wpart = L.ring;
+  if (!own_recv) L.recv = L.ring + wpart;
+  const size_t after = wpart + (own_recv ? 0 : recv);
+  L.total = L.ring + (2 * L.stage > after ? 2 * L.stage : after);
+  return L;
 }
 
-// Stage rows [c0, c0 + n) of the tile's keys into bf16 shared memory
-// (row stride `stride` elements), dequantizing int8 codes as
-// bf16(code * bf16(scale)).
-__device__ __forceinline__ void stage_bf16(
-    __nv_bfloat16* dst, int stride, const void* src, const float* sc,
-    const int* bt_row, int c0, int n, int bs, int Hk, int hk, int dh,
-    int quant) {
-  const int words = dh / 2;
-  for (int i = threadIdx.x; i < n * words; i += THREADS) {
-    const int r = i / words, w = i % words, key = c0 + r;
-    const size_t slot = (size_t)bt_row[key / bs] * bs + key % bs;
-    const size_t row = slot * Hk + hk;
-    __nv_bfloat162 v2;
-    if (quant) {
-      const char2 c = reinterpret_cast<const char2*>(
-          static_cast<const int8_t*>(src) + row * dh)[w];
-      const float s = __bfloat162float(__float2bfloat16_rn(sc[row]));
-      v2.x = __float2bfloat16_rn(static_cast<float>(c.x) * s);
-      v2.y = __float2bfloat16_rn(static_cast<float>(c.y) * s);
-    } else {
-      v2 = reinterpret_cast<const __nv_bfloat162*>(
-          static_cast<const __nv_bfloat16*>(src) + row * dh)[w];
-    }
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * stride + 2 * w) = v2;
-  }
+// PTX split cluster barrier (as in lowrank_qmm.cu): arrive, wait later.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// The score of q row `qr` (fp32 copies of bf16 values) against staged K
-// row `kr`: products exact in fp32, summed in float64, rounded to fp32,
-// scaled in fp32 (the exact product rounded once), softcapped in float64
-// and rounded again.
-template <int DH>
-__device__ __forceinline__ double score_bf16(const float* qr,
-                                             const __nv_bfloat16* kr,
-                                             float scale, double cap) {
-  double acc = 0.0;
-#pragma unroll 8
-  for (int d = 0; d < DH; d += 2) {
-    const float2 k2 = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(kr + d));
-    acc += static_cast<double>(qr[d] * k2.x);
-    acc += static_cast<double>(qr[d + 1] * k2.y);
-  }
-  float s = static_cast<float>(acc);
-  s = static_cast<float>(static_cast<double>(s) * static_cast<double>(scale));
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Four consecutive bf16 values (8 bytes) as float64, exactly.
+__device__ __forceinline__ void bf16x4(const unsigned char* p,
+                                       double (&v)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  v[0] = static_cast<double>(__uint_as_float(w.x << 16));
+  v[1] = static_cast<double>(__uint_as_float(w.x & 0xffff0000u));
+  v[2] = static_cast<double>(__uint_as_float(w.y << 16));
+  v[3] = static_cast<double>(__uint_as_float(w.y & 0xffff0000u));
+}
+
+// A score from its float64 dot product (exact products, summed in
+// float64): rounded to fp32, scaled in fp32 (one rounding of the exact
+// product, as the plain version's float64 product rounded to fp32),
+// softcapped in float64 and rounded again.
+__device__ __forceinline__ double bf16_score(double dot, float scale,
+                                             double cap) {
+  float s = __fmul_rn(static_cast<float>(dot), scale);
   if (cap > 0.0) s = static_cast<float>(cap * tanh(s / cap));
   return static_cast<double>(s);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
+// One CTA: QT query rows of a (batch row, kv head) against the keys
+// [rank * kps, ...) of the tile, rank being the CTA's rank in a cluster of
+// S (see the file's header). Warp w takes rows (w / WK) * 8 ... + 7 and,
+// of each 64-key stage, the 8-key n-tiles w % WK, w % WK + WK, ...
+template <int DH, int QT, bool QUANT>
+__global__ void __launch_bounds__(BTHREADS, 2)
 attend_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                    const void* __restrict__ kp, const void* __restrict__ vp,
                    const float* __restrict__ ks, const float* __restrict__ vs,
                    const int* __restrict__ bt, const int* __restrict__ ctxs,
                    __nv_bfloat16* __restrict__ out, int W, int H, int Hk,
-                   int bs, int MB, int quant, float scale, double cap,
-                   int tiles) {
-  constexpr int KST = DH + 2, NT = DH / 32;
+                   int bs, int MB, int kps, int tiles, float scale,
+                   double cap) {
+  constexpr int WK = BWARPS * 8 / QT;   // warps along the keys
+  constexpr int NPW = 8 / WK;           // n-tiles a warp takes of a stage
+  constexpr int NG = NPW < 4 ? NPW : 4;  // n-tiles a warp holds at once
+  constexpr int NDT = DH / 8;           // 8-column tiles of the output
+  constexpr int ROW = brow(DH);         // bytes a Q, K or V row
+  constexpr int RAW = QUANT ? DH : DH * 2;  // bytes a pool row
+  constexpr int CPR = RAW / 16;         // 16-byte copies a row
+  constexpr bool OWN_RECV = QT == BQT_DECODE;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(qs + BQT * DH);
-  __nv_bfloat16* Vs = Ks + BKC * KST;
-  float* ps = reinterpret_cast<float*>(Vs + BKC * DH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tile = blockIdx.x % tiles, hk = (blockIdx.x / tiles) % Hk;
-  const int b = blockIdx.x / tiles / Hk, G = H / Hk, row0 = tile * BQT;
-  const int ctx = ctxs[b], active = min(BQT, W * G - row0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // peers write into this CTA's shared memory only once all have started
+  if (S > 1) cluster_arrive();
+  const BLayout L = bf16_layout(QT, DH, QUANT, S);
+  unsigned char* Qs = smem + L.q;
+  double* stat = reinterpret_cast<double*>(smem + L.stat);  // (M, L) a row
+  double* wstat = stat + 2 * QT;                            // WK x QT (m, l)
+  double* mlx = reinterpret_cast<double*>(smem + L.mlx);    // S x QT (m, l)
+  unsigned char* ring = smem + L.ring;
+  double* wpart = reinterpret_cast<double*>(smem + L.wpart);
+  double* recv = reinterpret_cast<double*>(smem + L.recv);
+
+  const Tile tl = locate(blockIdx.x / S, tiles, QT, W, H, Hk, bs, MB, ctxs);
   const int slots = MB * bs;
-  const int tile_keys = min(ctx + (row0 + active - 1) / G + 1, slots);
-  const int* bt_row = bt + (size_t)b * MB;
-  for (int i = threadIdx.x; i < active * DH; i += THREADS) {
-    const int r = row0 + i / DH;
-    qs[i] = __bfloat162float(
-        q[(((size_t)b * W + r / G) * H + hk * G + r % G) * DH + i % DH]);
-  }
-  int lim[BROWS];
-  double m[BROWS], l[BROWS], acc[BROWS][NT];
-#pragma unroll
-  for (int j = 0; j < BROWS; ++j) {
-    const int r = warp + WARPS * j;
-    lim[j] = r < active ? min(ctx + (row0 + r) / G, slots - 1) : -1;
-    m[j] = -INFINITY;
-    l[j] = 0.0;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) acc[j][t] = 0.0;
-  }
-  // pass 1: each row's max and denominator
-  for (int c0 = 0; c0 < tile_keys; c0 += BKC) {
-    const int n = min(BKC, tile_keys - c0);
-    __syncthreads();
-    stage_bf16(Ks, KST, kp, ks, bt_row, c0, n, bs, Hk, hk, DH, quant);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < BROWS; ++j) {
-      if (lim[j] < c0) continue;
-      const float* qr = qs + (warp + WARPS * j) * DH;
-      double sv[2], mx = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kk = lane + 32 * e;
-        sv[e] = -INFINITY;
-        if (kk < n && c0 + kk <= lim[j]) {
-          sv[e] = score_bf16<DH>(qr, Ks + kk * KST, scale, cap);
-          mx = fmax(mx, sv[e]);
+  const int k_lo = rank * kps, k_hi = min(k_lo + kps, tl.tile_keys);
+  const int n_ch = k_lo < k_hi ? (k_hi - k_lo + BKC - 1) / BKC : 0;
+  const bool resident = n_ch <= 2;  // pass 2 reads pass 1's stages again
+  const int n_steps = resident ? n_ch : 2 * n_ch;
+  const int* bt_row = bt + (size_t)tl.b * MB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / WK, wk = warp % WK;
+  // this lane's query row (row g of the warp's 8) and the last key it sees
+  const int i_row = wr * 8 + g;
+  const bool live = i_row < tl.active;
+  const int lim = live ? min(tl.ctx + (tl.row0 + i_row) / tl.G, slots - 1)
+                       : -1;
+  const bool warp_live = wr * 8 < tl.active;
+  const int warp_lim = warp_live
+      ? min(tl.ctx + (tl.row0 + min(wr * 8 + 7, tl.active - 1)) / tl.G,
+            slots - 1)
+      : -1;
+
+  // step s < n_ch stages chunk s for pass 1 (K; V too when resident), step
+  // n_ch + c chunk c again for pass 2 (K and V); keys past k_hi are zeros
+  auto issue = [&](int step) {
+    if (step < n_steps) {
+      const bool pass2 = step >= n_ch;
+      const int k0 = k_lo + (pass2 ? step - n_ch : step) * BKC;
+      const bool with_v = pass2 || resident;
+      unsigned char* Kd = ring + (step & 1) * L.stage + (QUANT ? DH : 0);
+      unsigned char* Vd = Kd + BKC * ROW;
+      for (int idx = tid; idx < BKC * CPR; idx += BTHREADS) {
+        const int j = idx / CPR, c = idx % CPR, key = k0 + j;
+        const bool ok = key < k_hi;
+        size_t at = 0;
+        if (ok) {
+          const size_t slot = (size_t)bt_row[key / bs] * bs + key % bs;
+          at = (slot * Hk + tl.hk) * RAW + c * 16;
+        }
+        rt::cp_async16(Kd + j * ROW + c * 16,
+                       static_cast<const unsigned char*>(kp) + at, ok);
+        if (with_v)
+          rt::cp_async16(Vd + j * ROW + c * 16,
+                         static_cast<const unsigned char*>(vp) + at, ok);
+      }
+      if constexpr (QUANT) {
+        float* ksd = reinterpret_cast<float*>(ring + (step & 1) * L.stage +
+                                              2 * BKC * ROW);
+        for (int j = tid; j < BKC; j += BTHREADS) {
+          const int key = k0 + j;
+          const bool ok = key < k_hi;
+          size_t tok = 0;
+          if (ok)
+            tok = ((size_t)bt_row[key / bs] * bs + key % bs) * Hk + tl.hk;
+          rt::cp_async4(ksd + j, ks + tok, ok);
+          if (with_v) rt::cp_async4(ksd + BKC + j, vs + tok, ok);
         }
       }
-      const double mn = fmax(m[j], warp_max(mx));
+    }
+    rt::cp_async_commit();
+  };
+  // an int8 stage widened in place to bf16(code * bf16(scale)), the
+  // reference's dequantization: a thread takes a row, 16 codes at a time
+  // from the first; chunk c's bf16 values overwrite the codes of chunks
+  // 2c - Dh/16 and 2c - Dh/16 + 1, which it has read already
+  auto widen = [&](unsigned char* base, bool with_v) {
+    const float* scl = reinterpret_cast<const float*>(base + 2 * BKC * ROW);
+    for (int r = tid; r < (with_v ? 2 : 1) * BKC; r += BTHREADS) {
+      unsigned char* row = base + r * ROW;
+      const float sc = bf16_round(scl[r]);
+#pragma unroll 2
+      for (int c = 0; c < DH / 16; ++c) {
+        const int4 raw = *reinterpret_cast<const int4*>(row + DH + c * 16);
+        const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+        __nv_bfloat162 o2[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int w = words[u / 2] >> (16 * (u % 2));
+          o2[u] = __floats2bfloat162_rn(
+              static_cast<float>(static_cast<int8_t>(w)) * sc,
+              static_cast<float>(static_cast<int8_t>(w >> 8)) * sc);
+        }
+        int4* dst = reinterpret_cast<int4*>(row + c * 32);
+        dst[0] = *reinterpret_cast<const int4*>(o2);
+        dst[1] = *reinterpret_cast<const int4*>(o2 + 4);
+      }
+    }
+    __syncthreads();
+  };
+
+  // the Q tile (rows past `active` zeros) joins the first stage's group
+  for (int idx = tid; idx < QT * (DH / 8); idx += BTHREADS) {
+    const int i = idx / (DH / 8), c = idx % (DH / 8), r = tl.row0 + i;
+    const bool ok = i < tl.active;
+    const size_t at =
+        ok ? (((size_t)tl.b * W + r / tl.G) * H + tl.hk * tl.G + r % tl.G) *
+                     DH + c * 8
+           : 0;
+    rt::cp_async16(Qs + i * ROW + c * 16, q + at, ok);
+  }
+  issue(0);
+
+  // the scores of this lane's row against the group's n-tiles `nts` of a
+  // stage whose first key is `kbase` (-inf where the row does not see
+  // the key). The products run over Dh in blocks of 16: lane t's A and B
+  // values are elements 4t ... 4t + 3 of a block, one per k-step, so one
+  // 8-byte load feeds four products; the sum is over all of Dh either way.
+  auto scores = [&](const unsigned char* Kb, int kbase, const int (&nts)[NG],
+                    const bool (&on)[NG], double (&s)[NG][2]) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) s[j][0] = s[j][1] = 0.0;
+    const unsigned char* qrow = Qs + i_row * ROW + 8 * t;
+#pragma unroll 2
+    for (int kb = 0; kb < DH; kb += 16) {
+      double a[4];
+      bf16x4(qrow + 2 * kb, a);
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        if (!on[j]) continue;
+        double b[4];
+        bf16x4(Kb + (nts[j] * 8 + g) * ROW + 2 * kb + 8 * t, b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dmma(s[j], a[e], b[e]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = kbase + nts[j] * 8 + 2 * t + h;
+        s[j][h] = on[j] && key < k_hi && key <= lim
+                      ? bf16_score(s[j][h], scale, cap)
+                      : -INFINITY;
+      }
+  };
+  // the n-tiles of group j0 of a stage, and which of them the warp's rows
+  // see at all (warp-uniform)
+  auto group = [&](int kbase, int j0, int (&nts)[NG], bool (&on)[NG]) {
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      nts[j] = wk + WK * (j0 + j);
+      const int key0 = kbase + nts[j] * 8;
+      on[j] = warp_live && key0 <= warp_lim && key0 < k_hi;
+      any |= on[j];
+    }
+    return any;
+  };
+
+  // ---- pass 1: each row's running max m and denominator l (float64) ----
+  double m = -INFINITY, l = 0.0;
+  for (int step = 0; step < n_ch; ++step) {
+    __syncthreads();  // the stage about to be refilled is consumed
+    issue(step + 1);
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    unsigned char* Kb = ring + (step & 1) * L.stage;
+    if constexpr (QUANT) widen(Kb, resident);
+    const int kbase = k_lo + step * BKC;
+#pragma unroll
+    for (int j0 = 0; j0 < NPW; j0 += NG) {
+      int nts[NG];
+      bool on[NG];
+      if (!group(kbase, j0, nts, on)) continue;
+      double s[NG][2];
+      scores(Kb, kbase, nts, on, s);
+      double mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NG; ++j) mx = fmax(mx, fmax(s[j][0], s[j][1]));
+      mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const double mn = fmax(m, mx);
       double part = 0.0;
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (sv[e] != -INFINITY) part += exp(sv[e] - mn);
-      l[j] = (m[j] == -INFINITY ? 0.0 : l[j] * exp(m[j] - mn)) +
-             warp_sum(part);
-      m[j] = mn;
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (s[j][h] != -INFINITY) part += exp(s[j][h] - mn);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      l = (m == -INFINITY ? 0.0 : l * exp(m - mn)) + part;
+      m = mn;
     }
   }
-  // pass 2: p rounded to bf16, then P.V in float64
-  float* pw = ps + warp * BROWS * BKC;
-  for (int c0 = 0; c0 < tile_keys; c0 += BKC) {
-    const int n = min(BKC, tile_keys - c0);
+
+  // ---- the CTA's (m, l) per row, then the cluster's, in rank order -----
+  if (WK > 1) {
+    if (t == 0) {
+      wstat[2 * (wk * QT + i_row)] = m;
+      wstat[2 * (wk * QT + i_row) + 1] = l;
+    }
     __syncthreads();
-    stage_bf16(Ks, KST, kp, ks, bt_row, c0, n, bs, Hk, hk, DH, quant);
-    stage_bf16(Vs, DH, vp, vs, bt_row, c0, n, bs, Hk, hk, DH, quant);
+    if (tid < QT) {
+      double M = -INFINITY, Lt = 0.0;
+      for (int w = 0; w < WK; ++w) M = fmax(M, wstat[2 * (w * QT + tid)]);
+      for (int w = 0; w < WK; ++w) {
+        const double lw = wstat[2 * (w * QT + tid) + 1];
+        if (lw > 0.0) Lt += lw * exp(wstat[2 * (w * QT + tid)] - M);
+      }
+      stat[2 * tid] = M;
+      stat[2 * tid + 1] = Lt;
+    }
+  } else if (t == 0) {
+    stat[2 * i_row] = m;
+    stat[2 * i_row + 1] = l;
+  }
+  if (S > 1) {
     __syncthreads();
+    cluster_wait();  // every CTA of the cluster has started
+    if (tid < QT)
+      for (int r = 0; r < S; ++r) {
+        double* dst = cluster.map_shared_rank(mlx + 2 * (rank * QT + tid), r);
+        dst[0] = stat[2 * tid];
+        dst[1] = stat[2 * tid + 1];
+      }
+    cluster.sync();  // every rank's (m, l) has arrived
+    if (tid < QT) {
+      double M = -INFINITY, Lt = 0.0;
+      for (int r = 0; r < S; ++r) M = fmax(M, mlx[2 * (r * QT + tid)]);
+      for (int r = 0; r < S; ++r) {
+        const double lr = mlx[2 * (r * QT + tid) + 1];
+        if (lr > 0.0) Lt += lr * exp(mlx[2 * (r * QT + tid)] - M);
+      }
+      stat[2 * tid] = M;
+      stat[2 * tid + 1] = Lt;
+    }
+  }
+  __syncthreads();
+  const double M_row = live ? stat[2 * i_row] : 0.0;
+  const double L_row = live && stat[2 * i_row + 1] > 0.0
+                           ? stat[2 * i_row + 1] : 1.0;
+
+  // ---- pass 2: p = bf16(fp32(exp(s - M) / L)), O += P.V in float64 ----
+  double o[NDT][2];
 #pragma unroll
-    for (int j = 0; j < BROWS; ++j) {
-      if (lim[j] < c0) continue;
-      const float* qr = qs + (warp + WARPS * j) * DH;
+  for (int dn = 0; dn < NDT; ++dn) o[dn][0] = o[dn][1] = 0.0;
+  for (int c = 0; c < n_ch; ++c) {
+    int slot = c;
+    if (!resident) {
+      const int step = n_ch + c;
+      __syncthreads();
+      issue(step + 1);
+      rt::cp_async_wait<1>();
+      __syncthreads();
+      slot = step & 1;
+      if constexpr (QUANT) widen(ring + slot * L.stage, true);
+    }
+    const unsigned char* Kb = ring + slot * L.stage;
+    const unsigned char* Vb = Kb + BKC * ROW;
+    const int kbase = k_lo + c * BKC;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kk = lane + 32 * e;
-        float p = 0.0f;
-        if (kk < n && c0 + kk <= lim[j]) {
-          const double s = score_bf16<DH>(qr, Ks + kk * KST, scale, cap);
-          p = __bfloat162float(__float2bfloat16_rn(
-              static_cast<float>(exp(s - m[j]) / l[j])));
+    for (int j0 = 0; j0 < NPW; j0 += NG) {
+      int nts[NG];
+      bool on[NG];
+      if (!group(kbase, j0, nts, on)) continue;
+      double s[NG][2];
+      scores(Kb, kbase, nts, on, s);
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          s[j][h] = s[j][h] == -INFINITY
+                        ? 0.0
+                        : static_cast<double>(bf16_round(static_cast<float>(
+                              exp(s[j][h] - M_row) / L_row)));
+      // P[g][key0 + t] of a 4-key step sits in lane 4g + (4e + t) / 2
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        if (!on[j]) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int src = 4 * g + 2 * e + (t >> 1);
+          const double p0 = __shfl_sync(0xffffffffu, s[j][0], src);
+          const double p1 = __shfl_sync(0xffffffffu, s[j][1], src);
+          const double a = (t & 1) ? p1 : p0;
+          const __nv_bfloat16* vrow = reinterpret_cast<const __nv_bfloat16*>(
+              Vb + (nts[j] * 8 + 4 * e + t) * ROW);
+#pragma unroll
+          for (int dn = 0; dn < NDT; ++dn)
+            dmma(o[dn], a,
+                 static_cast<double>(__bfloat162float(vrow[dn * 8 + g])));
         }
-        pw[j * BKC + kk] = p;
       }
-      __syncwarp();
-      const int last = min(n, lim[j] - c0 + 1);
-      for (int kk = 0; kk < last; ++kk) {
-        const double p = static_cast<double>(pw[j * BKC + kk]);
-        if (p == 0.0) continue;
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-          acc[j][t] += p * static_cast<double>(
-                               __bfloat162float(Vs[kk * DH + lane + 32 * t]));
-      }
-      __syncwarp();
     }
   }
+
+  // ---- the output: warps' partials in warp order, ranks' in rank order,
+  // rounded once to fp32 and then bf16 ----------------------------------
+  rt::cp_async_wait<0>();
+  __syncthreads();  // no warp reads the ring any more
+  // ... nor any CTA of the cluster, where the shares land in the ring
+  if (S > 1 && !OWN_RECV) cluster.sync();
+  auto out_at = [&](int i, int d) -> __nv_bfloat16* {
+    const int r = tl.row0 + i;
+    return out + (((size_t)tl.b * W + r / tl.G) * H + tl.hk * tl.G +
+                  r % tl.G) * DH + d;
+  };
+  // column d's total of row i, from this CTA: to its owner or the output
+  auto emit = [&](int i, int d, double v) {
+    if (S == 1) {
+      *out_at(i, d) = __float2bfloat16_rn(static_cast<float>(v));
+    } else {
+      const int share = (DH + S - 1) / S;
+      double* dst = recv + (size_t)(rank * QT + i) * share + d / S;
+      *cluster.map_shared_rank(dst, d % S) = v;
+    }
+  };
+  if (WK > 1) {
 #pragma unroll
-  for (int j = 0; j < BROWS; ++j) {
-    const int r = warp + WARPS * j;
-    if (r >= active) continue;
-    const int rr = row0 + r;
-    __nv_bfloat16* o =
-        out + (((size_t)b * W + rr / G) * H + hk * G + rr % G) * DH;
+    for (int dn = 0; dn < NDT; ++dn) {
+      double* wp = wpart + ((size_t)wk * QT + i_row) * DH + dn * 8 + 2 * t;
+      wp[0] = o[dn][0];
+      wp[1] = o[dn][1];
+    }
+    __syncthreads();
+    for (int idx = tid; idx < tl.active * DH; idx += BTHREADS) {
+      const int i = idx / DH, d = idx % DH;
+      double v = 0.0;
+      for (int w = 0; w < WK; ++w) v += wpart[((size_t)w * QT + i) * DH + d];
+      emit(i, d, v);
+    }
+  } else if (live) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t)
-      o[lane + 32 * t] =
-          __float2bfloat16_rn(static_cast<float>(acc[j][t]));
+    for (int dn = 0; dn < NDT; ++dn) {
+      emit(i_row, dn * 8 + 2 * t, o[dn][0]);
+      emit(i_row, dn * 8 + 2 * t + 1, o[dn][1]);
+    }
   }
+  if (S > 1) {
+    cluster.sync();  // every partial of this CTA's columns has arrived
+    const int share = (DH + S - 1) / S;
+    for (int idx = tid; idx < tl.active * share; idx += BTHREADS) {
+      const int i = idx / share, j = idx % share, d = j * S + rank;
+      if (d >= DH) continue;
+      double v = 0.0;
+      for (int r = 0; r < S; ++r) v += recv[(size_t)(r * QT + i) * share + j];
+      *out_at(i, d) = __float2bfloat16_rn(static_cast<float>(v));
+    }
+  }
+  // after the last cluster barrier no CTA touches another's shared memory,
+  // so each may leave on its own
 }
 
-template <int DH>
+template <int DH, int QT, bool QUANT>
 int launch_bf16(const void* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* bt, const int* ctx, void* out,
-                int B, int W, int H, int Hk, int bs, int MB, int quant,
+                int B, int W, int H, int Hk, int bs, int MB, int kps, int S,
                 float scale, double cap, cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes(DH);
-  auto kern = attend_bf16_kernel<DH>;
+  const size_t smem = bf16_layout(QT, DH, QUANT, S).total;
+  auto kern = attend_bf16_kernel<DH, QT, QUANT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = (W * (H / Hk) + BQT - 1) / BQT;
-  kern<<<B * Hk * tiles, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, ks, vs, bt, ctx,
-      static_cast<__nv_bfloat16*>(out), W, H, Hk, bs, MB, quant, scale, cap,
-      tiles);
+  const int tiles = (W * (H / Hk) + QT - 1) / QT;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hk * tiles * S, 1, 1);
+  cfg.blockDim = dim3(BTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern,
+                         static_cast<const __nv_bfloat16*>(q), k, v, ks, vs,
+                         bt, ctx, static_cast<__nv_bfloat16*>(out), W, H, Hk,
+                         bs, MB, kps, tiles, scale, cap);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory of one CTA of the bfloat16 kernel at head dim dh.
-extern "C" long long paged_attention_bf16_smem_bytes(int dh) {
-  return static_cast<long long>(bf16_smem_bytes(dh));
+// Shared memory of one CTA of the bfloat16 kernel: qt query rows (8 or
+// 64), head dim dh, an int8 pool when quant != 0, S CTAs a cluster.
+extern "C" long long paged_attention_bf16_smem_bytes(int qt, int dh,
+                                                     int quant, int S) {
+  return static_cast<long long>(bf16_layout(qt, dh, quant != 0, S).total);
 }
 
 // q (B, W, H, Dh) bf16; k/v (NB, bs, Hk, Dh) bf16, or int8 with ks/vs
 // (NB, bs, Hk, 1) f32 scales when quant != 0; block_table (B, MB) i32;
 // ctx_lens (B,) i32; out (B, W, H, Dh) bf16. Dh in {32, 64, 128, 160};
-// scale is fp32 Dh^-0.5. Returns the launch's CUDA error.
+// qt (query rows a tile) 8 or 64; each tile's keys go to the S <= 8 CTAs
+// of a cluster, kps keys each (S * kps >= MB * bs); scale is fp32
+// Dh^-0.5. Returns the launch's CUDA error.
 extern "C" int paged_attention_bf16_launch(
     const void* q, const void* k, const void* v, const float* ks,
     const float* vs, const int* block_table, const int* ctx_lens, void* out,
-    int B, int W, int H, int Hk, int Dh, int bs, int MB, int quant,
-    double scale, double softcap, void* stream) {
+    int B, int W, int H, int Hk, int Dh, int bs, int MB, int quant, int qt,
+    int kps, int S, double scale, double softcap, void* stream) {
+  if (S < 1 || S > BCLUSTER || kps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale);
-#define PB_CASE(DH)                                                        \
-  if (Dh == DH)                                                            \
-    return launch_bf16<DH>(q, k, v, ks, vs, block_table, ctx_lens, out, B, \
-                           W, H, Hk, bs, MB, quant, sc, softcap, s);
-  PB_CASE(32) PB_CASE(64) PB_CASE(128) PB_CASE(160)
+#define PB_CASE(DH, QT)                                                     \
+  if (Dh == DH && qt == QT)                                                 \
+    return quant ? launch_bf16<DH, QT, true>(q, k, v, ks, vs, block_table,  \
+                                             ctx_lens, out, B, W, H, Hk, bs, \
+                                             MB, kps, S, sc, softcap, s)    \
+                 : launch_bf16<DH, QT, false>(q, k, v, ks, vs, block_table, \
+                                              ctx_lens, out, B, W, H, Hk,   \
+                                              bs, MB, kps, S, sc, softcap,  \
+                                              s);
+  PB_CASE(32, BQT_DECODE) PB_CASE(64, BQT_DECODE)
+  PB_CASE(128, BQT_DECODE) PB_CASE(160, BQT_DECODE)
+  PB_CASE(32, BQT_PREFILL) PB_CASE(64, BQT_PREFILL)
+  PB_CASE(128, BQT_PREFILL) PB_CASE(160, BQT_PREFILL)
 #undef PB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

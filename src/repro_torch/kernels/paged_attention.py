@@ -29,7 +29,11 @@ points (`attend_bf16`): int8 K/V dequantized as code.astype(bf16) *
 scale.astype(bf16), scores rounded to fp32 and scaled in fp32, the
 softmax's p rounded to bfloat16 before the PV product, the output rounded
 to fp32 and then bfloat16. Between those points both versions compute in
-float64. The kernel takes this path for Dh 32, 64, 128 and 160.
+float64. The kernel takes this path for Dh 32, 64, 128 and 160, in two
+passes over the keys (max and denominator, then P.V), both products on
+the FP64 tensor cores, the keys of a tile split over a thread-block
+cluster (`choose_bf16_splits`) whose CTAs combine their partials in rank
+order.
 """
 from __future__ import annotations
 
@@ -47,15 +51,18 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "paged_attention_launch": (_I, (_P,) * 10 + (_I,) * 11 + (_D, _D, _P)),
     "paged_attention_smem_bytes": (ctypes.c_longlong, (_I, _I, _I, _I)),
-    "paged_attention_bf16_launch": (_I, (_P,) * 8 + (_I,) * 8
+    "paged_attention_bf16_launch": (_I, (_P,) * 8 + (_I,) * 11
                                     + (_D, _D, _P)),
-    "paged_attention_bf16_smem_bytes": (ctypes.c_longlong, (_I,)),
+    "paged_attention_bf16_smem_bytes": (ctypes.c_longlong, (_I,) * 4),
 }
 DH_FP32 = (32, 64, 128)          # head dims of the fp32 kernel
 DH_BF16 = (32, 64, 128, 160)     # head dims of the bfloat16 kernel
 QT_DECODE, QT_PREFILL = 16, 64  # query rows per CTA of the two tile kinds
 STAGE_KEYS = 64                 # keys the kernel stages per step
 _WARPS = 4
+BF16_QT_DECODE, BF16_QT_PREFILL = 8, 64  # query rows a bf16 tile
+BF16_CLUSTER = 8                # most key splits (cluster ranks) a bf16 tile
+_BF16_WARPS = 8
 
 
 def smem_bytes(qt: int, dh: int, quant, bs: int) -> int:
@@ -95,6 +102,52 @@ def choose_splits(b: int, hk: int, w: int, g: int, mb: int, bs: int,
     while bps > step and b * hk * tiles * -(-mb // bps) < waves * num_sms:
         bps //= 2
     return qt, bps * bs, max(1, -(-mb // bps))
+
+
+def bf16_smem_bytes(qt: int, dh: int, quant, splits: int) -> int:
+    """Shared memory of one CTA of the bfloat16 kernel, in Python: csrc
+    `paged_attention_bf16_smem_bytes`. The Q tile (bf16 rows of 2 * Dh + 32
+    bytes); each row's (M, L) and, for decode tiles, each warp's (m, l);
+    the (m, l) slots of the cluster's exchange; a decode tile's column
+    shares received from the cluster; then the larger of the two ring
+    stages (64 K and 64 V rows of 2 * Dh + 32 bytes, an int8 pool's two
+    scale planes) and what the region holds after the passes: decode
+    tiles' per-warp P.V partials, prefill tiles' received shares, all
+    float64."""
+    wk = _BF16_WARPS * 8 // qt
+    row = 2 * dh + 32
+    stage = STAGE_KEYS * 2 * row + (STAGE_KEYS * 8 if quant else 0)
+    wpart = wk * qt * dh * 8 if wk > 1 else 0
+    recv = splits * qt * -(-dh // splits) * 8 if splits > 1 else 0
+    own = qt == BF16_QT_DECODE
+    head = (qt * row + qt * 16 * (1 + wk if wk > 1 else 1)
+            + splits * qt * 16 + (recv if own else 0))
+    return head + max(2 * stage, wpart + (0 if own else recv))
+
+
+def choose_bf16_splits(b: int, hk: int, w: int, g: int, mb: int, bs: int,
+                       num_sms: int) -> tuple[int, int, int]:
+    """(qt, kps, splits) of a bfloat16 launch, from the shapes alone (the
+    host never reads ctx_lens, which live on the card).
+
+    qt: query rows per tile, 8 (decode tiles, W*G <= 16) or 64 (prefill
+    tiles). The keys of the longest possible row (MB blocks) are cut into
+    `splits` <= 8 ranges of kps keys, whole 64-key stages, one CTA of a
+    cluster each: the fewest splits that give B x Hk x tiles x splits >=
+    2 x the SM count (decode; four times for prefill tiles, whose lengths
+    differ by up to the span) and, for decode tiles, at most two stages a
+    split, so that pass 2 reads K and V from shared memory."""
+    qt = BF16_QT_DECODE if w * g <= 16 else BF16_QT_PREFILL
+    ctas = b * hk * -(-w * g // qt)
+    chunks = -(-mb * bs // STAGE_KEYS)
+    waves = 2 if qt == BF16_QT_DECODE else 4
+    s = 1
+    while s < min(BF16_CLUSTER, chunks) and (
+            ctas * s < waves * num_sms
+            or (qt == BF16_QT_DECODE and -(-chunks // s) > 2)):
+        s += 1
+    kps = -(-chunks // s) * STAGE_KEYS
+    return qt, kps, -(-mb * bs // kps)
 
 
 def softcap(x, cap: float):
@@ -175,8 +228,8 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     <= ctx_lens[r] + i of row r's block-table view, at every span position
     of every row (the gather oracle's values; how many of them are real
     tokens does not enter). keys_per_split overrides the kernel's key
-    split (`choose_splits`); any positive count is exact, block-aligned
-    or not."""
+    split (`choose_splits`, `choose_bf16_splits`); any positive count is
+    exact, block-aligned or not (a bfloat16 q takes at most 8 splits)."""
     if q.device.type == "cpu":
         return span_attend_gather(q, pool, block_table, ctx_lens,
                                   logit_softcap)
@@ -187,7 +240,8 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     mb = block_table.shape[1]
     quant = "ks" in pool
     if q.dtype == torch.bfloat16:
-        return _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap)
+        return _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap,
+                            keys_per_split)
     if q.dtype != torch.float32:
         raise TypeError(f"paged_attention takes a float32 or bfloat16 q, "
                         f"not {q.dtype}")
@@ -212,10 +266,7 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     qt, kps, splits = choose_splits(b, hk, w, h // hk, mb, bs,
                                     build.sm_count(dev.index or 0))
     if keys_per_split is not None:
-        if keys_per_split < 1:
-            raise ValueError(f"keys_per_split must be >= 1, got "
-                             f"{keys_per_split}")
-        kps, splits = keys_per_split, max(1, -(-mb * bs // keys_per_split))
+        kps, splits = _forced_split(keys_per_split, mb * bs)
     smem = lib.paged_attention_smem_bytes(qt, dh, int(quant), bs)
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged_attention: block size {bs} at Dh {dh} needs "
@@ -239,10 +290,21 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     return out
 
 
-def _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap):
-    """The bfloat16 kernel (csrc `paged_attention_bf16_launch`): one CTA
-    of 16 query rows per (batch row, kv head, tile) takes all of its keys
-    in two passes (see the .cu file)."""
+def _forced_split(keys_per_split: int, slots: int) -> tuple[int, int]:
+    """(kps, splits) of a caller's keys_per_split over `slots` keys."""
+    if keys_per_split < 1:
+        raise ValueError(f"keys_per_split must be >= 1, got "
+                         f"{keys_per_split}")
+    return keys_per_split, max(1, -(-slots // keys_per_split))
+
+
+def _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap,
+                 keys_per_split):
+    """The bfloat16 kernel (csrc `paged_attention_bf16_launch`): one
+    cluster of `splits` CTAs per (batch row, kv head, tile of 8 or 64
+    query rows), each CTA taking kps of the tile's keys through both
+    passes (see the .cu file); the plan is `choose_bf16_splits`'s, or
+    keys_per_split's."""
     b, w, h, dh = q.shape
     nb_, bs, hk, _ = pool["k"].shape
     mb = block_table.shape[1]
@@ -261,11 +323,20 @@ def _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap):
         _check(pool["vs"], "vs", torch.float32, (nb_, bs, hk, 1), dev)
     _check(block_table, "block_table", torch.int32, (b, mb), dev)
     _check(ctx_lens, "ctx_lens", torch.int32, (b,), dev)
+    qt, kps, splits = choose_bf16_splits(b, hk, w, h // hk, mb, bs,
+                                         build.sm_count(dev.index or 0))
+    if keys_per_split is not None:
+        kps, splits = _forced_split(keys_per_split, mb * bs)
+        if splits > BF16_CLUSTER:
+            raise ValueError(f"paged_attention bfloat16 kernel takes at most "
+                             f"{BF16_CLUSTER} key splits, {keys_per_split} "
+                             f"keys a split give {splits}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib = build.load("paged_attention", _SIGNATURES)
-    if lib.paged_attention_bf16_smem_bytes(dh) > SMEM_LIMIT:
+    if lib.paged_attention_bf16_smem_bytes(qt, dh, int(quant),
+                                           splits) > SMEM_LIMIT:
         raise ValueError(f"paged_attention: Dh {dh} does not fit one CTA")
     scale = torch.tensor(dh ** -0.5, dtype=torch.float32).item()
     err = lib.paged_attention_bf16_launch(
@@ -273,8 +344,8 @@ def _launch_bf16(q, pool, block_table, ctx_lens, logit_softcap):
         pool["ks"].data_ptr() if quant else None,
         pool["vs"].data_ptr() if quant else None,
         block_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(), b, w,
-        h, hk, dh, bs, mb, int(quant), scale, float(logit_softcap),
-        build.stream_handle(dev))
+        h, hk, dh, bs, mb, int(quant), qt, kps, splits, scale,
+        float(logit_softcap), build.stream_handle(dev))
     build.check(err, "paged_attention")
     build.LAUNCHES["paged_attention"] += 1
     return out

@@ -1056,17 +1056,27 @@ def _assert_bf16_attention_close(o, ref):
     assert (diff > 0).float().mean().item() <= 1e-4
 
 
-@pytest.mark.parametrize("dh", [128, 160])
+@pytest.mark.parametrize("dh", [32, 64, 128, 160])
 @pytest.mark.parametrize("kv_bits", [16, 8])
-@pytest.mark.parametrize("ctx,ql", [
-    ([37, 0, 5, 100], [1, 0, 1, 1]),       # decode, one idle row
-    ([0, 48, 7, 200], [64, 0, 20, 3]),     # prefill spans, G 4 (W*G 256)
+@pytest.mark.parametrize("ctx,ql,cap,kps", [
+    ([37, 0, 5, 100], [1, 0, 1, 1], 0.0, None),    # decode, one idle row
+    ([0, 48, 7, 200], [64, 0, 20, 3], 0.0, None),  # prefill spans (W*G 256)
+    ([4095, 0, 17, 1000], [1, 0, 1, 1], 0.0, None),  # 4096 keys, 8 splits
+    ([10, 0, 30], [3, 1, 2], 0.0, None),     # W*G 12: two decode tiles
+    ([63, 5, 20], [1, 1, 1], 5.0, None),     # row 0 fills its block table
+    ([48, 0, 7], [16, 3, 9], 5.0, None),     # ... in a prefill tile
+    ([37, 0, 5, 100], [1, 0, 1, 1], 0.0, 40),   # forced splits mid-block
+    ([0, 48, 7, 200], [64, 0, 20, 3], 0.0, 100),
 ])
-def test_paged_attention_bf16_equals_plain(cuda, dh, kv_bits, ctx, ql):
-    """bf16 q over a bf16 pool (kv 16) or int8 codes with fp32 scales,
-    Dh 128 (phi3) and 160 (stablelm), 4 query heads a kv head, every
-    position of every row."""
-    rng = np.random.default_rng(dh + kv_bits + sum(ql))
+def test_paged_attention_bf16_equals_plain(cuda, dh, kv_bits, ctx, ql, cap,
+                                           kps):
+    """bf16 q over a bf16 pool (kv 16) or int8 codes with fp32 scales, Dh
+    32 to 160 (phi3 128, stablelm 160), 4 query heads a kv head, every
+    position of every row: decode tiles split over a cluster, up to 4096
+    keys, two of them a row; prefill tiles; a row whose keys fill its
+    whole block table; softcap; key splits forced mid-block. One launch a
+    call."""
+    rng = np.random.default_rng(dh + kv_bits + sum(ql) + sum(ctx))
     q, pool, table, ctx_a, _ = _pa_case(rng, ctx, ql, kv_bits, g=4, hd=dh)
     q = q.to(torch.bfloat16)
     if kv_bits == 16:
@@ -1074,16 +1084,29 @@ def test_paged_attention_bf16_equals_plain(cuda, dh, kv_bits, ctx, ql):
     pool = {key: v.to(cuda) for key, v in pool.items()}
     tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx_a))
     before = build.LAUNCHES["paged_attention"]
-    o = pa.paged_attention(q.to(cuda), pool, tab, ctx_t)
+    o = pa.paged_attention(q.to(cuda), pool, tab, ctx_t, logit_softcap=cap,
+                           keys_per_split=kps)
     torch.cuda.synchronize()
     assert build.LAUNCHES["paged_attention"] == before + 1
     _assert_bf16_attention_close(
-        o, pa.span_attend_gather(q.to(cuda), pool, tab, ctx_t))
+        o, pa.span_attend_gather(q.to(cuda), pool, tab, ctx_t, cap))
+
+
+def test_paged_attention_bf16_smem_mirror_equals_library(cuda):
+    lib = build.load("paged_attention", pa._SIGNATURES)
+    for qt in (pa.BF16_QT_DECODE, pa.BF16_QT_PREFILL):
+        for dh in pa.DH_BF16:
+            for quant in (0, 1):
+                for splits in range(1, pa.BF16_CLUSTER + 1):
+                    assert pa.bf16_smem_bytes(qt, dh, quant, splits) == \
+                        lib.paged_attention_bf16_smem_bytes(qt, dh, quant,
+                                                            splits)
 
 
 def test_paged_attention_bf16_refuses_what_it_cannot_take(cuda):
-    """A bf16 q over an fp32 pool, and a head dim the kernel lacks, raise
-    on the card: nothing falls back to the plain version."""
+    """A bf16 q over an fp32 pool, a head dim the kernel lacks, and more
+    key splits than a cluster holds raise on the card: nothing falls back
+    to the plain version."""
     rng = np.random.default_rng(0)
     q, pool, table, ctx, _ = _pa_case(rng, [3], [1], 16, hd=64)
     tab, ctx_t = (torch.from_numpy(a).to(cuda) for a in (table, ctx))
@@ -1097,3 +1120,8 @@ def test_paged_attention_bf16_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="Dh"):
         pa.paged_attention(q.to(cuda), {k: v.float() for k, v in
                                         pool.items()}, tab, ctx_t)
+    q, pool, table, ctx, _ = _pa_case(rng, [3], [1], 16, hd=64)
+    pool = {key: v.to(cuda, torch.bfloat16) for key, v in pool.items()}
+    with pytest.raises(ValueError, match="key splits"):
+        pa.paged_attention(q.to(cuda, torch.bfloat16), pool, tab, ctx_t,
+                           keys_per_split=1)

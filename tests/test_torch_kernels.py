@@ -274,6 +274,170 @@ def test_attention_split_choice(b, hk, w, g, mb):
         assert b * hk * splits >= 132
 
 
+@pytest.mark.parametrize("b,hk,w,g,mb", [
+    (8, 10, 1, 4, 32), (8, 8, 1, 4, 32),      # the serving decode step
+    (8, 10, 1, 4, 256), (8, 8, 1, 4, 256),    # ... at 4096 keys
+    (8, 10, 256, 4, 32), (8, 8, 256, 4, 32),  # a W 256 prefill chunk
+    (1, 8, 256, 4, 32), (1, 1, 1, 1, 3), (2, 2, 3, 4, 9), (8, 8, 8, 1, 32)])
+def test_bf16_attention_split_choice(b, hk, w, g, mb):
+    """The bf16 kernel's plan: decode tiles (W*G <= 16) of 8 query rows,
+    prefill tiles of 64; at most 8 splits (a portable cluster) of whole
+    64-key stages that cover the longest row once; the fewest splits that
+    fill the card (two CTAs an SM, four for prefill tiles) and keep a
+    decode split within the two ring stages, so that one more stage a
+    split would break one of those; the serving decode step of phi3 (Hk
+    10) and stablelm (Hk 8) covers the card, and two of its CTAs fit an
+    SM; every head dim's CTA fits the card's limit."""
+    bs, sms = 16, 132
+    qt, kps, splits = tpa.choose_bf16_splits(b, hk, w, g, mb, bs, sms)
+    assert qt == (8 if w * g <= 16 else 64)
+    assert kps % 64 == 0 and 1 <= splits <= tpa.BF16_CLUSTER
+    assert splits * kps >= mb * bs > (splits - 1) * kps
+    tiles = b * hk * -(-w * g // qt)
+    waves = 2 if qt == 8 else 4
+    fewer = -(-mb * bs // (kps + 64))
+    if fewer < splits:
+        assert (tiles * fewer < waves * sms
+                or (qt == 8 and kps + 64 > 128))
+    if (b, w, g, mb) == (8, 1, 4, 32):
+        assert tiles * splits >= sms and kps <= 128
+        for dh, quant in ((128, False), (128, True), (160, False),
+                          (160, True)):
+            smem = tpa.bf16_smem_bytes(qt, dh, quant, splits)
+            assert 2 * (smem + 1024) <= 233472
+    if mb * bs == 4096 and w == 1:
+        assert splits == 8
+    for dh in tpa.DH_BF16:
+        for quant in (False, True):
+            assert tpa.bf16_smem_bytes(qt, dh, quant, splits) <= \
+                build.SMEM_LIMIT
+
+
+def _assert_bf16_close(o, ref, share=1e-4):
+    """The card gate of the bf16 kernel (`_assert_bf16_attention_close`
+    in test_torch_gpu.py): equal bits but for at most `share` of the
+    elements, those within one bf16 ulp of the larger value."""
+    assert o.dtype == ref.dtype == torch.bfloat16
+    a, b = o.float(), ref.float()
+    diff = (a - b).abs()
+    assert bool((diff <= torch.maximum(a.abs(), b.abs()) * 2.0 ** -7).all())
+    assert (diff > 0).float().mean().item() <= share
+
+
+def _bf16_split_mirror(q, pool, table, ctx, cap, kps):
+    """The bf16 kernel's split arithmetic in torch (tests only): the
+    reference's rounding points as `attend_bf16` takes them, then each
+    split of kps keys finds its (m, l) in float64, the splits' are
+    combined in split order (M = max m_j, L = sum of l_j exp(m_j - M)),
+    p = bf16(fp32(exp(s - M) / L)), and the float64 P.V partials of the
+    splits are summed in split order and rounded once."""
+    b, w, h, dh = q.shape
+    _, bs, hk, _ = pool["k"].shape
+    slots = table.shape[1] * bs
+    bt = table.long()
+    f64, bf = torch.float64, torch.bfloat16
+
+    def view(key):
+        x = pool[key][bt].reshape(b, slots, hk, dh).to(bf)
+        if "ks" in pool:
+            x = x * pool[key[0] + "s"][bt].reshape(b, slots, hk, 1).to(bf)
+        return x.to(f64)
+
+    k, v = view("k"), view("v")
+    qg = q.reshape(b, w, hk, h // hk, dh).to(f64)
+    scale = torch.tensor(dh ** -0.5, dtype=torch.float32).item()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    s = (s.to(f64) * scale).float().to(f64)
+    if cap > 0:
+        s = (cap * torch.tanh(s / cap)).float().to(f64)
+    pos = ctx.long()[:, None] + torch.arange(w)[None]
+    seen = torch.arange(slots)[None, None, :] <= pos[:, :, None]
+    s = torch.where(seen[:, None, None], s, torch.full_like(s, -torch.inf))
+    cuts = list(range(0, slots, kps))
+    ms, ls = [], []
+    for c in cuts:
+        part = s[..., c:c + kps]
+        m = part.amax(-1, keepdim=True)
+        e = torch.exp(part - torch.where(m > -torch.inf, m, 0.0))
+        ms.append(m)
+        ls.append(e.sum(-1, keepdim=True))
+    big_m = torch.stack(ms).amax(0)
+    big_l = torch.zeros_like(big_m)
+    for m, lj in zip(ms, ls):
+        big_l = big_l + torch.where(lj > 0, lj * torch.exp(m - big_m), 0.0)
+    p = (torch.exp(s - big_m) / big_l).float().to(bf).to(f64)
+    o = torch.zeros((b, w, hk, h // hk, dh), dtype=f64)
+    for c in cuts:
+        o = o + torch.einsum("bhgqk,bkhd->bqhgd", p[..., c:c + kps],
+                             v[:, c:c + kps])
+    return o.float().to(bf).reshape(b, w, h, dh)
+
+
+def _bf16_attention_case(rng, quant, dh=64, hk=2, g=4, bs=16):
+    """A bf16 span batch: 4 rows with contexts 0 (an idle row with no
+    queries), 21, 50 and 63 (its last span position sees every slot of
+    its table), 5 span positions, over random blocks of a bf16 pool or of
+    int8 codes with fp32 scales."""
+    b, w, mb, nb = 4, 5, 5, 24
+    ctx = np.array([0, 21, 50, 63], np.int32)
+    q = rng.standard_normal((b, w, hk * g, dh)).astype(np.float32)
+    if quant:
+        pool = {"k": rng.integers(-127, 128, (nb, bs, hk, dh), np.int8),
+                "v": rng.integers(-127, 128, (nb, bs, hk, dh), np.int8),
+                "ks": rng.uniform(1e-3, 2e-2, (nb, bs, hk, 1)).astype(
+                    np.float32),
+                "vs": rng.uniform(1e-3, 2e-2, (nb, bs, hk, 1)).astype(
+                    np.float32)}
+    else:
+        pool = {key: rng.standard_normal((nb, bs, hk, dh)).astype(np.float32)
+                for key in ("k", "v")}
+    table = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    tpool = {key: torch.from_numpy(a).to(torch.bfloat16)
+             if a.dtype == np.float32 and key in ("k", "v")
+             else torch.from_numpy(a) for key, a in pool.items()}
+    return tq, tpool, torch.from_numpy(table.astype(np.int32)), \
+        torch.from_numpy(ctx)
+
+
+@pytest.mark.parametrize("cap", [0.0, 5.0])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+def test_bf16_split_mirror_equals_plain(splits, quant, cap):
+    """The kernel's split arithmetic (1 to 8 splits of the 80 slots, split
+    order for m, l and the P.V partials) against `span_attend_gather`, the
+    yardstick the card is held to, under the card's gate."""
+    rng = np.random.default_rng(splits * 10 + quant)
+    q, pool, table, ctx = _bf16_attention_case(rng, quant)
+    kps = -(-table.shape[1] * 16 // splits)
+    got = _bf16_split_mirror(q, pool, table, ctx, cap, kps)
+    _assert_bf16_close(got, tpa.span_attend_gather(q, pool, table, ctx, cap))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_bf16_split_mirror_matches_reference_oracle(quant):
+    """The split arithmetic at 3 splits against the reference's
+    `_span_attend_gather` at bf16, as test_torch_bf16.py holds the plain
+    version: at most 0.1% of elements differ, each by at most 2^-7 of its
+    row's largest value."""
+    rng = np.random.default_rng(7 + quant)
+    q, pool, table, ctx = _bf16_attention_case(rng, quant, dh=160, hk=2,
+                                               g=4)
+    cfg = dataclasses.replace(j_get_config("stablelm-12b", smoke=True),
+                              num_heads=8, num_kv_heads=2, head_dim=160)
+    jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
+    jpool = {key: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+             if v.dtype == torch.bfloat16 else jnp.asarray(v.numpy())
+             for key, v in pool.items()}
+    pos = jnp.asarray(ctx.numpy())[:, None] + jnp.arange(q.shape[1])[None]
+    want = np.asarray(jattn._span_attend_gather(
+        jq, jpool, jnp.asarray(table.numpy()), pos, cfg)).astype(np.float32)
+    got = _bf16_split_mirror(q, pool, table, ctx, 0.0, 27).float().numpy()
+    diff = np.abs(got - want)
+    assert (diff > 0).mean() <= 1e-3
+    assert (diff <= 2.0 ** -7 * np.abs(want).max(-1, keepdims=True)).all()
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("m,k,n,blocks", [(8, 128, 256, (8, 64, 256)),
                                           (24, 192, 512, (8, 64, 256))])

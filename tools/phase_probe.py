@@ -10,7 +10,11 @@ into `build/phase_probe/`, adds `%globaltimer` stamps taken by thread 0
 of every CTA, builds them with nvcc, launches each at the serving path's
 shapes (the L2 cache flushed first), and prints each phase's mean and
 slowest CTA in microseconds beside the launch's CUDA-event time, plus
-ptxas's register and spill lines. It knows two versions of each kernel:
+ptxas's register and spill lines. The bfloat16 attention kernel
+(`paged_attention_bf16`) is probed at chip_smoke.py's bf16 shapes, and
+timed there beside copies of itself with one cost taken out (the
+float64 exp, the DMMAs, the conversions to float64). It knows two
+versions of each of the other kernels:
 the first (one CTA per 64 x 128 output tile, single-buffered; one CTA
 per row block and N tile; one CTA per attention tile) and the second
 (split-K thread-block clusters and a cp.async ring; thread-block
@@ -180,6 +184,101 @@ PA2_PATCHES = [
      "  // ---- this split's result: the output, or a partial for the combine --\n"),
 ]
 
+# The bfloat16 kernel (clusters of key splits, FP64 tensor cores, a
+# cp.async ring): per CTA, the staging (ring waits and barriers at the head
+# of each step, both passes, and an int8 stage's widening to bf16), pass
+# 1's products and online softmax, the exchange
+# of (m, l) (the warps' and, with S > 1, the cluster's through DSMEM and
+# its barrier), pass 2's products, and the output (the warps' partials,
+# the DSMEM pushes, the cluster barriers, the owners' sums and stores).
+PAB_PATCHES = [
+    ("namespace {\n", STAMP),
+    ("  // peers write into this CTA's shared memory only once all have "
+     "started\n  if (S > 1) cluster_arrive();\n",
+     "  const unsigned long long t_in = gt();\n"
+     "  unsigned long long pw = 0, p1 = 0, px = 0, p2 = 0, po = 0, a0, a1;\n"
+     "  if (S > 1) cluster_arrive();\n"),
+    ("  for (int step = 0; step < n_ch; ++step) {\n    __syncthreads();",
+     "  for (int step = 0; step < n_ch; ++step) {\n    a0 = gt();\n"
+     "    __syncthreads();"),
+    ("    if constexpr (QUANT) widen(Kb, resident);\n",
+     "    if constexpr (QUANT) widen(Kb, resident);\n"
+     "    a1 = gt(); pw += a1 - a0; a0 = a1;\n"),
+    ("      m = mn;\n    }\n  }\n",
+     "      m = mn;\n    }\n    p1 += gt() - a0;\n  }\n  a0 = gt();\n"),
+    ("  __syncthreads();\n  const double M_row",
+     "  __syncthreads();\n  px = gt() - a0;\n  const double M_row"),
+    ("  for (int c = 0; c < n_ch; ++c) {\n    int slot = c;\n",
+     "  for (int c = 0; c < n_ch; ++c) {\n    a0 = gt();\n    int slot = c;\n"),
+    ("      if constexpr (QUANT) widen(ring + slot * L.stage, true);\n    }\n",
+     "      if constexpr (QUANT) widen(ring + slot * L.stage, true);\n    }\n"
+     "    a1 = gt(); pw += a1 - a0; a0 = a1;\n"),
+    ("(vrow[dn * 8 + g])));\n        }\n      }\n    }\n  }\n",
+     "(vrow[dn * 8 + g])));\n        }\n      }\n    }\n"
+     "    p2 += gt() - a0;\n  }\n"),
+    ("  rt::cp_async_wait<0>();\n  __syncthreads();  // no warp reads the "
+     "ring any more\n",
+     "  a0 = gt();\n  rt::cp_async_wait<0>();\n"
+     "  __syncthreads();  // no warp reads the ring any more\n"),
+    ("  // so each may leave on its own\n}\n\ntemplate <int DH, int QT, "
+     "bool QUANT>\n",
+     "  // so each may leave on its own\n"
+     "  po = gt() - a0;\n"
+     "  if (threadIdx.x == 0 && blockIdx.x < 8192) {\n"
+     "    const int c = blockIdx.x;\n"
+     "    g_st[8 * c] = pw; g_st[8 * c + 1] = p1; g_st[8 * c + 2] = px;\n"
+     "    g_st[8 * c + 3] = p2; g_st[8 * c + 4] = po;\n"
+     "    g_st[8 * c + 5] = t_in; g_st[8 * c + 6] = gt();\n  }\n"
+     "}\n\ntemplate <int DH, int QT, bool QUANT>\n"),
+]
+
+# Copies of the bfloat16 kernel with one cost taken out, timed beside it
+# (their outputs are wrong): the float64 exp, the DMMAs (each replaced by
+# two DADDs), and the bf16 -> float64 conversions of the fragments and the
+# int8 pool's widening.
+BF16_MARK = "// ------------------------------------------------------------ bfloat16 --"
+BF16_COSTS = {
+    "exp": [("exp(", "(")],
+    "dmma": [("dmma(s[j], a[e], b[e])", "dadd2(s[j], a[e], b[e])"),
+             ("            dmma(o[dn], a,\n", "            dadd2(o[dn], a,\n"),
+             ("__device__ __forceinline__ float bf16_round(",
+              "__device__ __forceinline__ void dadd2(double (&d)[2], double a, "
+              "double b) {\n  d[0] += a;\n  d[1] += b;\n}\n\n"
+              "__device__ __forceinline__ float bf16_round(")],
+    "conversions": [
+        ("static_cast<double>(__uint_as_float(w.x << 16))",
+         "__hiloint2double(w.x << 13, 0)"),
+        ("static_cast<double>(__uint_as_float(w.x & 0xffff0000u))",
+         "__hiloint2double(w.x & 0xffff0000u, 0)"),
+        ("static_cast<double>(__uint_as_float(w.y << 16))",
+         "__hiloint2double(w.y << 13, 0)"),
+        ("static_cast<double>(__uint_as_float(w.y & 0xffff0000u))",
+         "__hiloint2double(w.y & 0xffff0000u, 0)"),
+        ("static_cast<double>(__bfloat162float(vrow[dn * 8 + g]))",
+         "__hiloint2double(reinterpret_cast<const unsigned short*>(vrow)"
+         "[dn * 8 + g] << 13, 0)"),
+        ("if constexpr (QUANT) widen(", "if constexpr (false) widen(")],
+}
+
+
+def bf16_variants(csrc: pathlib.Path) -> list[str]:
+    """Write the cost variants of the bfloat16 kernel (and an untouched
+    copy, "pab_as_is") next to the stamped one; their library names."""
+    text = (csrc / "paged_attention.cu").read_text()
+    cut = text.index(BF16_MARK)
+    names = ["pab_as_is"]
+    (OUT / "pab_as_is.cu").write_text(text)
+    for name, patches in BF16_COSTS.items():
+        body = text[cut:]
+        for old, new in patches:
+            if old not in body:
+                raise SystemExit(f"phase_probe: no '{old}' in the bf16 kernel")
+            body = body.replace(old, new)
+        (OUT / f"pab_no_{name}.cu").write_text(text[:cut] + body)
+        names.append(f"pab_no_{name}")
+    return names
+
+
 # quant_matmul, first version (one CTA per 64 x 128 tile, single-buffered
 # K loop): per CTA, the loads (A and W, waited for), the transposed stores
 # of W (and the barrier), the products and the epilogue. The weight loads
@@ -306,6 +405,8 @@ def build_probes(csrc: pathlib.Path, build, names) -> None:
         log, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"nvcc failed for {n}:\n{log}")
+        if n.startswith("pab_"):        # the bf16 kernel's cost variants
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {n}: {line.strip()}")
@@ -563,13 +664,72 @@ def probe_second(torch, cs, timer, res) -> None:
                    stamps(libs["paged_attention"], ctas, torch), ctas, us)
 
 
+def probe_bf16(torch, cs, timer, res) -> None:
+    """The bfloat16 kernel at phase 2's timed shapes (phi3 and stablelm,
+    decode B 8 and a W 256 prefill, a bf16 and an int8 pool) and at the
+    4096-key decode, through the wrapper with the stamped library; at the
+    timed shapes also the untouched kernel and its cost variants."""
+    from repro_torch.kernels import paged_attention as pa
+
+    from repro_torch.kernels import build
+
+    lib = stamped_lib("paged_attention", "pab", pa)
+    variants = {}
+    for name in ("pab_as_is", *(f"pab_no_{n}" for n in BF16_COSTS)):
+        v = ctypes.CDLL(str(OUT / f"{name}.so"))
+        for fn, (ret, args) in pa._SIGNATURES.items():
+            getattr(v, fn).restype = ret
+            getattr(v, fn).argtypes = list(args)
+        variants[name] = v
+    print("paged_attention bf16, us per CTA, mean [slowest]: staging (ring "
+          "waits, barriers, int8 widening), pass 1, (m, l) exchange, pass 2, "
+          "output")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    cases = [(w, kv, h, hk, dh, None) for kv in (16, 8)
+             for h, hk, dh in cs.BF16_ATTN for w in (1, 256)]
+    cases += [(1, kv, h, hk, dh, cs.BF16_LONG_DECODE) for kv in (16, 8)
+              for h, hk, dh in cs.BF16_ATTN]
+    for w, kv_bits, h, hk, dh, lens in cases:
+        q, pool, table, ctx_t, _, _, _ = cs._span_batch(
+            torch, g, w, kv_bits, h=h, dh=dh, hk=hk, dtype=torch.bfloat16,
+            lens=lens)
+        b = q.shape[0]
+        qt, kps, splits = pa.choose_bf16_splits(b, hk, w, h // hk,
+                                                table.shape[1], 16, 132)
+
+        def call():
+            return pa.paged_attention(q, pool, table, ctx_t)
+
+        us = timer(call) * 1e3
+        lib.probe_clear()
+        timer.flush.zero_()
+        call()
+        torch.cuda.synchronize()
+        ctas = b * hk * -(-w * (h // hk) // qt) * splits
+        key = (f"bf16 W{w} kv{kv_bits} H{h} Dh{dh} keys "
+               f"{table.shape[1] * 16} qt {qt} splits {splits} of {kps}")
+        report(res, key, stamps(lib, ctas, torch, 5), ctas, us, 5)
+        if lens is not None:
+            continue
+        times = {}
+        for name, vlib in variants.items():
+            build._LIBS["paged_attention"] = vlib
+            times[name] = timer(call) * 1e3
+        build._LIBS["paged_attention"] = lib
+        print("    as is / without " + " / ".join(
+            n.removeprefix("pab_no_") for n in list(times)[1:]) + ": "
+            + " / ".join(f"{v:.1f}" for v in times.values()) + " us")
+        res[key]["without_us"] = times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=pathlib.Path, default=ROOT,
                     help="root of a checkout (default: this one)")
     ap.add_argument("--kernels", default="quant_matmul,lowrank_qmm,"
-                    "paged_attention", help="comma-separated kernels to probe "
-                    "(lowrank_qmm and paged_attention go together)")
+                    "paged_attention,paged_attention_bf16",
+                    help="comma-separated kernels to probe (lowrank_qmm and "
+                    "paged_attention go together)")
     args = ap.parse_args()
     import torch
 
@@ -615,6 +775,15 @@ def main() -> int:
         found["lowrank_qmm, paged_attention"] = name
         sos += ["lrmm", "pa"]
         runs.append(lambda timer, res, run=run: run(torch, cs, timer, res))
+    if "paged_attention_bf16" in wanted:
+        if not instrument(csrc / "paged_attention.cu", PAB_PATCHES,
+                          OUT / "pab.cu"):
+            print(f"phase_probe: {csrc} holds no known bf16 paged_attention",
+                  file=sys.stderr)
+            return 1
+        found["paged_attention_bf16"] = "cluster"
+        sos += ["pab", *bf16_variants(csrc)]
+        runs.append(lambda timer, res: probe_bf16(torch, cs, timer, res))
     print("phase_probe: " + "; ".join(f"{k}: {v} version"
                                       for k, v in found.items())
           + f", from {csrc}")
