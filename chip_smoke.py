@@ -33,7 +33,10 @@ fails:
    layer timed through `ops` (the activations' quantization included; a
    low-rank layer on the cascade and on the single engine); the single
    engine, `ops.lrmm(fused=False)`, must give the plain version's bits
-   too.
+   too; lowrank_qmm past R 1024 (R 1056, 4096, 4128 -- the smallest on
+   the grouped path, T through device memory -- 9216, and an E 8 stack at
+   R 1280) at M 8 and 2048 with an fp32 and a bf16 Y, bit-equal and
+   timed, and the bf16 and gemma2 phases' served ranks with an fp32 Y.
    Every later path checks that each of its lowrank_qmm launches took a
    code path (tile rows, K, R, N, packing) that this phase compared;
 3. engine: opus-mt at full width, compressed by the port with a mixed plan
@@ -147,22 +150,36 @@ fails:
    and sampled and for a 4 x 29 generate, under both plans;
 6. bf16: the bfloat16 model dtype. phi3-medium-14b at its published
    widths (d_model 5120, 40 heads of 128 over 10 KV heads, SwiGLU d_ff
-   17920, RMSNorm, RoPE, vocab 100,352), bfloat16, 4 of its 40 layers,
+   17920, RMSNorm, RoPE, vocab 100,352), bfloat16, 2 of its 40 layers,
    seed-0 random weights, compressed on the card under the mixed plan at
-   rank fraction 0.2 (ITERA W4A8, R 1024 and 256, at 4 power iterations
-   a rank-1 step; W8A8 lm head) and quant-only W4A8; 8 requests of
-   32-256 prompt tokens, 16 new, served captured (greedy with a bf16 and
-   an int8 pool; the mixed plan also sampled) and eagerly: every step
-   launches exactly 28 lowrank_qmm + 1 quant_matmul + 4 paged_attention
-   (mixed) or 29 quant_matmul + 4 paged_attention (quant-only), the
-   linears writing bf16 from their epilogues; captured == eager tokens;
+   the reference's default rank fraction 0.5 (ITERA W4A8, R 2560 and 640,
+   at 4 power iterations a rank-1 step; W8A8 lm head) and quant-only
+   W4A8; 8 requests of 32-256 prompt tokens, 16 new, served captured
+   (greedy with a bf16 and an int8 pool; the mixed plan also sampled) and
+   eagerly: every step launches exactly 14 lowrank_qmm + 1 quant_matmul +
+   2 paged_attention (mixed) or 15 quant_matmul + 2 paged_attention
+   (quant-only), the linears writing bf16 from their epilogues; captured
+   == eager tokens;
    a profile of each phi3 serve; then stablelm-12b (32 heads of 160 over 8, LayerNorm, 25% rotary),
    bfloat16, 2 of 40 layers, quant-only, greedy at both pools; card ==
    CPU for 4 short requests on every one of those paths. Phase 2
    compares these models' launch shapes first: both integer kernels
    with a bf16 output at every row count a step takes (bit-equal), and
    bf16 attention at Dh 128 and 160 over a bf16 and an int8 pool
-   (within one bf16 ulp on at most 1e-4 of the outputs).
+   (within one bf16 ulp on at most 1e-4 of the outputs);
+7. gemma2: gemma2-9b at its published widths (d_model 3584, 16 heads of
+   256 over 8 KV heads, GeGLU d_ff 14336, vocab 256,000, tied embeddings,
+   soft caps 50 / 30), bfloat16, 2 of its 42 layers -- one local/global
+   pair, the local layer's window 4096 -- seed-0 random weights,
+   compressed on the card under ITERA W4A8 r0.5 (R 1792 and 1024) and
+   quant-only W4A8, the tied head a dense bf16 product; `generate` of 8 x
+   128 prompts, 16 new tokens, captured and eagerly (the mixed plan also
+   sampled), launches exactly 14 of the plan's kernel a pass, captured ==
+   eager tokens, prefill and decode times; card == CPU on 4 x 32 prompts,
+   8 new, under both plans; and a 4,100-token prompt with 24 new tokens
+   (the prefill's window mask and the rolling local cache's wrap) held to
+   the card's own teacher-forced `forward`: its argmax at every position
+   but where its top two logits lie within 0.1 (at most one).
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -828,12 +845,17 @@ def check_paged_attention(torch, timer, failures):
 
 # bfloat16 models in the bf16 phase: phi3-medium-14b (d_model 5120, 40
 # heads of 128 over 10 KV heads, d_ff 17920) under the mixed plan (ITERA
-# W4A8 at rank fraction 0.2: R 1024 for the 5120-wide factors, R 256 for
-# wk and wv) and under quant-only W4A8, and stablelm-12b (32 heads of 160
-# over 8, d_ff 13824) under quant-only; both with the W8A8 lm head, K
-# 5120 -> N 100,352. A serve step's linears take 8 x W rows, W a power of
-# two up to the 256-token chunk.
-BF16_RANK_FRACTION = 0.2
+# W4A8 at the reference's default rank fraction 0.5: R 2560 for the
+# 5120-wide factors, R 640 for wk and wv) and under quant-only W4A8, and
+# stablelm-12b (32 heads of 160 over 8, d_ff 13824) under quant-only;
+# both with the W8A8 lm head, K 5120 -> N 100,352. A serve step's linears
+# take 8 x W rows, W a power of two up to the 256-token chunk. The gemma2
+# phase's gemma2-9b (d_model 3584, 16 heads of 256 over 8, d_ff 14336)
+# under ITERA W4A8 r0.5 (R 1792, and 1024 for wk and wv) and quant-only
+# W4A8, its tied head a dense bf16 product; its generate takes 1-8 rows a
+# decode step and up to 4,123 in a prefill or forward (the row counts
+# above cover each launch's tile rows).
+BF16_RANK_FRACTION = 0.5
 BF16_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 BF16_TIMED_ROWS = (8, 2048)       # of those, the rows phase 2 also times
 BF16_ATTN = ((40, 10, 128), (32, 8, 160))     # (H, Hk, Dh) of each model
@@ -846,25 +868,36 @@ BF16_FORCED_SPLITS = ((1, 100), (256, 200))   # (W, keys_per_split)
 
 
 def bf16_geometry():
-    """The bf16 phase's linears: {(K, N): (wl, packed)} of quant_matmul (the
-    quant-only plans' layer linears and the W8 lm head) and {(K, R, N)}
-    of lowrank_qmm (the mixed plan's), from the two configs."""
+    """The bf16 and gemma2 phases' linears: {(K, N): (wl, packed)} of
+    quant_matmul (the quant-only plans' layer linears and the W8 lm heads)
+    and {(K, R, N)} of lowrank_qmm (the mixed plans'), from the three
+    configs."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant import packs
 
     qmm, lrmm = {}, set()
-    for arch in ("phi3-medium-14b", "stablelm-12b"):
+    for arch in ("phi3-medium-14b", "stablelm-12b", "gemma2-9b"):
         c = get_config(arch)
         d, f = c.d_model, c.d_ff
-        kv = c.num_kv_heads * c.head_dim
-        for k, n in ((d, c.num_heads * c.head_dim), (d, kv), (d, f),
-                     (f, d)):
+        q, kv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+        shapes = ((d, q), (d, kv), (q, d), (d, f), (f, d))
+        for k, n in shapes:
             qmm[k, n] = (4, packs(4, n))
-        qmm[d, c.vocab_size] = (8, False)               # the W8 lm head
-        if arch == "phi3-medium-14b":
-            for k, n in ((d, d), (d, kv), (d, f), (f, d)):
-                lrmm.add((k, int(min(k, n) * BF16_RANK_FRACTION), n))
+        if not c.tie_embeddings:
+            qmm[d, c.vocab_size] = (8, False)           # the W8 lm head
+        if arch != "stablelm-12b":
+            fraction = (BF16_RANK_FRACTION if arch == "phi3-medium-14b"
+                        else GEMMA2_RANK_FRACTION)
+            for k, n in shapes:
+                lrmm.add((k, int(min(k, n) * fraction), n))
     return qmm, sorted(lrmm)
+
+
+def graph_us(torch, m, fn) -> str:
+    """`graph_ms` of a decode launch (8 rows) in us, as printed; at prefill
+    rows, where a launch's own time dwarfs its overhead, "-" (replaying a
+    multi-ms launch 1,400 times would cost a minute of the script)."""
+    return f"{graph_ms(torch, fn) * 1e3:.2f}" if m == 8 else "-"
 
 
 def _ulp_share(torch, o, ref):
@@ -938,10 +971,10 @@ def check_bf16_kernels(torch, timer, failures):
             node = QuantizedTensor(wq, sw, wl, 0, packed=packed)
             b_ms, b_by = bound(qmm_hbm_bytes(m, node, out_bytes=2),
                                2 * m * k * n, PEAK_OPS_INT8)
-            t_g = graph_ms(torch, lambda: quant_matmul(*args, **kw))
             print(f"    {m:5d} {k:5d} {n:6d} {packed!s:5} | {t_k:.4f} "
                   f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
-                  f"{b_ms * 1e3:.4f} ({b_by}) | {t_g * 1e3:.2f}")
+                  f"{b_ms * 1e3:.4f} ({b_by}) | "
+                  + graph_us(torch, m, lambda: quant_matmul(*args, **kw)))
             rows["quant_matmul"].append(dict(m=m, k=k, n=n, ms=t_k,
                                              plain_ms=t_p))
     print("  bf16 lowrank_qmm: M K R N | kernel_ms plain_ms library_ms "
@@ -987,10 +1020,10 @@ def check_bf16_kernels(torch, timer, failures):
                             QuantizedTensor(w2, s2, 4, 1, packed=w2p))
             b_ms, b_by = bound(lrmm_hbm_bytes(m, node, out_bytes=2),
                                2 * m * r * (k + n), PEAK_OPS_INT8)
-            t_g = graph_ms(torch, lambda: lowrank_qmm(*args, **kw))
             print(f"    {m:5d} {k:5d} {r:4d} {n:5d} | {t_k:.4f} {t_p:.4f} "
                   f"{t_l if t_l is None else round(t_l, 4)} "
-                  f"{b_ms * 1e3:.4f} ({b_by}) | {t_g * 1e3:.2f}")
+                  f"{b_ms * 1e3:.4f} ({b_by}) | "
+                  + graph_us(torch, m, lambda: lowrank_qmm(*args, **kw)))
             rows["lowrank_qmm"].append(dict(m=m, k=k, r=r, n=n, ms=t_k,
                                             plain_ms=t_p))
     print("  bf16 paged_attention: W kv_bits H Hk Dh | kernel_ms plain_ms "
@@ -1072,6 +1105,98 @@ def check_bf16_kernels(torch, timer, failures):
                        ("paged_attention", ("w", "kv_bits", "dh"))):
         slower_than_plain(f"bf16 {name}", rows[name], keys)
     return dict(worst)
+
+
+# lowrank_qmm's ranks past the served ones, (K, R, N, E): wide slices
+# with a partial last one (R 1056), the widest slice (R 4096), the
+# smallest rank on the grouped path (R 4128, T through device memory),
+# a grouped rank of 72 slices (R 9216), and an expert stack past 1024
+LARGE_RANKS = ((2048, 1056, 2048, 1), (4096, 4096, 4096, 1),
+               (4096, 4128, 4096, 1), (9216, 9216, 9216, 1),
+               (2048, 1280, 2048, 8))
+LARGE_ROWS = (8, 2048)
+
+
+def check_large_ranks(torch, timer, failures):
+    """lowrank_qmm at LARGE_RANKS, W4 packed where the rule packs, M 8 and
+    2048 rows (each expert's), an fp32 and a bf16 Y: bit-equal to the
+    plain version, and timed (bf16 Y) beside the bound, the plain version
+    and the `_int_mm` chain (one matrix). Also compares the bf16 phase's
+    and the gemma2 phase's served ranks with an fp32 Y at those rows (the
+    bf16 Y is compared in `check_bf16_kernels`). Returns the worst max
+    abs error."""
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import QuantizedTensor, pack_int4, packable
+    from repro_torch.hw.h100_model import NUM_SMS, PEAK_OPS_INT8
+    from repro_torch.kernels import lowrank_qmm as lr
+    from repro_torch.kernels.ops import lrmm_hbm_bytes, quantize_acts
+    from repro_torch.kernels.ref import requant_rows
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    worst, rows = 0.0, []
+    _, served = bf16_geometry()
+    shapes = [(k, r, n, e, True) for k, r, n, e in LARGE_RANKS] + [
+        (k, r, n, 1, False) for k, r, n in served]
+    print("  lowrank_qmm past R 1024: M K R N E path | kernel_ms plain_ms "
+          "library_ms bound_us (bound by)")
+    for k, r, n, e, timed in shapes:
+        lead = (e,) if e > 1 else ()
+        w1c = torch.randint(-7, 8, (*lead, k, r), generator=g,
+                            device="cuda", dtype=torch.int8)
+        w2c = torch.randint(-7, 8, (*lead, r, n), generator=g,
+                            device="cuda", dtype=torch.int8)
+        w1p = packable(QuantizedTensor(w1c, None, 4, 0))
+        w2p = packable(QuantizedTensor(w2c, None, 4, 1))
+        w1 = pack_int4(w1c) if w1p else w1c
+        w2 = pack_int4(w2c) if w2p else w2c
+        s1 = torch.rand((*lead, 1, r), generator=g, device="cuda") * 0.1
+        s2 = torch.rand((*lead, r, 1), generator=g, device="cuda") * 0.1
+        for m in LARGE_ROWS:
+            x = torch.randn((*lead, m, k), generator=g, device="cuda")
+            xq, sx = quantize_acts(x, 127)
+            args = (xq, sx, w1, s1, w2, s2)
+            path = lr.choose_tiles(m, r, n, NUM_SMS, lr.smem_bytes, e).path
+            dtypes = ((torch.float32, torch.bfloat16) if timed
+                      else (torch.float32,))
+            for dt in dtypes:
+                kw = dict(w1_packed=w1p, w2_packed=w2p, act_qmax=127,
+                          out_dtype=dt)
+                y = lr.lowrank_qmm(*args, **kw)
+                ref = lr.lowrank_qmm_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = float((y.float() - ref.float()).abs().max())
+                worst = max(worst, err)
+                same = (torch.equal(y.view(torch.int16),
+                                    ref.view(torch.int16))
+                        if dt == torch.bfloat16 else torch.equal(y, ref))
+                check(failures, same,
+                      f"lowrank_qmm M={m} K={k} R={r} N={n} E={e} ({path}, "
+                      f"{dt}) differs from plain (max abs {err})")
+            if not timed:
+                continue
+
+            def chain():
+                t = int_mm(torch, xq, w1c).float() * sx * s1 * \
+                    s2.reshape(1, -1)
+                tq, st = requant_rows(t, 127)
+                return (int_mm(torch, tq, w2c).float() * st).to(
+                    torch.bfloat16)
+
+            t_k = timer(lambda: lr.lowrank_qmm(*args, **kw))
+            t_p = timer(lambda: lr.lowrank_qmm_plain(*args, **kw))
+            t_l = library_ms(timer, chain) if e == 1 else None
+            node = LowRankQ(QuantizedTensor(w1, s1, 4, 0, packed=w1p),
+                            QuantizedTensor(w2, s2, 4, 1, packed=w2p))
+            b_ms, b_by = bound(lrmm_hbm_bytes(m, node, out_bytes=2),
+                               2 * e * m * r * (k + n), PEAK_OPS_INT8)
+            print(f"    {m:5d} {k:5d} {r:5d} {n:5d} {e} {path} | "
+                  f"{t_k:.4f} {t_p:.4f} "
+                  f"{t_l if t_l is None else round(t_l, 4)} "
+                  f"{b_ms * 1e3:.4f} ({b_by})")
+            rows.append(dict(m=m, k=k, r=r, n=n, e=e, ms=t_k,
+                             plain_ms=t_p))
+    slower_than_plain("lowrank_qmm", rows, ("m", "k", "r", "n", "e"))
+    return worst
 
 
 # ------------------------------------------------------- phases 3 and 4 --
@@ -2195,7 +2320,7 @@ def launch_counts():
             dict(build.LAUNCH_RANKS))
 
 
-GRAPH_ROUNDS = 3         # interleaved eager / captured timing rounds
+GRAPH_ROUNDS = 2         # interleaved eager / captured timing rounds
 
 
 def graphs_phase(torch, cfg, engines, reqs, failures):
@@ -3012,7 +3137,7 @@ def moe_phase(torch, failures):
 
 
 # ----------------------------------------------------------- bf16 phase --
-BF16_DEPTH = 4           # of phi3-medium-14b's 40 layers
+BF16_DEPTH = 2           # of phi3-medium-14b's 40 layers
 BF16_STABLELM_DEPTH = 2  # of stablelm-12b's 40
 # ITERA's power iterations a rank-1 step in the bf16 phase (the plans'
 # default is 24), for the phase's time, as the moe phase's
@@ -3020,9 +3145,10 @@ BF16_POWER_ITERS = 4
 
 
 def bf16_mixed_plan(params):
-    """The bf16 phase's mixed plan: ITERA W4A8 at rank fraction 0.2 for
-    every attention and MLP linear (R 1024 at phi3's 5120-wide factors,
-    within `lowrank_qmm`'s 1024) and the W8A8 lm head."""
+    """The bf16 phase's mixed plan: ITERA W4A8 at the reference's default
+    rank fraction 0.5 for every attention and MLP linear (R 2560 at
+    phi3's 5120-wide factors, wide rank slices with T on chip) and the
+    W8A8 lm head."""
     from repro_torch.api.plan import CompressionPlan, LayerPlan
 
     base = CompressionPlan.uniform(params, method="itera", weight_wl=4,
@@ -3081,9 +3207,9 @@ def bf16_serves(torch, name, per_step, reqs, runs, failures, launches):
 
 
 def bf16_phase(torch, failures):
-    """phi3-medium-14b at its published widths in bfloat16, 4 of its 40
+    """phi3-medium-14b at its published widths in bfloat16, 2 of its 40
     layers, seed-0 random weights, compressed on the card under the mixed
-    plan (ITERA W4A8 r0.2, W8A8 lm head) and quant-only W4A8; served
+    plan (ITERA W4A8 r0.5, W8A8 lm head) and quant-only W4A8; served
     captured (greedy with a bf16 and an int8 pool, seeded sampled) and
     eagerly, launches exact a step; stablelm-12b (Dh 160, LayerNorm,
     partial rotary), 2 of 40 layers, quant-only, greedy at both pools;
@@ -3191,6 +3317,191 @@ def bf16_phase(torch, failures):
     return dict(launches)
 
 
+# --------------------------------------------------------- gemma2 phase --
+GEMMA2_DEPTH = 2         # of gemma2-9b's 42 layers: one local/global pair
+GEMMA2_RANK_FRACTION = 0.5
+GEMMA2_TIMED = (8, 128, 16)      # prompts x tokens, new tokens
+GEMMA2_SHORT = (4, 32, 8)        # the card == CPU generate
+# one prompt past the local window (4096) and the tokens generated after
+# it: the prefill's window mask and the rolling local cache's wrap at
+# published widths
+GEMMA2_LONG = (4100, 24)
+GEMMA2_MARGIN = 0.1      # top-two logits this close may flip (C2's rule)
+
+
+def gemma2_plans(params):
+    """gemma2's two plans: ITERA W4A8 at rank fraction 0.5 (R 1792 and,
+    for wk and wv, 1024) and quant-only W4A8, every attention and MLP
+    linear; the tied head stays the dense bf16 product."""
+    from repro_torch.api.plan import CompressionPlan
+
+    itera = CompressionPlan.uniform(params, method="itera", weight_wl=4,
+                                    rank_fraction=GEMMA2_RANK_FRACTION,
+                                    exclude=EXCLUDE,
+                                    power_iters=BF16_POWER_ITERS)
+    quant = CompressionPlan.uniform(params, method="quant", weight_wl=4,
+                                    exclude=EXCLUDE)
+    return {"mixed": itera.replace(label="itera_W4A8_r0.5"),
+            "quant-only": quant.replace(label="quant_W4A8")}
+
+
+def gemma2_window_check(torch, eng, failures) -> None:
+    """One prompt of GEMMA2_LONG[0] tokens (past the 4096-token local
+    window) generated GEMMA2_LONG[1] tokens on the card, checked against
+    the card's own `forward` over prompt + generated tokens, teacher
+    forced: each token is that forward's argmax at its position, except
+    where forward's top two logits lie within GEMMA2_MARGIN (at most
+    one such position)."""
+    import numpy as np
+
+    from repro_torch.api.engine import SamplingParams
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tfm
+
+    s, n = GEMMA2_LONG
+    cfg = eng.cfg
+    prompt = np.random.default_rng(41).integers(1, cfg.vocab_size, (1, s))
+    prompt = prompt.astype(np.int32)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, SamplingParams(max_tokens=n)).tokens[0]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check_compared(failures, "gemma2 window-crossing generate")
+    seq = np.concatenate([prompt[0], out[:-1]])
+    with torch.inference_mode():
+        h, _ = tfm.forward(eng._step_params,
+                           torch.from_numpy(seq[None]).cuda(), cfg)
+        logits = tfm.logits_for(eng._step_params, h[:, s - 1:], cfg)[0]
+    torch.cuda.synchronize()
+    check_compared(failures, "gemma2 window-crossing forward")
+    top = torch.topk(logits.float(), 2, dim=-1)
+    want = top.indices[:, 0].cpu().numpy()
+    margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+    differ = np.flatnonzero(want != out)
+    close = bool((margin[differ] < GEMMA2_MARGIN).all())
+    print(f"[gemma2] window-crossing: {s}-token prompt (local window "
+          f"{cfg.local_window}), {n} new tokens in {gen_s:.2f} s; "
+          f"teacher-forced forward over {s + n - 1} tokens: {len(differ)} "
+          f"of {n} positions differ (at margins "
+          f"{[round(float(x), 4) for x in margin[differ]]}); smallest "
+          f"margin {float(margin.min()):.4f}")
+    check(failures, len(differ) <= 1 and close,
+          f"gemma2 window-crossing: {len(differ)} generated tokens differ "
+          f"from the teacher-forced forward's argmax (margins "
+          f"{margin[differ].tolist()})")
+
+
+def gemma2_phase(torch, failures):
+    """gemma2-9b at its published widths (d_model 3584, 16 heads of 256
+    over 8 KV heads, GeGLU d_ff 14336, vocab 256,000, tied embeddings,
+    soft caps 50 and 30), bfloat16, 2 of its 42 layers (one local/global
+    pair, local window 4096), seed-0 random weights, compressed on the
+    card under ITERA W4A8 r0.5 (R 1792 / 1024) and quant-only W4A8; each
+    plan's `generate` of 8 x 128 prompts, 16 new tokens, greedy captured
+    and eager (the mixed plan also sampled): launches exactly 14 of the
+    plan's kernel a pass, captured == eager tokens; prefill ms, decode ms
+    a step and tok/s; card == CPU on 4 x 32 prompts, 8 new, under both
+    plans; the mixed plan's window-crossing run. Returns the phase's
+    launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        params_to)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    launches: collections.Counter = collections.Counter()
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              num_layers=GEMMA2_DEPTH)
+    print(f"[gemma2] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.head_dim} over {cfg.num_kv_heads} KV heads, d_ff "
+          f"{cfg.d_ff} {cfg.mlp_act}, vocab {cfg.vocab_size} tied, local "
+          f"window {cfg.local_window} on even layers, soft caps "
+          f"{cfg.logit_softcap} / {cfg.final_softcap}; depth {GEMMA2_DEPTH} "
+          f"of 42, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B parameters; "
+          f"{card_line()}")
+    params = init_params(cfg, seed=0, device="cuda")
+    engines = {}
+    for name, plan in gemma2_plans(params).items():
+        t0 = time.perf_counter()
+        eng = InferenceEngine.build(cfg, plan, params=params, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[gemma2] {name} ({eng.plan.label}): compressed on the card "
+              f"in {time.perf_counter() - t0:.1f} s; weights "
+              f"{eng.weight_hbm_bytes() / 2**20:.1f} MiB; "
+              f"{eng.report.summary()}")
+        engines[name] = eng
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(43)
+    b, s, n = GEMMA2_TIMED
+    prompts = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+    sb, ss, sn = GEMMA2_SHORT
+    short = rng.integers(1, cfg.vocab_size, (sb, ss)).astype(np.int32)
+    sp = SamplingParams(max_tokens=n)
+    one = SamplingParams(max_tokens=1)
+    sampled = SamplingParams(max_tokens=n, temperature=0.8, top_k=50,
+                             top_p=0.9, seed=7)
+    for name, eng in engines.items():
+        kernel = "lowrank_qmm" if name == "mixed" else "quant_matmul"
+        per_pass = {kernel: 7 * cfg.num_layers}
+        eager = InferenceEngine(cfg, eng.params, device=eng.device,
+                                plan=eng.plan, cuda_graphs=False)
+        runs = [("greedy captured", eng, sp), ("greedy eager", eager, sp)]
+        if name == "mixed":
+            runs.append(("sampled captured", eng, sampled))
+        for _, e, p in runs:                # warm-up: capture every shape
+            e.generate(prompts, p)
+            e.generate(prompts, one)
+        torch.cuda.synchronize()
+        toks = {}
+        for label, e, p in runs:
+            pre = e.generate(prompts, one)
+            build.reset_launches()
+            res = e.generate(prompts, p)
+            torch.cuda.synchronize()
+            counts = dict(build.LAUNCHES)
+            launches.update(counts)
+            check_compared(failures, f"gemma2 {name} {label}")
+            want = {k: v * n for k, v in per_pass.items()}
+            check(failures, counts == want,
+                  f"gemma2 {name} {label}: launches {counts}, expected "
+                  f"{per_pass} a pass x {n}")
+            out = np.asarray(res.tokens)
+            check(failures, out.shape == (b, n) and bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()),
+                f"gemma2 {name} {label}: tokens {out.shape} out of range")
+            toks[label] = out
+            print(f"[gemma2] {name} {label}: generate {b} x {s} prompts, "
+                  f"{n} tokens: {res.seconds * 1e3:.1f} ms, prefill "
+                  f"{pre.seconds * 1e3:.1f} ms, decode "
+                  f"{(res.seconds - pre.seconds) * 1e3 / (n - 1):.2f} ms a "
+                  f"step, {res.tokens_per_second:.1f} tok/s; launches "
+                  f"{counts}")
+        check(failures, np.array_equal(toks["greedy captured"],
+                                       toks["greedy eager"]),
+              f"gemma2 {name}: captured and eager generate tokens differ")
+        profile_run(torch, lambda: (eng.generate(prompts, sp), n)[1],
+                    f"gemma2 {name} generate")
+        if name == "mixed":
+            gemma2_window_check(torch, eng, failures)
+        t0 = time.perf_counter()
+        cpu = InferenceEngine(cfg, params_to(eng.params, "cpu"),
+                              device=torch.device("cpu"), plan=eng.plan)
+        generate_parity(torch, f"gemma2 {name}", eng, cpu, short,
+                        SamplingParams(max_tokens=sn), failures)
+        print(f"[gemma2] {name}: CPU parity in {time.perf_counter() - t0:.1f}"
+              f" s")
+        del cpu, eager, runs
+    engines.clear()
+    torch.cuda.empty_cache()
+    print(f"[gemma2] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
+
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
     """`prompts` (equal lengths) generated on the card and on the CPU: the
     tokens must be identical; every card lowrank_qmm launch on a code path
@@ -3287,6 +3598,9 @@ def main() -> int:
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
     for name, err in check_bf16_kernels(torch, timer, failures).items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
+    kern["lowrank_qmm"]["max_abs_err"] = max(
+        kern["lowrank_qmm"]["max_abs_err"],
+        check_large_ranks(torch, timer, failures))
     COMPARED.update(key[1:] for key in build.LAUNCH_SHAPES
                     if key[0] == "lowrank_qmm")
     end_phase("kernels", failures)
@@ -3443,6 +3757,12 @@ def main() -> int:
     for name, n in bf16_phase(torch, failures).items():
         launches[name] += n
     end_phase("bf16", failures)
+
+    # ---- gemma2-9b's local/global layers -------------------------------------
+    failures = []
+    for name, n in gemma2_phase(torch, failures).items():
+        launches[name] += n
+    end_phase("gemma2", failures)
     return finish(torch, kern, launches)
 
 

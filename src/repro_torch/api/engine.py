@@ -494,8 +494,9 @@ class InferenceEngine:
             if n > 1:
                 step = self._decoder(toks.shape[0], padded + n, sampled)
                 ins = step.inputs
-                for name, leaf in cache["kv"].items():
-                    ins["cache"]["kv"][name].copy_(leaf)
+                for group, leaves in cache.items():   # "kv", or paired
+                    for name, leaf in leaves.items():   # "local", "global"
+                        ins["cache"][group][name].copy_(leaf)
                 ins["tok"].copy_(tok)
                 ins["pos"].fill_(s)
                 ins["counter"].fill_(1)
@@ -527,9 +528,10 @@ class InferenceEngine:
         """The decode step graph of a (B, cache length, greedy or sampled)
         geometry, bound to the engine-held decode cache of that geometry,
         which `generate` refills from each prefill (opus-mt's 8 x 160
-        positions hold about 31 MB); its static inputs are the input token,
-        the position, the output counter and the sampling controls, each
-        advanced in place by the step itself."""
+        positions hold about 31 MB; a local/global model holds both
+        groups, the local one rolling); its static inputs are the input
+        token, the position, the output counter and the sampling controls,
+        each advanced in place by the step itself."""
         key = (b, max_len, sampled)
         step = _held(self._decoders, key)
         if step is not None:

@@ -1,17 +1,19 @@
-"""Architecture registry of the port: opus-mt, and phi3-medium-14b and
-stablelm-12b (bfloat16 at full size) in the dense layout; the two
+"""Architecture registry of the port: opus-mt, and phi3-medium-14b,
+stablelm-12b and gemma2-9b (bfloat16 at full size; gemma2 with local and
+global attention layers in alternation) in the dense layout; the two
 mixture-of-experts architectures, deepseek-moe-16b and mixtral-8x22b. The
 other architectures of `repro.configs` come with later slices."""
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_moe_16b, mixtral_8x22b, opus_mt,
-                                 phi3_medium_14b, stablelm_12b)
+from repro_torch.configs import (deepseek_moe_16b, gemma2_9b,
+                                 mixtral_8x22b, opus_mt, phi3_medium_14b,
+                                 stablelm_12b)
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 _MODULES = {"opus-mt": opus_mt, "deepseek-moe-16b": deepseek_moe_16b,
             "mixtral-8x22b": mixtral_8x22b,
             "phi3-medium-14b": phi3_medium_14b,
-            "stablelm-12b": stablelm_12b}
+            "stablelm-12b": stablelm_12b, "gemma2-9b": gemma2_9b}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -1,8 +1,8 @@
 """Model configuration schema (the port's copy of `repro.configs.base`).
 
 Only the fields the port reads are kept: the dense and mixture-of-experts
-layouts with causal attention (optionally windowed; `local_global_period`
-only so that the port can refuse the local/global pairing), the
+layouts with causal attention (optionally windowed, or local and global
+layers in alternation: `local_global_period`, `local_window`), the
 whole-sequence attention's implementation, the MLP and norm flavors, the
 experts (`MoEConfig`), the KV-cache word length, the input frontend, and
 the training-time policy (remat, the loss's chunk). Field names and
@@ -38,7 +38,8 @@ class ModelConfig:
 
     # attention flavor
     attn_window: Optional[int] = None
-    local_global_period: int = 0
+    local_global_period: int = 0            # >0: alternate local/global
+    local_window: int = 4096                # window of the "local" layers
     logit_softcap: float = 0.0
     final_softcap: float = 0.0
     rope_theta: float = 10000.0

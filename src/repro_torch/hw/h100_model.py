@@ -24,14 +24,18 @@ Engines (paper §V):
   baseline -- one `quant_matmul` launch (the dense WxAy engine);
   single   -- `ops.lrmm(fused=False)`: two `quant_matmul` launches, the
               (M, R) intermediate written to and read from device memory;
-  cascade  -- one `lowrank_qmm` launch, T kept on chip;
+  cascade  -- one `lowrank_qmm` launch, T kept on chip, up to R 4096;
+              past it the kernel's grouped path, two launches with t and
+              its row maxima written to and read from device memory
+              (`lowrank_qmm.hbm_bytes_moved` counts those bytes);
   pattn    -- serving attention over the blocked KV pool
               (`paged_attention_point`): the streaming kernel against the
               plain gather version.
 
-A shape that a wrapper refuses (an R beyond `lowrank_qmm`'s 1024, a
-partition that does not fit shared memory) raises ValueError, and
-`best_point` skips it: the counterpart of the reference's VMEM pruning.
+A shape that a wrapper refuses (a partition that does not fit shared
+memory) raises ValueError, and `best_point` skips it: the counterpart of
+the reference's VMEM pruning. `lowrank_qmm` takes every R % 32 up to the
+widest configured model's 18,432, so no rank is refused for its size.
 The platform-free formulas (speculation, the prefix cache's MAC and byte
 counts, tensor parallelism's wire bytes) are the reference's, priced with
 this card's numbers.
@@ -135,15 +139,17 @@ def single_engine(m, k, n, r, *, weight_wl=8, hbm_bw=HBM_BW,
 
 def cascade_engine(m, k, n, r, *, weight_wl=8, hbm_bw=HBM_BW,
                    launch_s=LAUNCH_S) -> H100Point:
-    """One lowrank_qmm launch. Each cluster recomputes phase 1 for its
-    span of N columns, so phase 1's MACs count once a span."""
+    """One lowrank_qmm call. On the cluster path each cluster recomputes
+    phase 1 for its span of N columns, so phase 1's MACs count once a
+    span; the grouped path runs phase 1 once, in two launches."""
     kp, rp, np_ = _up(k, 16), _up(r, 32), _up(n, 32)
     w1p, w2p = packs(weight_wl, r), packs(weight_wl, n)
     t = lr.choose_tiles(m, rp, np_, NUM_SMS, lr.smem_bytes)
-    mp, spans = _up(m, t.bm), -(-np_ // t.ncl)
+    mp = _up(m, t.bm)
+    spans = 1 if t.groups else -(-np_ // t.ncl)
     macs = mp * kp * rp * spans + mp * rp * np_
     hbm = lr.hbm_bytes_moved(m, kp, rp, np_, w1p, w2p, t)
-    return _price("cascade", macs, hbm, 1, lr.smem_bytes(*t),
+    return _price("cascade", macs, hbm, t.launches, lr.smem_bytes(*t),
                   {"tiles": t._asdict(), "rank": r,
                    "shape": [m, kp, rp, np_], "packed": [w1p, w2p]},
                   hbm_bw, launch_s)

@@ -15,8 +15,10 @@ tokens as they complete through `serve_stream` (both need --ragged).
 Requests are greedy unless --temperature > 0 (with --top-k / --top-p,
 seeded by --seed); --eos-id and --stop end a request early. --arch takes
 every name of `repro_torch.configs` (opus-mt, phi3-medium-14b,
-stablelm-12b, deepseek-moe-16b, mixtral-8x22b); the model's dtype is its
-config's (bfloat16 for the full phi3-medium-14b and stablelm-12b).
+stablelm-12b, gemma2-9b, deepseek-moe-16b, mixtral-8x22b); the model's
+dtype is its config's (bfloat16 for the full phi3-medium-14b, stablelm-12b
+and gemma2-9b). gemma2-9b's local/global layers run rectangular only: the
+blocked KV pool refuses them, as the reference's does, so --ragged does.
 
   python -m repro_torch.launch.serve --arch opus-mt --compression svd \
       --wl 8 --rank-fraction 0.75
@@ -25,6 +27,8 @@ config's (bfloat16 for the full phi3-medium-14b and stablelm-12b).
       --ragged --temperature 0.8 --top-k 50 --top-p 0.9 --speculate 4
   python -m repro_torch.launch.serve --arch phi3-medium-14b --ragged \
       --compression quant --wl 4 --batch 8
+  python -m repro_torch.launch.serve --arch gemma2-9b --compression itera \
+      --wl 4 --rank-fraction 0.5 --prompt-len 128 --gen 16 --batch 8
 
 It runs on the GPU; `--device cpu` runs the kernels' plain versions on
 the CPU instead (there is no silent fallback).

@@ -192,7 +192,11 @@ def sinusoidal_emb(positions, d_model: int, dtype):
 
 
 def softcap(x, cap: float):
-    return (cap * torch.tanh(x / cap)) if cap > 0 else x
+    """cap * tanh(x / cap) (gemma2's logit soft cap), in float64 and
+    rounded once to x's dtype, as the other transcendentals."""
+    if cap <= 0:
+        return x
+    return (cap * torch.tanh(x.to(torch.float64) / cap)).to(x.dtype)
 
 
 def dtype_of(name: str) -> torch.dtype:

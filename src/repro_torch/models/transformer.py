@@ -4,7 +4,10 @@ layer's MLP): the whole-sequence `forward` (the calibration pass SRA
 runs, and the training forward, each layer under activation
 checkpointing when `cfg.remat`), the sequence-chunked training loss (`loss_fn`), the
 rectangular path (`init_cache`, `prefill` with its decode cache,
-`decode_step`) and the serving step over the blocked KV pool.
+`decode_step`) and the serving step over the blocked KV pool. Dense
+models may alternate local (windowed, rolling cache) and global layers
+in pairs (`local_global_period`, gemma2), as the reference's scan over
+pairs; the blocked KV pool refuses them, so they decode rectangular.
 
 Parameters are a plain dict of tensors with the reference's tree layout
 and path names ("layers/attn/wq", "lm_head", ...): per-layer weights are
@@ -143,13 +146,28 @@ def _embed_scale(d_model: int, dtype) -> float:
 
 
 def _window_for_layer(cfg, which):
-    """The attention window of a `which` ("local" or "global") layer: the
-    config's `attn_window` in every layer. The local/global pairing is not
-    ported yet."""
+    """The attention window of a `which` ("local" or "global") layer:
+    with the local/global pairing, `local_window` or None (global), else
+    the config's `attn_window` in every layer."""
     if cfg.local_global_period:
-        raise NotImplementedError("local/global attention pairs are not "
-                                  "ported yet")
+        return cfg.local_window if which == "local" else None
     return cfg.attn_window
+
+
+def _cache_slots(cfg) -> list:
+    """(cache group, index in the group, window) of each layer: with the
+    local/global pairing (the reference scans over pairs) even layers are
+    "local" and odd ones "global", each group stacked over L / 2 layers;
+    otherwise every layer is slot i of "kv"."""
+    if cfg.local_global_period:
+        if cfg.num_layers % 2:
+            raise ValueError(f"local/global pairs need an even number of "
+                             f"layers, got {cfg.num_layers}")
+        return [("global", i // 2, _window_for_layer(cfg, "global"))
+                if i % 2 else
+                ("local", i // 2, _window_for_layer(cfg, "local"))
+                for i in range(cfg.num_layers)]
+    return [("kv", i, cfg.attn_window) for i in range(cfg.num_layers)]
 
 
 def _layer_list(params, cfg) -> list:
@@ -168,17 +186,41 @@ def _ffn(cfg, lp, hn):
     return mlp_apply(hn, lp["mlp"], cfg.mlp_act), 0.0
 
 
-def _dense_body(cfg, h, lp, *, window, return_kv=False):
-    """One attention + MLP (or MoE) block: (h, aux[, (k, v)])."""
-    hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+def _next_ln(cfg, layers, i):
+    """The first norm's parameters of layer i + 1 where it is the global
+    half of layer i's local/global pair, else None. The reference scans
+    over pairs, so within one iteration XLA feeds that norm the unrounded
+    sum of layer i's last residual add, as it does the norm after each
+    attention (`add_norm`, C8); between iterations the carry is
+    rounded."""
+    if cfg.local_global_period and i % 2 == 0:
+        return layers[i + 1]["ln1"]
+    return None
+
+
+def _dense_body(cfg, h, lp, hn=None, next_ln=None, *, window,
+                return_kv=False):
+    """One attention + MLP (or MoE) block: (h, aux, the next block's
+    first norm or None[, (k, v)]). `hn`: this block's first norm when the
+    previous block computed it (from `next_ln`, its parameters)."""
+    if hn is None:
+        hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
     a = attn.attention(lp["attn"], hn, cfg, window=window,
                        return_kv=return_kv)
     if return_kv:
         a, kv = a
     h, hn = add_norm(h, a, lp["ln2"], cfg.norm, cfg.norm_eps)
     y, aux = _ffn(cfg, lp, hn)
-    h = h + y
-    return (h, aux, kv) if return_kv else (h, aux)
+    h, hn = _residual(cfg, h, y, next_ln)
+    return (h, aux, hn, kv) if return_kv else (h, aux, hn)
+
+
+def _residual(cfg, h, y, next_ln):
+    """(h + y, the next block's first norm of it when `next_ln` is given,
+    else None)."""
+    if next_ln is None:
+        return h + y, None
+    return add_norm(h, y, next_ln, cfg.norm, cfg.norm_eps)
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -219,15 +261,17 @@ def forward(params, tokens, cfg):
     (or embeddings (B, S, D)) -> (final-normed hidden (B, S, D), aux
     loss: the MoE blocks' load-balance losses summed over layers from
     0.0, or 0.0 in the dense layout). Layers attend causally within
-    `cfg.attn_window`. The local/global pairing and the ssm and hybrid
-    layouts are not ported yet."""
+    `cfg.attn_window`, or, paired, within `local_window` (even layers) and
+    over the whole sequence (odd ones). The ssm and hybrid layouts are not
+    ported yet."""
     _check_layout(cfg)
-    window = _window_for_layer(cfg, "global")
     h = embed(params, tokens, cfg)
     body = _maybe_remat(cfg, _dense_body)
-    aux = 0.0
-    for lp in _layer_list(params, cfg):
-        h, a = body(cfg, h, lp, window=window)
+    aux, hn = 0.0, None
+    layers = _layer_list(params, cfg)
+    for i, (lp, (_, _, window)) in enumerate(zip(layers, _cache_slots(cfg))):
+        h, a, hn = body(cfg, h, lp, hn, _next_ln(cfg, layers, i),
+                        window=window)
         aux = aux + a
     return apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps), aux
 
@@ -286,13 +330,21 @@ def loss_fn(params, batch, cfg, *, aux_weight=0.01):
 def init_cache(cfg, batch, max_len, dtype=None, device="cpu"):
     """An empty decode cache {"kv": {"k", "v"[, "ks", "vs"]}}, each leaf
     stacked over layers: (L, B, size, Hk, *), size max_len, or
-    min(attn_window, max_len) for a rolling cache."""
+    min(attn_window, max_len) for a rolling cache. With the local/global
+    pairing, {"local": ..., "global": ...}, each stacked over L / 2
+    layers, the local one rolling over min(local_window, max_len)
+    slots."""
     _check_layout(cfg)
-    window = _window_for_layer(cfg, "global")
-    kv = attn.init_kv_cache(cfg, batch, max_len, window=window, dtype=dtype,
-                            device=device)
-    return {"kv": {k: v[None].repeat(cfg.num_layers, *([1] * v.ndim))
-                   for k, v in kv.items()}}
+    groups = {}
+    for group, _, window in _cache_slots(cfg):
+        groups.setdefault(group, [0, window])[0] += 1
+    out = {}
+    for group, (n, window) in groups.items():
+        kv = attn.init_kv_cache(cfg, batch, max_len, window=window,
+                                dtype=dtype, device=device)
+        out[group] = {k: v[None].repeat(n, *([1] * v.ndim))
+                      for k, v in kv.items()}
+    return out
 
 
 def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
@@ -306,18 +358,22 @@ def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
     pad positions' K/V sit in slots no decode query reaches before
     `decode_step` overwrites them."""
     _check_layout(cfg)
-    window = _window_for_layer(cfg, "global")
     cdt = cache_dtype or dtype_of(cfg.dtype)
     h = embed(params, tokens, cfg)
-    caches = []
-    for lp in _layer_list(params, cfg):
-        h, _, (k, v) = _dense_body(cfg, h, lp, window=window,
-                                   return_kv=True)
-        caches.append(attn.build_cache_from_kv(
+    caches: dict = {}
+    hn = None
+    layers = _layer_list(params, cfg)
+    for i, (lp, (group, _, window)) in enumerate(zip(layers,
+                                                     _cache_slots(cfg))):
+        h, _, hn, (k, v) = _dense_body(cfg, h, lp, hn,
+                                       _next_ln(cfg, layers, i),
+                                       window=window, return_kv=True)
+        caches.setdefault(group, []).append(attn.build_cache_from_kv(
             k, v, window=window, max_len=max_len, dtype=cdt,
             quantized=cfg.kv_cache_bits == 8))
-    cache = {"kv": {name: torch.stack([c[name] for c in caches])
-                    for name in caches[0]}}
+    cache = {group: {name: torch.stack([c[name] for c in per_layer])
+                     for name in per_layer[0]}
+             for group, per_layer in caches.items()}
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     last = h.shape[1] - 1 if last_pos is None else int(last_pos)
     return logits_for(params, h[:, last:last + 1], cfg), cache
@@ -330,18 +386,22 @@ def decode_step(params, cache, tokens, pos, cfg):
     int; the cache is updated in place. Returns (logits (B, 1, V) f32,
     cache)."""
     _check_layout(cfg)
-    window = _window_for_layer(cfg, "global")
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
     h = embed(params, tokens, cfg, pos)
-    kv = cache["kv"]
-    for i, lp in enumerate(_layer_list(params, cfg)):
-        hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+    hn = None
+    layers = _layer_list(params, cfg)
+    for j, (lp, (group, i, window)) in enumerate(zip(layers,
+                                                     _cache_slots(cfg))):
+        if hn is None:
+            hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
         a, _ = attn.decode_attention(lp["attn"], hn,
-                                     {k: v[i] for k, v in kv.items()}, pos,
+                                     {k: v[i] for k, v in
+                                      cache[group].items()}, pos,
                                      cfg, window=window)
         h, hn = add_norm(h, a, lp["ln2"], cfg.norm, cfg.norm_eps)
-        h = h + _ffn(cfg, lp, hn)[0]
+        h, hn = _residual(cfg, h, _ffn(cfg, lp, hn)[0],
+                          _next_ln(cfg, layers, j))
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     return logits_for(params, h, cfg), cache
 

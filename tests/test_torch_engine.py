@@ -280,7 +280,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.runtime.fault, repro_torch.checkpoint.ckpt, "
             "repro_torch.models.moe, repro_torch.configs.phi3_medium_14b, "
-            "repro_torch.configs.stablelm_12b; "
+            "repro_torch.configs.stablelm_12b, "
+            "repro_torch.configs.gemma2_9b, repro_torch.kernels.lowrank_qmm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

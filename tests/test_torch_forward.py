@@ -131,17 +131,15 @@ def test_chunked_and_windowed_paths_are_the_full_ones(weights):
 
 
 def test_window_for_layer_matches_reference():
-    """The reference's window for both kinds of layer without the
-    local/global pairing, which the port refuses."""
-    for over in ({}, dict(attn_window=128)):
+    """The reference's window for both kinds of layer, without the
+    local/global pairing and with it (local_window, or None for a global
+    layer)."""
+    for over in ({}, dict(attn_window=128), dict(local_global_period=2),
+                 dict(local_global_period=2, local_window=16)):
         jc, tc = _configs("opus", **over)
         for which in ("local", "global"):
             assert (ttfm._window_for_layer(tc, which)
                     == jtfm._window_for_layer(jc, which))
-    _, tc = _configs("opus", local_global_period=2)
-    for which in ("local", "global"):
-        with pytest.raises(NotImplementedError, match="local/global"):
-            ttfm._window_for_layer(tc, which)
 
 
 @pytest.fixture(scope="module")
@@ -184,12 +182,20 @@ def test_compressed_forward_argmax_matches_reference(compressed, plan):
 
 
 def test_forward_refuses_what_is_not_ported(weights):
-    _, tp = weights["opus"]
+    """The local/global pairing runs (the opus weights paired, window 3
+    over 6 tokens: forward's logits and prefill's within 1e-4 of the
+    reference's); the ssm layout is still refused."""
+    jp, tp = weights["opus"]
+    toks = _tokens(512, s=6)
+    jc, tc = _configs("opus", local_global_period=2, local_window=3)
+    hj, _ = jax.jit(lambda p, t: jtfm.forward(p, t, jc))(jp, jnp.asarray(toks))
+    ht, _ = ttfm.forward(tp, torch.from_numpy(toks), tc)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=0, atol=1e-4)
+    lj, _ = jax.jit(lambda p, t: jtfm.prefill(p, t, jc))(jp, jnp.asarray(toks))
+    lt, cache = ttfm.prefill(tp, torch.from_numpy(toks), tc)
+    assert sorted(cache) == ["global", "local"]
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=1e-4)
     toks = torch.from_numpy(_tokens(512, s=4))
-    _, tc = _configs("opus", local_global_period=2)
-    for entry in (ttfm.forward, ttfm.prefill):
-        with pytest.raises(NotImplementedError, match="local/global"):
-            entry(tp, toks, tc)
     _, tc = _configs("opus", layout="ssm")
     for entry in (ttfm.forward, ttfm.prefill):
         with pytest.raises(NotImplementedError, match="ssm"):

@@ -200,15 +200,32 @@ def test_prefill_and_decode_logits_match_reference(models, plan, kv_bits,
                                    atol=1e-4, err_msg=f"pos {pos}")
 
 
-def test_rectangular_path_refuses_unported_layouts():
-    _, tc = _cfgs()
-    pair = dataclasses.replace(tc, local_global_period=2)
+def test_rectangular_path_refuses_unported_layouts(models):
+    """A paired (local/global) config's `init_cache` and `prefill` give
+    the reference's cache tree, {"local", "global"} with the local one
+    rolling, with prefill's leaves within 1e-4 of the reference's; the
+    ssm layout is still refused."""
+    jc, tc = _cfgs()
+    jpair = dataclasses.replace(jc, local_global_period=2, local_window=3)
+    pair = dataclasses.replace(tc, local_global_period=2, local_window=3)
     toks = torch.ones((1, 4), dtype=torch.int32)
     p = ttfm.init_params(tc)
-    with pytest.raises(NotImplementedError, match="local/global"):
-        ttfm.prefill(p, toks, pair)
-    with pytest.raises(NotImplementedError, match="local/global"):
-        ttfm.init_cache(pair, 1, 8)
+    jp, tp = models["dense"]
+    for max_len in (2, 8):
+        want = jtfm.init_cache(jpair, 1, max_len)
+        got = ttfm.init_cache(pair, 1, max_len)
+        assert sorted(got) == sorted(want) == ["global", "local"]
+        for group in want:
+            assert {k: tuple(v.shape) for k, v in got[group].items()} == {
+                k: v.shape for k, v in want[group].items()}
+    _, jcache = jax.jit(lambda p, t: jtfm.prefill(p, t, jpair, max_len=8))(
+        jp, jnp.asarray(toks.numpy()))
+    _, tcache = ttfm.prefill(tp, toks, pair, max_len=8)
+    for group in jcache:
+        for name, leaf in jcache[group].items():
+            np.testing.assert_allclose(tcache[group][name].numpy(),
+                                       np.asarray(leaf), rtol=0, atol=1e-4,
+                                       err_msg=f"{group}/{name}")
     cache = ttfm.init_cache(tc, 1, 8)
     assert cache["kv"]["k"].shape == (2, 1, 8, 4, 16)
     with pytest.raises(NotImplementedError, match="not ported"):

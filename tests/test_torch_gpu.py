@@ -225,6 +225,73 @@ def test_lowrank_qmm_cluster_partitions(cuda, packed, m, k, r, n):
     assert torch.equal(y, lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2, **kw))
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("m,k,r,n,e", [
+    (8, 2048, 1056, 2048, 1),    # wide slices of 160, the last one partial
+    (2048, 3584, 1792, 4096, 1),  # gemma2's R at prefill (bm 32)
+    (8, 5120, 2560, 5120, 1),    # phi3's R at r0.5, wide slices of 320
+    (37, 1024, 4096, 544, 1),    # the widest slice (512), ragged M and N
+    (8, 1024, 4128, 1024, 1),    # the smallest grouped R: 33 slices
+    (300, 512, 9216, 2080, 1),   # grouped, ragged M and N
+    (8, 2048, 1280, 2048, 8),    # an expert stack past 1024
+    (40, 512, 4160, 512, 3),     # an expert stack on the grouped path
+])
+def test_lowrank_qmm_every_rank_equals_plain(cuda, packed, out_dtype, m, k,
+                                             r, n, e):
+    """Ranks past 1024: wide slices on chip and the grouped path, one
+    matrix and an expert stack, fp32 and bf16 Y, bit-equal to the plain
+    cascade; one call counted, under its rank and launch shape."""
+    rng = np.random.default_rng(m + k + r + n + e)
+    wl = 4 if packed else 8
+    lead = (e,) if e > 1 else ()
+    xq = _codes(rng, (*lead, m, k), 8).to(cuda)
+    sx = _uniform(rng, (*lead, m, 1), 0.01, 1).to(cuda)
+    w1 = _codes(rng, (*lead, k, r), wl).to(cuda)
+    w2 = _codes(rng, (*lead, r, n), wl).to(cuda)
+    if packed:
+        w1, w2 = quant.pack_int4(w1), quant.pack_int4(w2)
+    s1 = _uniform(rng, (*lead, 1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (*lead, r, 1), 0.01, 0.1).to(cuda)
+    kw = dict(w1_packed=packed, w2_packed=packed, act_qmax=127,
+              out_dtype=out_dtype)
+    before = build.LAUNCHES["lowrank_qmm"], build.LAUNCH_RANKS[r]
+    y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["lowrank_qmm"], build.LAUNCH_RANKS[r]) == (
+        before[0] + 1, before[1] + 1)
+    ref = lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2, **kw)
+    assert y.dtype == out_dtype
+    assert torch.equal(y.view(torch.int16) if out_dtype == torch.bfloat16
+                       else y, ref.view(torch.int16)
+                       if out_dtype == torch.bfloat16 else ref)
+
+
+def test_lowrank_qmm_grouped_path_captures(cuda):
+    """The grouped path's two launches replay in a CUDA graph (its
+    scratch comes from the graph's pool) with the plain version's bits."""
+    rng = np.random.default_rng(5)
+    m, k, r, n = 8, 512, 4224, 1024
+    xq = _codes(rng, (m, k), 8).to(cuda)
+    sx = _uniform(rng, (m, 1), 0.01, 1).to(cuda)
+    w1 = quant.pack_int4(_codes(rng, (k, r), 4)).to(cuda)
+    w2 = quant.pack_int4(_codes(rng, (r, n), 4)).to(cuda)
+    s1 = _uniform(rng, (1, r), 0.01, 0.1).to(cuda)
+    s2 = _uniform(rng, (r, 1), 0.01, 0.1).to(cuda)
+    kw = dict(w1_packed=True, w2_packed=True)
+    assert lr.choose_tiles(m, r, n, build.sm_count(cuda.index or 0),
+                           lr.smem_bytes).path == "grouped"
+    lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)       # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = lr.lowrank_qmm(xq, sx, w1, s1, w2, s2, **kw)
+    xq.copy_(_codes(rng, (m, k), 8).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, lr.lowrank_qmm_plain(xq, sx, w1, s1, w2, s2, **kw))
+
+
 def _pa_case(rng, ctx, ql, kv_bits, bs=16, hk=2, g=2, hd=64):
     """A span batch over fresh consecutive blocks with random history."""
     ctx, ql = np.array(ctx, np.int32), np.array(ql, np.int32)
@@ -816,7 +883,8 @@ def test_lowrank_qmm_smem_mirror_equals_library(cuda):
     lib = build.load("lowrank_qmm", lr._SIGNATURES)
     sms = build.sm_count(cuda.index or 0)
     for m in _MIRROR_M:
-        for r in (32, 128, 160, 192, 256, 320, 384, 512, 1024):
+        for r in (32, 128, 160, 192, 256, 320, 384, 512, 1024, 1056,
+                  1792, 2560, 4096, 4128, 9216, 18432):
             for n in (512, 2048, 32000):
                 t = lr.choose_tiles(m, r, n, sms, lib.lrmm_smem_bytes)
                 assert t == lr.choose_tiles(m, r, n, sms, lr.smem_bytes)

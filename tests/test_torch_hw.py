@@ -313,19 +313,37 @@ def test_h100_model_prices_the_launched_partition(m, k, n, r, wl):
         p.latency_s, s.latency_s, c.latency_s)
 
 
-def test_h100_model_skips_what_the_kernels_refuse():
-    """R beyond lowrank_qmm's 1024 is infeasible for the cascade: the
-    engine raises as the wrapper would, and best_point takes another."""
-    with pytest.raises(ValueError, match="rank"):
-        tlr.choose_tiles(8, 1056, 2048, 132, tlr.smem_bytes)
-    with pytest.raises(ValueError, match="rank"):
+def test_h100_model_skips_what_the_kernels_refuse(monkeypatch):
+    """R beyond 1024 is priced as the cascade the kernel now runs: R 1056
+    on chip in wide slices (one launch), R 9216 on the grouped path (two
+    launches, t's bytes counted); a partition that fits no CTA's shared
+    memory is still refused, and best_point takes another engine."""
+    lt = tlr.choose_tiles(8, 1056, 2048, 132, tlr.smem_bytes)
+    assert lt.path == "cluster" and lt.cluster * lt.rs >= 1056
+    c = hm.cascade_engine(8, 2048, 2048, 1056, weight_wl=8)
+    assert c.kind == "cascade" and c.launches == 1
+    assert c.config["tiles"] == lt._asdict()
+    assert hm.best_point(8, 2048, 2048, 1056, weight_wl=8,
+                         engines=("cascade",)).latency_s == c.latency_s
+    assert hm.best_point(8, 2048, 2048, 1024, weight_wl=8,
+                         engines=("cascade",)).kind == "cascade"
+    g = hm.cascade_engine(8, 9216, 9216, 9216, weight_wl=8)
+    gt = tlr.choose_tiles(8, 9216, 9216, 132, tlr.smem_bytes)
+    assert gt.path == "grouped" and g.launches == 2
+    assert g.hbm_bytes == tlr.hbm_bytes_moved(8, 9216, 9216, 9216, False,
+                                              False, gt)
+    # t (float32) and the row maxima, written once and read by every span
+    spans = -(-9216 // gt.ncl)
+    assert g.hbm_bytes > (8 * 9216 * 4 + gt.groups * 8 * 4) * (1 + spans)
+    with pytest.raises(ValueError, match="shared memory"):
+        tlr.choose_tiles(8, 1056, 2048, 132, lambda *tiles: 1 << 30)
+    monkeypatch.setattr(tlr, "smem_bytes", lambda *tiles: 1 << 30)
+    with pytest.raises(ValueError, match="shared memory"):
         hm.cascade_engine(8, 2048, 2048, 1056, weight_wl=8)
     p = hm.best_point(8, 2048, 2048, 1056, weight_wl=8)
     assert p is not None and p.kind in ("baseline", "single")
     assert hm.best_point(8, 2048, 2048, 1056, weight_wl=8,
                          engines=("cascade",)) is None
-    assert hm.best_point(8, 2048, 2048, 1024, weight_wl=8,
-                         engines=("cascade",)).kind == "cascade"
 
 
 def test_h100_model_restricts_engines_and_prices_launches():

@@ -88,6 +88,22 @@ def test_lrmm_plain_equals_reference(wl, act_wl, packed, fused):
     np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
 
 
+@pytest.mark.parametrize("r", [1056, 2560])
+def test_lrmm_large_rank_equals_reference(r):
+    """Ranks past 1024 (wide slices on the card) through `ops.lrmm` on the
+    CPU: the reference cascade's bits, W4 packed on both factors."""
+    rng = np.random.default_rng(r)
+    k = n = 2560
+    x = rng.standard_normal((8, k)).astype(np.float32)
+    s1 = rng.uniform(0.01, 0.1, (1, r)).astype(np.float32)
+    s2 = rng.uniform(0.01, 0.1, (r, 1)).astype(np.float32)
+    j1, t1 = _qt_pair(_codes(rng, (k, r), 4), s1, 4, 0, 8, True)
+    j2, t2 = _qt_pair(_codes(rng, (r, n), 4), s2, 4, 1, 8, True)
+    yj = jops.lrmm(jnp.asarray(x), jitera.LowRankQ(j1, j2), use_kernel=False)
+    yt = tops.lrmm(torch.from_numpy(x), titera.LowRankQ(t1, t2))
+    np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+
+
 def _pool(rng, kv_bits, shape):
     """One layer's pool with random history: fp32 K/V, or int8 codes with
     fp32 scale planes."""
@@ -244,9 +260,47 @@ def test_lowrank_tile_choice(m, r, n):
         assert t.ctas(m, n) >= 0.9 * 132
 
 
+@pytest.mark.parametrize("m,e", [(8, 1), (2048, 1), (8, 8), (2048, 8)])
+@pytest.mark.parametrize("n", [512, 3584, 18432])
+def test_lowrank_tile_choice_every_rank(m, e, n):
+    """Every R % 32 from 32 to 18,432 (nemotron-4-340b's d_model, the
+    widest min(K, N) of the configs) has a partition within shared
+    memory whose slices cover R: clusters up to R 4096 (T on chip; wide
+    slices past 1024, at most 32 rows), the grouped path past it; every
+    column of Y written by exactly one CTA."""
+    paths = set()
+    for r in range(32, 18432 + 1, 32):
+        t = tlr.choose_tiles(m, r, n, 132, tlr.smem_bytes, e)
+        assert tlr.smem_bytes(*t) <= tlr.SMEM_LIMIT
+        paths.add(t.path)
+        if r <= 1024:
+            assert t.rs in (32, 64, 128) and not t.groups
+        if t.groups:
+            assert r > 4096 and t.cluster == t.cn == 1
+            assert t.rs == tlr.GROUP_RS and t.groups * t.rs >= r
+            assert (t.groups - 1) * t.rs < r and t.ncl in (32, 64, 128)
+            assert t.launches == 2
+        else:
+            assert r <= 4096 and t.cluster * t.rs >= r and t.rs % 32 == 0
+            assert t.rs <= tlr.RS_WIDE and t.cluster % t.cn == 0
+            assert (t.cluster * t.rs - r) < 32 * t.cluster or t.rs <= 128
+            if t.rs > 128:
+                assert t.bm <= 32 and t.cluster == 8
+    assert paths == {"cluster", "grouped"}
+    for r in (1056, 4096, 4128, 18432):
+        t = tlr.choose_tiles(m, r, n, 132, tlr.smem_bytes, e)
+        if t.groups:
+            cols = [c for x in range(-(-n // t.ncl))
+                    for c in range(x * t.ncl, min((x + 1) * t.ncl, n))]
+        else:
+            cols = _owned_columns(t, n)
+        assert sorted(cols) == list(range(n))
+
+
 def test_lowrank_tile_choice_refuses():
-    with pytest.raises(ValueError, match="rank"):
-        tlr.choose_tiles(8, 2048, 512, 132, tlr.smem_bytes)
+    # R 2048 is taken (wide slices); what is not a multiple of 32, or
+    # fits no CTA, is refused
+    assert tlr.choose_tiles(8, 2048, 512, 132, tlr.smem_bytes).rs == 256
     with pytest.raises(ValueError, match="% 32"):
         tlr.choose_tiles(8, 250, 512, 132, tlr.smem_bytes)
     with pytest.raises(ValueError, match="shared memory"):
