@@ -117,15 +117,17 @@ fails:
    serve's);
    graphs: every step above (and below) is the replay of a CUDA graph
    captured per step shape, the engines' default; here the mixed plan
-   (fp32 and int8 KV) and the quant-only plan run greedy, sampled,
+   (fp32 and int8 KV) and the quant-only plan each run greedy, sampled,
    stopped and speculative (DraftSpec(k=4, rank_fraction=0.5)) serves of
-   the 16 requests and greedy and sampled generates of the 8 Markov-task
-   prompts both captured and eagerly (`cuda_graphs=False`): identical
-   tokens and launch counters; the graphs held, their capture seconds and
-   the memory they reserved; then three interleaved rounds of eager and
-   captured serve (TPOT p50, TTFT p50, tok/s) and generate (prefill ms,
-   decode ms a step, tok/s) of the mixed kv16 plan, median, min and max,
-   and one serve and one generate of each under torch.profiler;
+   8 of the requests and greedy and sampled generates of the 8
+   Markov-task prompts, 16 tokens each, both captured and eagerly
+   (`cuda_graphs=False`): identical tokens and launch counters, each
+   case's seconds; the graphs held, their capture seconds and
+   the memory they reserved; then one eager and one captured round of
+   serve (TPOT p50, TTFT p50, tok/s) and generate (prefill ms, decode ms
+   a step, tok/s) of the mixed kv16 plan (GRAPH_ROUNDS rounds: median,
+   min and max), and one serve and one generate of each under
+   torch.profiler;
 4. parity: the compressed weights of the phase-3 plans, of the svd plan
    and of the SRA plans (each compressed once on the card), copied to the
    CPU, and the dse phase's deployed plans, serve 4 short requests there
@@ -135,14 +137,14 @@ fails:
    kv 16 and 8 and, for the mixed plan, sampled: identical tokens;
 5. moe: deepseek-moe-16b at its published widths (d_model 2048, 16 heads
    of 128, 64 routed experts of d_ff 1408 top-6 at capacity factor 1.25,
-   2 shared, vocab 102,400), 4 of its 28 layers, fp32, seed-0 random
+   2 shared, vocab 102,400), 1 of its 28 layers, fp32, seed-0 random
    weights, compressed on the card under the mixed and the quant-only
    plan (the router kept float; ITERA at 4 power iterations a rank-1
    step, one expert stack's error printed at 4 and at the default 24);
    8 requests of 32-256 prompt tokens, 16
    new, served captured (greedy fp32 and int8 KV, sampled) and eagerly:
-   every step launches exactly 40 lowrank_qmm + 1 quant_matmul + 4
-   paged_attention (mixed) or 41 quant_matmul + 4 paged_attention
+   every step launches exactly 10 lowrank_qmm + 1 quant_matmul + 1
+   paged_attention (mixed) or 11 quant_matmul + 1 paged_attention
    (quant-only), one launch for each projection of all 64 experts;
    captured == eager tokens and counters; the copies routed and dropped
    by step kind; a profile of each serve; generate of 8 x 128 prompts
@@ -150,22 +152,22 @@ fails:
    and sampled and for a 4 x 29 generate, under both plans;
 6. bf16: the bfloat16 model dtype. phi3-medium-14b at its published
    widths (d_model 5120, 40 heads of 128 over 10 KV heads, SwiGLU d_ff
-   17920, RMSNorm, RoPE, vocab 100,352), bfloat16, 2 of its 40 layers,
+   17920, RMSNorm, RoPE, vocab 100,352), bfloat16, 1 of its 40 layers,
    seed-0 random weights, compressed on the card under the mixed plan at
    the reference's default rank fraction 0.5 (ITERA W4A8, R 2560 and 640,
    at 4 power iterations a rank-1 step; W8A8 lm head) and quant-only
    W4A8; 8 requests of 32-256 prompt tokens, 16 new, served captured
    (greedy with a bf16 and an int8 pool; the mixed plan also sampled) and
-   eagerly: every step launches exactly 14 lowrank_qmm + 1 quant_matmul +
-   2 paged_attention (mixed) or 15 quant_matmul + 2 paged_attention
+   eagerly: every step launches exactly 7 lowrank_qmm + 1 quant_matmul +
+   1 paged_attention (mixed) or 8 quant_matmul + 1 paged_attention
    (quant-only), the linears writing bf16 from their epilogues; captured
    == eager tokens;
    a profile of each phi3 serve; then stablelm-12b (32 heads of 160 over 8, LayerNorm, 25% rotary),
-   bfloat16, 2 of 40 layers, quant-only, greedy at both pools; card ==
+   bfloat16, 1 of 40 layers, quant-only, greedy at both pools; card ==
    CPU for 4 short requests on every one of those paths. Phase 2
    compares these models' launch shapes first: both integer kernels
    with a bf16 output at every row count a step takes (bit-equal), and
-   bf16 attention at Dh 128 and 160 over a bf16 and an int8 pool
+   bf16 attention at Dh 128, 160 and 192 over a bf16 and an int8 pool
    (within one bf16 ulp on at most 1e-4 of the outputs);
 7. gemma2: gemma2-9b at its published widths (d_model 3584, 16 heads of
    256 over 8 KV heads, GeGLU d_ff 14336, vocab 256,000, tied embeddings,
@@ -179,7 +181,24 @@ fails:
    8 new, under both plans; and a 4,100-token prompt with 24 new tokens
    (the prefill's window mask and the rolling local cache's wrap) held to
    the card's own teacher-forced `forward`: its argmax at every position
-   but where its top two logits lie within 0.1 (at most one).
+   but where its top two logits lie within 0.1 (at most one);
+8. nemotron: nemotron-4-340b at its published widths (d_model 18432, 96
+   heads of 192 over 8 KV heads, squared-ReLU d_ff 73728 -- six linears a
+   layer --, LayerNorm with a bias, half the head dims rotary, vocab
+   256,000), bfloat16, 1 of its 96 layers, seed-0 random weights,
+   compressed on the card under ITERA W4A8 r0.0625 (R 1152, 64 for wk
+   and wv; the reference's default 0.5 costs Alg. 1 about ten minutes a
+   layer) with a W8A8 lm head and under quant-only W4A8; 8 requests of
+   32-256 prompt tokens, 16 new, served captured with a bf16 and an int8
+   pool: launches exactly 6 lowrank_qmm + 1 quant_matmul + 1
+   paged_attention (mixed) or 7 quant_matmul + 1 paged_attention
+   (quant-only) a step, every launch at a shape phase 2 compared (its
+   K 18432 -> N 18432 / 1536 / 73728, K 73728 -> N 18432 and the K 18432
+   -> N 256,000 head, both integer kernels bit-equal at every row count a
+   step takes; bf16 attention at Dh 192 with a group of 12); card == CPU
+   for 4 short requests, 8 new, on every path. The train phase also runs
+   the train CLI of musicgen-medium's smoke config (the audio frontend:
+   batches lifted to embeddings) on the card and on the CPU.
 
 The last three lines are one JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -190,6 +209,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -200,7 +220,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 TOL_ATTN = 1e-5          # attention: fp32 inputs, sums in another order
-REPS = 20
+REPS = 10                # timed launches a Timer call
 
 
 T_START = time.perf_counter()
@@ -224,11 +244,19 @@ def check(failures: list, ok: bool, what: str) -> None:
         print(f"  FAIL {what}")
 
 
+_PHASE_START = [T_START]
+
+
 def end_phase(name: str, failures: list) -> None:
+    """Raise if the phase failed; else print its seconds (since the last
+    phase ended) and the script's."""
     if failures:
         raise PhaseFailed(f"phase {name}: {len(failures)} check(s) failed: "
                           + "; ".join(failures[:5]))
-    print(f"[{name}] ok ({time.perf_counter() - T_START:.0f} s since start)")
+    now = time.perf_counter()
+    print(f"[{name}] ok in {now - _PHASE_START[0]:.1f} s "
+          f"({now - T_START:.0f} s since start)")
+    _PHASE_START[0] = now
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -242,6 +270,81 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_report(text: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    nvcc's `-Xptxas -v` output; a template instantiation of the bf16
+    attention kernel is named attend_bf16_kernel<Dh, QT, quant>."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"attend_bf16_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          name)
+            if t:
+                name = "attend_bf16_kernel<%s, %s, %s>" % t.groups()
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            regs = out.get(name, (0, 0, 0))[0]
+            out[name] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            _, st, ld = out.get(name, (0, 0, 0))
+            out[name] = (int(m.group(1)), st, ld)
+    return out
+
+
+def print_ptxas(failures) -> None:
+    """Each kernel's registers and spills as ptxas reported them; the
+    Dh 192 instantiations of the bf16 attention kernel (decode and
+    prefill tiles, each over a bf16 and an int8 pool) must all be in the
+    report, and none may spill."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import (BF16_QT_DECODE,
+                                                     BF16_QT_PREFILL)
+
+    dh192 = {f"attend_bf16_kernel<192, {qt}, {quant}>"
+             for qt in (BF16_QT_DECODE, BF16_QT_PREFILL) for quant in (0, 1)}
+    for lib in build.SOURCES:
+        report = ptxas_report(build.log_path(lib).read_text())
+        for name, (regs, st, ld) in sorted(report.items()):
+            print(f"  {lib}: {name[:60]}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads")
+            if name in dh192:
+                check(failures, st == 0 and ld == 0,
+                      f"{name} spills ({st} / {ld} bytes)")
+        if lib == "paged_attention":
+            missing = sorted(dh192 - set(report))
+            check(failures, not missing,
+                  f"ptxas reported no registers or spills for {missing}")
+
+
+class HostGapped(float):
+    """A Timer mean that includes the host's gaps between launches: it
+    prints with a trailing "*", stays marked when scaled or rounded, and
+    neither a kernel's time (`Timer.kernel`) nor the kernels' line
+    (`finish`) accepts it."""
+
+    def __format__(self, spec):
+        return float.__format__(self, spec) + "*"
+
+    def __mul__(self, other):
+        return HostGapped(float(self) * other)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return HostGapped(float(self) / other)
+
+    def __round__(self, ndigits=None):
+        return HostGapped(round(float(self), ndigits))
+
+
 class Timer:
     """Mean device time of a call, from CUDA events around each launch.
 
@@ -250,8 +353,10 @@ class Timer:
     card is first held busy (`torch.cuda._sleep`) while the host queues
     every launch, so the events time the device alone and not the
     wrappers' Python, which would otherwise leave the card idle between
-    them; if the queueing outlasts the hold, it is redone with a longer
-    one."""
+    them; if the queueing outlasts the hold, it is redone with a hold
+    four times as long, up to HOLD_LIMIT, past which the mean is returned
+    as a HostGapped value. Counts its calls, the rounds it redid, the
+    means it marked and its seconds (`report`)."""
 
     def __init__(self, torch):
         from repro_torch.hw.h100_model import L2_BYTES
@@ -259,14 +364,29 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(3 * int(L2_BYTES), dtype=torch.uint8,
                                  device="cuda")
-        self.hold_cycles = 50_000_000
+        self.calls = self.redone = self.gapped = 0
+        self.seconds = 0.0
+
+    def report(self) -> str:
+        return (f"{self.calls} timer calls in {self.seconds:.1f} s, "
+                f"{self.redone} rounds redone under a longer hold, "
+                f"{self.gapped} means marked * (host gaps included)")
 
     def __call__(self, fn, reps: int = REPS) -> float:
+        t0 = time.perf_counter()
+        try:
+            return self._time(fn, reps)
+        finally:
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+
+    def _time(self, fn, reps: int) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        hold = HOLD_CYCLES
         while True:
-            torch.cuda._sleep(self.hold_cycles)
+            torch.cuda._sleep(hold)
             held = torch.cuda.Event()
             held.record()
             marks = []
@@ -280,12 +400,33 @@ class Timer:
                 marks.append((start, end))
             starved = held.query()
             torch.cuda.synchronize()
+            mean = sum(s.elapsed_time(e) for s, e in marks) / reps
             if not starved:
-                return sum(s.elapsed_time(e) for s, e in marks) / reps
-            self.hold_cycles *= 4
+                return mean
+            if hold >= HOLD_LIMIT:
+                # something in `fn` waits for the card (an allocation
+                # freeing cached memory), so no hold outlasts the queueing
+                print(f"    (timer: the card idled between launches even "
+                      f"under a {hold:.1e}-cycle hold; this time includes "
+                      f"the host's gaps and is marked *)")
+                self.gapped += 1
+                return HostGapped(mean)
+            self.redone += 1
+            hold *= 4
+
+    def kernel(self, fn) -> float:
+        """A kernel's time: one that includes the host's gaps fails the
+        run, since it would be printed as the kernel's device time."""
+        t = self(fn)
+        if isinstance(t, HostGapped):
+            raise PhaseFailed(f"a kernel's time ({t:.4f} ms) includes the "
+                              "host's gaps")
+        return t
 
 
-GRAPH_LAUNCHES = 200     # launches of one kernel in a graph_ms graph
+HOLD_CYCLES = 50_000_000  # a Timer call's first hold (~25 ms at 2 GHz)
+HOLD_LIMIT = 3.2e9       # the longest hold a Timer tries (~1.6 s at 2 GHz)
+GRAPH_LAUNCHES = 100     # launches of one kernel in a graph_ms graph
 
 
 def graph_ms(torch, fn, n: int = GRAPH_LAUNCHES) -> float:
@@ -382,7 +523,7 @@ def check_quant_matmul(torch, timer, failures):
               f"quant_matmul M={m} K={k} N={n} packed={packed} "
               f"differs from plain (max abs {err})")
         wc = unpack_int4(wq) if packed else wq
-        t_k = timer(lambda: quant_matmul(xq, sx, wq, sw,
+        t_k = timer.kernel(lambda: quant_matmul(xq, sx, wq, sw,
                                          w_packed=packed))
         t_p = timer(lambda: quant_matmul_plain(xq, sx, wq, sw,
                                                w_packed=packed))
@@ -517,7 +658,7 @@ def check_lowrank_qmm(torch, timer, failures):
         check(failures, torch.equal(single, ref),
               f"ops.lrmm(fused=False) M={m} K={k} R={r} N={n} W{wl}A{act_wl} "
               f"differs from plain")
-        t_k = timer(lambda: lowrank_qmm(*args, **kw))
+        t_k = timer.kernel(lambda: lowrank_qmm(*args, **kw))
         t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
         t_l = library_ms(timer, chain)
         t_g = graph_ms(torch, lambda: lowrank_qmm(*args, **kw))
@@ -616,7 +757,7 @@ def check_expert_stacks(torch, timer, failures):
             b_ms, b_by = bound(qmm_hbm_bytes(c, node), 2 * e * c * k * n,
                                PEAK_OPS_INT8)
             row = dict(e=e, m=c, k=k, n=n, packed=wp,
-                       ms=timer(lambda: quant_matmul(xq, sx, wq, sw,
+                       ms=timer.kernel(lambda: quant_matmul(xq, sx, wq, sw,
                                                      w_packed=wp)),
                        plain_ms=timer(lambda: quant_matmul_plain(
                            xq, sx, wq, sw, w_packed=wp)),
@@ -657,7 +798,7 @@ def check_expert_stacks(torch, timer, failures):
             b_ms, b_by = bound(lrmm_hbm_bytes(c, node),
                                2 * e * c * r * (k + n), PEAK_OPS_INT8)
             row = dict(e=e, m=c, k=k, r=r, n=n, wl=4, act_wl=8,
-                       ms=timer(lambda: lowrank_qmm(*args, **kw)),
+                       ms=timer.kernel(lambda: lowrank_qmm(*args, **kw)),
                        plain_ms=timer(lambda: lowrank_qmm_plain(*args, **kw)),
                        library_ms=graph_ms(torch, l_chain, n=3),
                        bound_ms=b_ms, bound_by=b_by,
@@ -688,10 +829,24 @@ def slower_than_plain(name, rows, keys) -> None:
 # version, as (bm, K, R, N, w1_packed, w2_packed, E): the keys of its
 # launches in build.LAUNCH_SHAPES
 COMPARED: set = set()
+# ... and quant_matmul's (K, N) shapes that phase 2 compared
+COMPARED_QMM: set = set()
 # phase 2's rows by case, read by the dse phase:
 # ("quant_matmul", M, K, N, packed), ("lowrank_qmm", M, K, R, N, wl, act_wl)
 TIMED: dict = {}
 DSE_BATCHES = (8, 512)   # co_design's batch_m: serve's decode rows, fig11's
+
+
+def note_compared() -> None:
+    """Add the launch keys counted since the last reset (phase 2's) to
+    COMPARED and COMPARED_QMM."""
+    from repro_torch.kernels import build
+
+    for key in build.LAUNCH_SHAPES:
+        if key[0] == "lowrank_qmm":
+            COMPARED.add(key[1:])
+        elif key[0] == "quant_matmul":
+            COMPARED_QMM.add(key[1:])
 
 
 def check_compared(failures, label) -> None:
@@ -823,7 +978,7 @@ def check_paged_attention(torch, timer, failures):
             mask = (torch.arange(s, device="cuda")[None, None, :]
                     <= pos[:, :, None])[:, None]
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            t_k = timer(lambda: paged_attention(q, pool, table, ctx_t))
+            t_k = timer.kernel(lambda: paged_attention(q, pool, table, ctx_t))
             t_p = timer(lambda: span_attend_gather(q, pool, table, ctx_t))
             t_l = library_ms(timer, lambda: sdpa(qq, kk, vv, attn_mask=mask))
             nbytes, flops = launch_work(table.tolist(), ctx, w, bs, h, dh,
@@ -854,11 +1009,15 @@ def check_paged_attention(torch, timer, failures):
 # under ITERA W4A8 r0.5 (R 1792, and 1024 for wk and wv) and quant-only
 # W4A8, its tied head a dense bf16 product; its generate takes 1-8 rows a
 # decode step and up to 4,123 in a prefill or forward (the row counts
-# above cover each launch's tile rows).
+# above cover each launch's tile rows). The nemotron phase's
+# nemotron-4-340b (d_model 18432, 96 heads of 192 over 8, relu2 d_ff 73728,
+# vocab 256,000) under ITERA W4A8 at rank fraction 0.0625 (R 1152, and 64
+# for wk and wv) and quant-only W4A8, both with the W8A8 lm head, K 18432
+# -> N 256,000.
 BF16_RANK_FRACTION = 0.5
 BF16_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 BF16_TIMED_ROWS = (8, 2048)       # of those, the rows phase 2 also times
-BF16_ATTN = ((40, 10, 128), (32, 8, 160))     # (H, Hk, Dh) of each model
+BF16_ATTN = ((40, 10, 128), (32, 8, 160), (96, 8, 192))  # (H, Hk, Dh)
 TOL_ULP_SHARE = 1e-4     # bf16 attention: share of outputs 1 ulp apart
 # untimed bf16 attention comparisons: a decode whose longest row reaches
 # 4096 keys (8 key splits), and key splits forced mid-block (W 1 and 256)
@@ -868,15 +1027,19 @@ BF16_FORCED_SPLITS = ((1, 100), (256, 200))   # (W, keys_per_split)
 
 
 def bf16_geometry():
-    """The bf16 and gemma2 phases' linears: {(K, N): (wl, packed)} of
-    quant_matmul (the quant-only plans' layer linears and the W8 lm heads)
-    and {(K, R, N)} of lowrank_qmm (the mixed plans'), from the three
-    configs."""
+    """The bf16, gemma2 and nemotron phases' linears: {(K, N): (wl,
+    packed)} of quant_matmul (the quant-only plans' layer linears and the
+    W8 lm heads) and {(K, R, N)} of lowrank_qmm (the mixed plans', at the
+    ranks their uniform plans give), from the four configs."""
     from repro_torch.configs import get_config
+    from repro_torch.core.compress import CompressionConfig
     from repro_torch.core.quant import packs
 
+    fractions = {"phi3-medium-14b": BF16_RANK_FRACTION, "stablelm-12b": None,
+                 "gemma2-9b": GEMMA2_RANK_FRACTION,
+                 "nemotron-4-340b": NEMOTRON_RANK_FRACTION}
     qmm, lrmm = {}, set()
-    for arch in ("phi3-medium-14b", "stablelm-12b", "gemma2-9b"):
+    for arch, fraction in fractions.items():
         c = get_config(arch)
         d, f = c.d_model, c.d_ff
         q, kv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
@@ -885,11 +1048,10 @@ def bf16_geometry():
             qmm[k, n] = (4, packs(4, n))
         if not c.tie_embeddings:
             qmm[d, c.vocab_size] = (8, False)           # the W8 lm head
-        if arch != "stablelm-12b":
-            fraction = (BF16_RANK_FRACTION if arch == "phi3-medium-14b"
-                        else GEMMA2_RANK_FRACTION)
+        if fraction is not None:
+            rule = CompressionConfig(rank_fraction=fraction)
             for k, n in shapes:
-                lrmm.add((k, int(min(k, n) * fraction), n))
+                lrmm.add((k, rule.rank_for("", (k, n)), n))
     return qmm, sorted(lrmm)
 
 
@@ -914,7 +1076,7 @@ def check_bf16_kernels(torch, timer, failures):
     """Phase 2 for the bf16 models: both integer kernels with their bf16
     epilogue at every (rows, K, [R,] N) a bf16 serve step launches,
     bit-equal to the plain versions (timed at 8 and 2048 rows), and
-    paged attention at bf16 with a bf16 or int8 pool, Dh 128 and 160,
+    paged attention at bf16 with a bf16 or int8 pool, Dh 128, 160 and 192,
     decode and a W 256 prefill (timed), a 4096-key decode and forced key
     splits (untimed), within one bf16 ulp on at most TOL_ULP_SHARE of the
     outputs. Returns {kernel: worst max abs error}."""
@@ -941,6 +1103,9 @@ def check_bf16_kernels(torch, timer, failures):
     print("  bf16 quant_matmul: M K N packed | kernel_ms plain_ms "
           "library_ms bound_us (bound by) | graph_us")
     for (k, n), (wl, packed) in sorted(qmm_shapes.items()):
+        # the widest shapes' plain versions take GBs of float64 blocks: a
+        # cache full of other shapes' blocks would make them wait on frees
+        torch.cuda.empty_cache()
         qm = 7 if wl == 4 else 127
         w = torch.randint(-qm, qm + 1, (k, n), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -964,7 +1129,7 @@ def check_bf16_kernels(torch, timer, failures):
                   f"plain (max abs {err})")
             if m not in BF16_TIMED_ROWS:
                 continue
-            t_k = timer(lambda: quant_matmul(*args, **kw))
+            t_k = timer.kernel(lambda: quant_matmul(*args, **kw))
             t_p = timer(lambda: quant_matmul_plain(*args, **kw))
             t_l = library_ms(timer, lambda: (
                 int_mm(torch, xq, w).float() * sx * sw).to(bf))
@@ -980,6 +1145,7 @@ def check_bf16_kernels(torch, timer, failures):
     print("  bf16 lowrank_qmm: M K R N | kernel_ms plain_ms library_ms "
           "bound_us (bound by) | graph_us")
     for k, r, n in lrmm_shapes:
+        torch.cuda.empty_cache()
         w1c = torch.randint(-7, 8, (k, r), generator=g, device="cuda",
                             dtype=torch.int8)
         w2c = torch.randint(-7, 8, (r, n), generator=g, device="cuda",
@@ -1013,7 +1179,7 @@ def check_bf16_kernels(torch, timer, failures):
                 tq, st = requant_rows(t, 127)
                 return (int_mm(torch, tq, w2c).float() * st).to(bf)
 
-            t_k = timer(lambda: lowrank_qmm(*args, **kw))
+            t_k = timer.kernel(lambda: lowrank_qmm(*args, **kw))
             t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
             t_l = library_ms(timer, chain)
             node = LowRankQ(QuantizedTensor(w1, s1, 4, 0, packed=w1p),
@@ -1067,7 +1233,8 @@ def check_bf16_kernels(torch, timer, failures):
                 pos = ctx_t.long()[:, None] + torch.arange(w, device="cuda")
                 mask = (torch.arange(s, device="cuda")[None, None, :]
                         <= pos[:, :, None])[:, None]
-                t_k = timer(lambda: paged_attention(q, pool, table, ctx_t))
+                t_k = timer.kernel(lambda: paged_attention(q, pool, table,
+                                                           ctx_t))
                 t_p = timer(lambda: span_attend_gather(q, pool, table,
                                                        ctx_t))
                 t_l = library_ms(timer, lambda: sdpa(qq, kk, vv,
@@ -1121,10 +1288,10 @@ def check_large_ranks(torch, timer, failures):
     """lowrank_qmm at LARGE_RANKS, W4 packed where the rule packs, M 8 and
     2048 rows (each expert's), an fp32 and a bf16 Y: bit-equal to the
     plain version, and timed (bf16 Y) beside the bound, the plain version
-    and the `_int_mm` chain (one matrix). Also compares the bf16 phase's
-    and the gemma2 phase's served ranks with an fp32 Y at those rows (the
-    bf16 Y is compared in `check_bf16_kernels`). Returns the worst max
-    abs error."""
+    and the `_int_mm` chain (one matrix; looped over an expert stack's E
+    in one CUDA graph). Also compares the bf16, gemma2 and nemotron phases'
+    served ranks with an fp32 Y at those rows (the bf16 Y is compared in
+    `check_bf16_kernels`). Returns the worst max abs error."""
     from repro_torch.core.itera import LowRankQ
     from repro_torch.core.quant import QuantizedTensor, pack_int4, packable
     from repro_torch.hw.h100_model import NUM_SMS, PEAK_OPS_INT8
@@ -1182,9 +1349,20 @@ def check_large_ranks(torch, timer, failures):
                 return (int_mm(torch, tq, w2c).float() * st).to(
                     torch.bfloat16)
 
-            t_k = timer(lambda: lr.lowrank_qmm(*args, **kw))
+            def looped():
+                for i in range(e):
+                    t = int_mm(torch, xq[i], w1c[i]).float() * sx[i] * \
+                        s1[i] * s2[i].reshape(1, -1)
+                    tq, st = requant_rows(t, 127)
+                    (int_mm(torch, tq, w2c[i]).float() * st).to(
+                        torch.bfloat16)
+
+            t_k = timer.kernel(lambda: lr.lowrank_qmm(*args, **kw))
             t_p = timer(lambda: lr.lowrank_qmm_plain(*args, **kw))
-            t_l = library_ms(timer, chain) if e == 1 else None
+            # an expert stack's yardstick: the chain looped over E,
+            # replayed in one CUDA graph, as the moe rows'
+            t_l = (library_ms(timer, chain) if e == 1
+                   else graph_ms(torch, looped, n=3))
             node = LowRankQ(QuantizedTensor(w1, s1, 4, 0, packed=w1p),
                             QuantizedTensor(w2, s2, 4, 1, packed=w2p))
             b_ms, b_by = bound(lrmm_hbm_bytes(m, node, out_bytes=2),
@@ -2320,7 +2498,10 @@ def launch_counts():
             dict(build.LAUNCH_RANKS))
 
 
-GRAPH_ROUNDS = 2         # interleaved eager / captured timing rounds
+GRAPH_ROUNDS = 1         # interleaved eager / captured timing rounds
+# the graphs phase's serves: the workload's first requests, and the new
+# tokens of its serves and generates
+GRAPHS_REQS, GRAPHS_TOKENS = 8, 16
 
 
 def graphs_phase(torch, cfg, engines, reqs, failures):
@@ -2329,13 +2510,14 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
     `engines` ({label: captured engine}: the mixed plan with fp32 and int8
     KV, the quant-only plan): greedy, sampled (temperature 0.8, top-k 50,
     top-p 0.9, seed 7), stopped (eos ids and stop sequences from the
-    sampled run) and speculative (DraftSpec(**SPEC)) serves of the 16
-    requests, and greedy and sampled generates of the RECT prompts, 32
-    tokens each: identical tokens and identical launch counters, every
-    lowrank_qmm launch on a code path phase 2 compared. Prints the graphs
-    captured, their capture seconds and the device bytes they reserved.
-    Then GRAPH_ROUNDS interleaved rounds (eager, captured; captured,
-    eager; ...) of the mixed kv16 plan's serve of the 16 requests and
+    sampled run) and speculative (DraftSpec(**SPEC)) serves of the first
+    GRAPHS_REQS requests, and greedy and sampled generates of the RECT
+    prompts, GRAPHS_TOKENS tokens each: identical tokens and identical
+    launch counters, every lowrank_qmm launch on a code path phase 2
+    compared; each case's seconds (both runs) printed. Prints the graphs
+    captured, their capture seconds and the device bytes they reserved. Then GRAPH_ROUNDS interleaved rounds (eager,
+    captured; captured, eager; ...) of the mixed kv16 plan's serve of
+    those requests and
     generate of the RECT prompts (a generate of one token for its
     prefill): median, min and max of TPOT p50, TTFT p50 and tok/s, and of
     prefill ms and decode ms a step; and one eager and one captured serve
@@ -2348,7 +2530,8 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
     from repro_torch.runtime.speculation import DraftSpec
 
     prompts = markov_prompts(cfg)
-    n = 32
+    reqs = reqs[:GRAPHS_REQS]
+    n = GRAPHS_TOKENS
     sp = SamplingParams(max_tokens=n)
     sps = SamplingParams(max_tokens=n, temperature=0.8, top_k=50, top_p=0.9,
                          seed=7)
@@ -2375,9 +2558,9 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
         captured += [eng, spec[True]]
         sampled = eng.serve(reqs, sps).outputs
         stops = {1: {"eos_id": int(sampled[1][8])},
-                 6: {"eos_id": int(sampled[6][20])},
-                 10: {"stop": ((int(sampled[10][5]),
-                                int(sampled[10][6])),)}}
+                 6: {"eos_id": int(sampled[6][12])},
+                 7: {"stop": ((int(sampled[7][5]),
+                               int(sampled[7][6])),)}}
         stopped = [Request(tokens=t, **stops.get(i, {}))
                    for i, t in enumerate(reqs)]
         # what -> (whether the speculative engines run it, the run)
@@ -2390,6 +2573,7 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
                  "sampled generate": (False,
                                       lambda e: e.generate(prompts, sps))}
         for what, (speculative, fn) in cases.items():
+            t0 = time.perf_counter()
             pair = (spec[True], spec[False]) if speculative else (eng, eager)
             (got, c_got), (want, c_want) = (run(lambda: fn(e)) for e in pair)
             check_compared(failures, f"graphs {label} {what}")
@@ -2405,7 +2589,8 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
                     else f"{got.seconds * 1e3:.1f} ms (eager "
                     f"{want.seconds * 1e3:.1f})")
             print(f"[graphs] {label} {what}: captured == eager: {same}; "
-                  f"{pace}; launches {c_got[0]}")
+                  f"{pace}; launches {c_got[0]}; "
+                  f"{time.perf_counter() - t0:.1f} s")
     st = {"graphs": 0, "capture_seconds": 0.0, "pool_bytes": 0}
     for e in captured:
         for k, v in e.graph_stats().items():
@@ -2462,9 +2647,10 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
 
 # ---------------------------------------------------------------- train --
 
-TRAIN = dict(batch=8, seq=128, steps=300, lr=1e-3, ckpt_every=100,
-             fail_at=150)
-REMAT_STEPS = 20         # steps a remat setting, the first 3 untimed
+# the failure lies between the first two checkpoints
+TRAIN = dict(batch=8, seq=128, steps=200, lr=1e-3, ckpt_every=50,
+             fail_at=75)
+REMAT_STEPS = 12         # steps a remat setting, the first 3 untimed
 # a training-size batch for the remat trade (16,384 tokens a step); its
 # first 2 steps untimed
 TRAIN_BIG = dict(batch=32, seq=512, steps=8)
@@ -2612,6 +2798,46 @@ def train_cli_check(torch, cfg, out_dir, failures) -> None:
           "finite")
 
 
+FRONTEND_CLI = dict(arch="musicgen-medium", steps=4, batch=4, seq=32)
+
+
+def frontend_cli_check(torch, out_dir, failures) -> None:
+    """launch/train.py's `main` for a modality-frontend arch (musicgen's
+    smoke config, audio: each batch lifted to rows of the seeded table,
+    `runtime.prng.normal`, drawn on the run's device) for FRONTEND_CLI's
+    steps on the CPU, then on the card from the CPU run's step-0
+    checkpoint (`init_params` draws other weights on each device):
+    finite losses, equal within CARD_CPU_TOL relative."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    c = FRONTEND_CLI
+    argv = ["--arch", c["arch"], "--smoke", "--steps", str(c["steps"]),
+            "--batch", str(c["batch"]), "--seq", str(c["seq"])]
+    cpu_dir, card_dir = out_dir / "frontend_cpu", out_dir / "frontend"
+    cpu = train.main(argv + ["--ckpt-dir", str(cpu_dir), "--device", "cpu"])
+    card_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copytree(cpu_dir / "step_00000000", card_dir / "step_00000000")
+    t0 = time.perf_counter()
+    card = train.main(argv + ["--ckpt-dir", str(card_dir), "--resume"])
+    wall = time.perf_counter() - t0
+    for d in (cpu_dir, card_dir):
+        shutil.rmtree(d)
+    worst = max((abs(a - b) / abs(b) for a, b in zip(card, cpu)),
+                default=0.0)
+    print(f"[train] CLI {c['arch']} --smoke (audio frontend, lifted "
+          f"embeddings) on the card from the CPU run's step-0 checkpoint in "
+          f"{wall:.1f} s: losses " + " ".join(f"{x:.6f}" for x in card)
+          + f"; the CPU's within {worst:.3e} relative")
+    check(failures, len(card) == len(cpu) == c["steps"]
+          and bool(np.all(np.isfinite(card))) and worst <= CARD_CPU_TOL,
+          f"train: the {c['arch']} CLI's card losses {card} against the "
+          f"CPU's {cpu}")
+
+
 def train_phase(torch, cfg, failures):
     """Training on the card, then the trained model compressed and served.
 
@@ -2747,6 +2973,7 @@ def train_phase(torch, cfg, failures):
 
     # (a') the train CLI on the card ----------------------------------------
     train_cli_check(torch, cfg, out_dir, failures)
+    frontend_cli_check(torch, out_dir, failures)
 
     # (b) card against the CPU ----------------------------------------------
     step = make_accum_train_step(cfg, opt_cfg, 1)
@@ -2884,7 +3111,7 @@ def train_phase(torch, cfg, failures):
 
 
 # ------------------------------------------------------------ moe phase --
-MOE_DEPTH = 4            # of deepseek-moe-16b's 28 layers
+MOE_DEPTH = 1            # of deepseek-moe-16b's 28 layers
 # ITERA's power iterations a rank-1 step in the moe phase (the plans'
 # default is 24), for the phase's time: it compresses 4 x 3 stacks of 64
 # experts at R 704 on the card. The phase prints one stack's error at
@@ -2953,7 +3180,7 @@ def routing_stats(records, num_experts: int) -> dict:
 
 
 def moe_phase(torch, failures):
-    """deepseek-moe-16b at its published widths, 4 of its 28 layers, fp32,
+    """deepseek-moe-16b at its published widths, 1 of its 28 layers, fp32,
     seed-0 random weights, compressed on the card under the mixed and the
     quant-only plan; served captured (greedy fp32 and int8 KV, sampled)
     and eagerly, with every step's launches checked exactly; routing
@@ -3137,46 +3364,48 @@ def moe_phase(torch, failures):
 
 
 # ----------------------------------------------------------- bf16 phase --
-BF16_DEPTH = 2           # of phi3-medium-14b's 40 layers
-BF16_STABLELM_DEPTH = 2  # of stablelm-12b's 40
+# of phi3-medium-14b's and stablelm-12b's 40 layers
+BF16_DEPTH = 1
+BF16_STABLELM_DEPTH = 1
 # ITERA's power iterations a rank-1 step in the bf16 phase (the plans'
 # default is 24), for the phase's time, as the moe phase's
 BF16_POWER_ITERS = 4
 
 
-def bf16_mixed_plan(params):
-    """The bf16 phase's mixed plan: ITERA W4A8 at the reference's default
-    rank fraction 0.5 for every attention and MLP linear (R 2560 at
-    phi3's 5120-wide factors, wide rank slices with T on chip) and the
-    W8A8 lm head."""
+def bf16_mixed_plan(params, rank_fraction=BF16_RANK_FRACTION):
+    """The bf16 and nemotron phases' mixed plan: ITERA W4A8 for every
+    attention and MLP linear, at the reference's default rank fraction 0.5
+    in the bf16 phase (R 2560 at phi3's 5120-wide factors, wide rank
+    slices with T on chip), and the W8A8 lm head."""
     from repro_torch.api.plan import CompressionPlan, LayerPlan
 
     base = CompressionPlan.uniform(params, method="itera", weight_wl=4,
-                                   rank_fraction=BF16_RANK_FRACTION,
+                                   rank_fraction=rank_fraction,
                                    exclude=EXCLUDE,
                                    power_iters=BF16_POWER_ITERS)
     return base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
                                                         8),),
-                        label=f"itera_W4A8_r{BF16_RANK_FRACTION}"
-                              "+lm_head_W8A8")
+                        label=f"itera_W4A8_r{rank_fraction}+lm_head_W8A8")
 
 
 def dense_launches(cfg, plan: str) -> dict:
-    """Kernel launches of one serve step of a dense model: each layer's 7
-    linears (wq, wk, wv, wo, gate, up, down) and its attention, and the
-    lm head."""
-    n = 7 * cfg.num_layers
+    """Kernel launches of one serve step of a dense model: each layer's
+    linears (wq, wk, wv, wo, up, down, and gate where the MLP is gated:
+    SwiGLU, GeGLU) and its attention, and the lm head."""
+    n = (6 + (cfg.mlp_act in ("swiglu", "geglu"))) * cfg.num_layers
     if plan == "mixed":
         return {"lowrank_qmm": n, "quant_matmul": 1,
                 "paged_attention": cfg.num_layers}
     return {"quant_matmul": n + 1, "paged_attention": cfg.num_layers}
 
 
-def bf16_serves(torch, name, per_step, reqs, runs, failures, launches):
+def bf16_serves(torch, name, per_step, reqs, runs, failures, launches,
+                tag="bf16"):
     """Serve `reqs` for each (label, engine, sampling) of `runs`, each
     with the launch counters zeroed just before: launches exact a step,
-    every lowrank_qmm launch on a compared code path, outputs in range.
-    Returns {label: ServeResult}."""
+    every lowrank_qmm launch on a compared code path and every
+    quant_matmul launch at a compared (K, N), outputs in range. Returns
+    {label: ServeResult}."""
     import numpy as np
 
     from repro_torch.kernels import build
@@ -3188,16 +3417,21 @@ def bf16_serves(torch, name, per_step, reqs, runs, failures, launches):
         torch.cuda.synchronize()
         counts = dict(build.LAUNCHES)
         launches.update(counts)
-        check_compared(failures, f"bf16 {name} {label}")
+        check_compared(failures, f"{tag} {name} {label}")
+        qmm = {key[1:] for key in build.LAUNCH_SHAPES
+               if key[0] == "quant_matmul"}
+        check(failures, qmm <= COMPARED_QMM,
+              f"{tag} {name} {label}: quant_matmul launched at (K, N) "
+              f"{sorted(qmm - COMPARED_QMM)}, which phase 2 did not compare")
         want = {k: v * res.steps for k, v in per_step.items()}
         check(failures, counts == want,
-              f"bf16 {name} {label}: launches {counts} over {res.steps} "
+              f"{tag} {name} {label}: launches {counts} over {res.steps} "
               f"steps, expected {per_step} a step")
         toks = np.stack(res.outputs)
         check(failures, toks.shape == (len(reqs), sp.max_tokens) and bool(
             ((toks >= 0) & (toks < e.cfg.vocab_size)).all()),
-            f"bf16 {name} {label}: outputs {toks.shape} out of range")
-        print(f"[bf16] {name} {label}: {res.total_tokens} tokens, prompts "
+            f"{tag} {name} {label}: outputs {toks.shape} out of range")
+        print(f"[{tag}] {name} {label}: {res.total_tokens} tokens, prompts "
               f"{min(res.prompt_lens)}-{max(res.prompt_lens)}, {res.steps} "
               f"steps; TPOT p50 {res.tpot_p50 * 1e3:.2f} ms, TTFT p50 "
               f"{res.ttft_p50 * 1e3:.1f} ms, {res.tokens_per_second:.1f} "
@@ -3207,12 +3441,12 @@ def bf16_serves(torch, name, per_step, reqs, runs, failures, launches):
 
 
 def bf16_phase(torch, failures):
-    """phi3-medium-14b at its published widths in bfloat16, 2 of its 40
+    """phi3-medium-14b at its published widths in bfloat16, 1 of its 40
     layers, seed-0 random weights, compressed on the card under the mixed
     plan (ITERA W4A8 r0.5, W8A8 lm head) and quant-only W4A8; served
     captured (greedy with a bf16 and an int8 pool, seeded sampled) and
     eagerly, launches exact a step; stablelm-12b (Dh 160, LayerNorm,
-    partial rotary), 2 of 40 layers, quant-only, greedy at both pools;
+    partial rotary), 1 of 40 layers, quant-only, greedy at both pools;
     card == CPU for 4 short requests on every one of those paths.
     Returns the phase's launches."""
     import numpy as np
@@ -3502,6 +3736,119 @@ def gemma2_phase(torch, failures):
     return dict(launches)
 
 
+# ------------------------------------------------------- nemotron phase --
+NEMOTRON_DEPTH = 1       # of nemotron-4-340b's 96 layers
+# ITERA's rank fraction in the nemotron phase: R 1152 at the 18432-wide
+# factors, 64 at wk and wv (rank_multiple 64). At the reference's default
+# 0.5 (R 9216) Alg. 1 takes about ten minutes a layer on the card: each of
+# its rank-1 steps reads the float32 residual of `up` (5.4 GB) about nine
+# times at 4 power iterations (PERF.md section 4)
+NEMOTRON_RANK_FRACTION = 0.0625
+NEMOTRON_SHORT = (16, 27, 38, 48)   # prompt tokens of the card == CPU serves
+
+
+def nemotron_phase(torch, failures):
+    """nemotron-4-340b at its published widths in bfloat16 (d_model 18432,
+    96 heads of 192 over 8 KV heads, squared-ReLU d_ff 73728, LayerNorm,
+    half the head dims rotary, vocab 256,000), NEMOTRON_DEPTH of its 96
+    layers, seed-0 random weights, compressed on the card under the mixed
+    plan (ITERA W4A8 r0.0625: R 1152 and 64, W8A8 lm head) and quant-only
+    W4A8; 8 requests of 32-256 prompt tokens, 16 new, served captured,
+    greedy with a bf16 and an int8 pool: launches exactly 6 lowrank_qmm +
+    1 quant_matmul + 1 paged_attention (mixed) or 7 quant_matmul + 1
+    paged_attention (quant-only) a step, every launch at a shape phase 2
+    compared; a profile of each plan's serve; card == CPU for 4 short
+    requests, 8 new, on every one of those paths. Returns the phase's
+    launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
+                                        params_to)
+    from repro_torch.configs import get_config
+    from repro_torch.hw.h100_model import NUM_SMS
+    from repro_torch.kernels import lowrank_qmm as lr
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    launches: collections.Counter = collections.Counter()
+    cfg = dataclasses.replace(get_config("nemotron-4-340b"),
+                              num_layers=NEMOTRON_DEPTH)
+    print(f"[nemotron] {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.head_dim} over {cfg.num_kv_heads} KV heads, d_ff "
+          f"{cfg.d_ff} {cfg.mlp_act}, {cfg.norm}, rotary {cfg.rotary_pct}, "
+          f"vocab {cfg.vocab_size}; depth {NEMOTRON_DEPTH} of 96, "
+          f"{cfg.dtype}: {cfg.param_count() / 1e9:.3f} B parameters; "
+          f"{card_line()}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[nemotron] dense {cfg.dtype} weights made on the card in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engines = {}
+    mixed = functools.partial(bf16_mixed_plan,
+                              rank_fraction=NEMOTRON_RANK_FRACTION)
+    for name, make in (("mixed", mixed), ("quant-only", quant_plan)):
+        t0 = time.perf_counter()
+        eng = InferenceEngine.build(cfg, make(params), params=params,
+                                    device="cuda", max_batch=8,
+                                    block_size=16)
+        torch.cuda.synchronize()
+        print(f"[nemotron] {name} ({eng.plan.label}): compressed on the "
+              f"card in {time.perf_counter() - t0:.1f} s; weights "
+              f"{eng.weight_hbm_bytes() / 2**30:.2f} GiB; "
+              f"{eng.report.summary()}")
+        engines[name] = eng
+    del params
+    torch.cuda.empty_cache()
+    _, served = bf16_geometry()
+    d = cfg.d_model
+    for k, r, n in served:
+        if d not in (k, n):
+            continue
+        for m in (8, 2048):
+            t = lr.choose_tiles(m, r, n, NUM_SMS, lr.smem_bytes)
+            print(f"[nemotron] lowrank_qmm M {m} K {k} R {r} N {n}: "
+                  f"{t.path} path, rank slices of {t.rs} columns, bm "
+                  f"{t.bm}, cluster {t.cluster}")
+    rng = np.random.default_rng(25)
+    reqs = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(32, 257, 8)]
+    short = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+             for n in NEMOTRON_SHORT]
+    sp, sp8 = SamplingParams(max_tokens=16), SamplingParams(max_tokens=8)
+    for name, eng in engines.items():
+        per_step = dense_launches(cfg, "mixed" if name == "mixed"
+                                  else "quant")
+        eng8 = InferenceEngine(dataclasses.replace(cfg, kv_cache_bits=8),
+                               eng.params, device=eng.device, plan=eng.plan,
+                               max_batch=8, block_size=16)
+        runs = [("greedy bf16 KV", eng, sp), ("greedy int8 KV", eng8, sp)]
+        for _, e, p in runs:                # warm-up: capture every shape
+            e.serve(reqs, p)
+        torch.cuda.synchronize()
+        bf16_serves(torch, name, per_step, reqs, runs, failures, launches,
+                    tag="nemotron")
+        profile_run(torch, lambda: eng.serve(reqs, sp).steps,
+                    f"nemotron {name} serve")
+        t0 = time.perf_counter()
+        cpu_params = params_to(eng.params, "cpu")
+        for kv, e in ((16, eng), (8, eng8)):
+            cpu = InferenceEngine(dataclasses.replace(cfg, kv_cache_bits=kv),
+                                  cpu_params, device=torch.device("cpu"),
+                                  plan=eng.plan, max_batch=8, block_size=16)
+            parity(torch, f"nemotron {name} kv{kv}", e, cpu, short, sp8,
+                   failures)
+            del cpu
+        print(f"[nemotron] {name}: CPU parity in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del cpu_params, eng8, runs
+    engines.clear()
+    torch.cuda.empty_cache()
+    print(f"[nemotron] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
+
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
     """`prompts` (equal lengths) generated on the card and on the CPU: the
     tokens must be identical; every card lowrank_qmm launch on a code path
@@ -3581,14 +3928,11 @@ def main() -> int:
     print(f"[build] {len(secs)} libraries built in "
           f"{time.perf_counter() - t0:.1f} s (per source: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
-    for name in build.SOURCES:
-        for line in build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    failures: list = []
+    print_ptxas(failures)
 
     # ---- 2. kernels vs their plain versions ----------------------------
     timer = Timer(torch)
-    failures: list = []
     build.reset_launches()
     kern = {"quant_matmul": check_quant_matmul(torch, timer, failures),
             "lowrank_qmm": check_lowrank_qmm(torch, timer, failures),
@@ -3601,8 +3945,8 @@ def main() -> int:
     kern["lowrank_qmm"]["max_abs_err"] = max(
         kern["lowrank_qmm"]["max_abs_err"],
         check_large_ranks(torch, timer, failures))
-    COMPARED.update(key[1:] for key in build.LAUNCH_SHAPES
-                    if key[0] == "lowrank_qmm")
+    note_compared()
+    print(f"[kernels] {timer.report()}")
     end_phase("kernels", failures)
     del timer
 
@@ -3763,6 +4107,12 @@ def main() -> int:
     for name, n in gemma2_phase(torch, failures).items():
         launches[name] += n
     end_phase("gemma2", failures)
+
+    # ---- nemotron-4-340b: Dh 192, six linears a layer, the widest linears --
+    failures = []
+    for name, n in nemotron_phase(torch, failures).items():
+        launches[name] += n
+    end_phase("nemotron", failures)
     return finish(torch, kern, launches)
 
 
@@ -3781,6 +4131,11 @@ def finish(torch, kern, launches) -> int:
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         for name, k in kern.items()]}
+    gapped = [f"{row['name']} {key}" for row in line["kernels"]
+              for key, v in row.items() if isinstance(v, HostGapped)]
+    if gapped:
+        raise PhaseFailed("the kernels' line would carry times that include "
+                          "the host's gaps: " + ", ".join(gapped))
     print(f"kernels checked: {', '.join(kern)} "
           f"(the whole script: {time.perf_counter() - T_START:.1f} s)")
     print(json.dumps(line))

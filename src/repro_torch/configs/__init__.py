@@ -1,19 +1,25 @@
 """Architecture registry of the port: opus-mt, and phi3-medium-14b,
-stablelm-12b and gemma2-9b (bfloat16 at full size; gemma2 with local and
-global attention layers in alternation) in the dense layout; the two
-mixture-of-experts architectures, deepseek-moe-16b and mixtral-8x22b. The
-other architectures of `repro.configs` come with later slices."""
+stablelm-12b, gemma2-9b (local and global attention layers in
+alternation), nemotron-4-340b (squared ReLU), and the two modality-frontend
+archs chameleon-34b and musicgen-medium (bfloat16 at full size) in the
+dense layout; the two mixture-of-experts architectures, deepseek-moe-16b
+and mixtral-8x22b. The Mamba architectures of `repro.configs`
+(falcon-mamba-7b, zamba2-2.7b) come with a later slice."""
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_moe_16b, gemma2_9b,
-                                 mixtral_8x22b, opus_mt, phi3_medium_14b,
+from repro_torch.configs import (chameleon_34b, deepseek_moe_16b,
+                                 gemma2_9b, mixtral_8x22b, musicgen_medium,
+                                 nemotron_4_340b, opus_mt, phi3_medium_14b,
                                  stablelm_12b)
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 _MODULES = {"opus-mt": opus_mt, "deepseek-moe-16b": deepseek_moe_16b,
             "mixtral-8x22b": mixtral_8x22b,
             "phi3-medium-14b": phi3_medium_14b,
-            "stablelm-12b": stablelm_12b, "gemma2-9b": gemma2_9b}
+            "stablelm-12b": stablelm_12b, "gemma2-9b": gemma2_9b,
+            "nemotron-4-340b": nemotron_4_340b,
+            "chameleon-34b": chameleon_34b,
+            "musicgen-medium": musicgen_medium}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

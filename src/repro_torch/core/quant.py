@@ -78,10 +78,35 @@ class QuantizedTensor:
                                    scale=self.scale.to(device))
 
 
+BLOCK_ELEMENTS = 2 ** 28  # elements of one column block (`column_blocks`)
+
+
+def column_blocks(t: torch.Tensor) -> list[slice]:
+    """Slices of `t`'s last axis, each taking at most BLOCK_ELEMENTS of
+    its elements (at least one column). Work that treats each column on
+    its own (a product's output columns, per-column scales) goes block by
+    block with no bit changed and bounded temporaries: a float64 copy of
+    an 18432 x 256,000 head's codes would take 37.7 GB."""
+    n = t.shape[-1]
+    cols = max(1, BLOCK_ELEMENTS * n // max(t.numel(), 1))
+    return [slice(j, j + cols) for j in range(0, max(n, 1), cols)]
+
+
 def quantize(x: torch.Tensor, wl: int, axis: int = 0) -> QuantizedTensor:
     """Symmetric per-vector quantization of `x`, scales shared along
-    `axis` (the reduction axis of the matmul the tensor feeds)."""
+    `axis` (the reduction axis of the matmul the tensor feeds). A tensor
+    of more than BLOCK_ELEMENTS elements whose scales run along another
+    axis than the last goes in `column_blocks`, each with its own scales
+    (a bfloat16 head of 18432 x 256,000 would otherwise take several
+    18.9 GB float32 copies at once)."""
     m = qmax(wl)
+    if (x.numel() > BLOCK_ELEMENTS and axis % x.ndim != x.ndim - 1
+            and x.shape[-1] > 1):
+        parts = [quantize(x[..., cols], wl, axis)
+                 for cols in column_blocks(x)]
+        return QuantizedTensor(torch.cat([p.values for p in parts], -1),
+                               torch.cat([p.scale for p in parts], -1), wl,
+                               axis)
     scale = symmetric_scale(x.abs().amax(dim=axis, keepdim=True), m)
     q = torch.clamp(torch.round(x / scale), -m, m).to(torch.int8)
     return QuantizedTensor(q, scale, wl, axis)

@@ -98,7 +98,8 @@
 // What bounds it: at decode the K/V bytes and latency (each CTA's chain
 // of loads, barriers and dependent products); a W 256 prefill tile the
 // FP64 tensor cores (6 * Dh flops a visible (query, key) pair: QK^T in
-// both passes and PV), then the float64 exp. Dh 32, 64, 128 and 160.
+// both passes and PV), then the float64 exp. Dh 32, 64, 128, 160 and
+// 192 (one CTA an SM at 192: `bf16_min_ctas`).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -759,12 +760,21 @@ __device__ __forceinline__ double bf16_score(double dot, float scale,
   return static_cast<double>(s);
 }
 
+// CTAs an SM the compiler plans registers for: two up to Dh 160 (at most
+// 128 registers a thread). At Dh 192 a warp's float64 output alone takes
+// 96 registers a thread (24 m8n8 tiles), and a CTA's shared memory
+// (108-140 KB) lets only one CTA on an SM at any split, so one it is: the
+// cap rises to 255 and nothing spills.
+__host__ __device__ constexpr int bf16_min_ctas(int dh) {
+  return dh > 160 ? 1 : 2;
+}
+
 // One CTA: QT query rows of a (batch row, kv head) against the keys
 // [rank * kps, ...) of the tile, rank being the CTA's rank in a cluster of
 // S (see the file's header). Warp w takes rows (w / WK) * 8 ... + 7 and,
 // of each 64-key stage, the 8-key n-tiles w % WK, w % WK + WK, ...
 template <int DH, int QT, bool QUANT>
-__global__ void __launch_bounds__(BTHREADS, 2)
+__global__ void __launch_bounds__(BTHREADS, bf16_min_ctas(DH))
 attend_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                    const void* __restrict__ kp, const void* __restrict__ vp,
                    const float* __restrict__ ks, const float* __restrict__ vs,
@@ -1180,7 +1190,7 @@ extern "C" long long paged_attention_bf16_smem_bytes(int qt, int dh,
 
 // q (B, W, H, Dh) bf16; k/v (NB, bs, Hk, Dh) bf16, or int8 with ks/vs
 // (NB, bs, Hk, 1) f32 scales when quant != 0; block_table (B, MB) i32;
-// ctx_lens (B,) i32; out (B, W, H, Dh) bf16. Dh in {32, 64, 128, 160};
+// ctx_lens (B,) i32; out (B, W, H, Dh) bf16. Dh in {32, 64, 128, 160, 192};
 // qt (query rows a tile) 8 or 64; each tile's keys go to the S <= 8 CTAs
 // of a cluster, kps keys each (S * kps >= MB * bs); scale is fp32
 // Dh^-0.5. Returns the launch's CUDA error.
@@ -1204,8 +1214,10 @@ extern "C" int paged_attention_bf16_launch(
                                               s);
   PB_CASE(32, BQT_DECODE) PB_CASE(64, BQT_DECODE)
   PB_CASE(128, BQT_DECODE) PB_CASE(160, BQT_DECODE)
+  PB_CASE(192, BQT_DECODE)
   PB_CASE(32, BQT_PREFILL) PB_CASE(64, BQT_PREFILL)
   PB_CASE(128, BQT_PREFILL) PB_CASE(160, BQT_PREFILL)
+  PB_CASE(192, BQT_PREFILL)
 #undef PB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

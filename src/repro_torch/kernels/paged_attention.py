@@ -29,7 +29,7 @@ points (`attend_bf16`): int8 K/V dequantized as code.astype(bf16) *
 scale.astype(bf16), scores rounded to fp32 and scaled in fp32, the
 softmax's p rounded to bfloat16 before the PV product, the output rounded
 to fp32 and then bfloat16. Between those points both versions compute in
-float64. The kernel takes this path for Dh 32, 64, 128 and 160, in two
+float64. The kernel takes this path for Dh 32, 64, 128, 160 and 192, in two
 passes over the keys (max and denominator, then P.V), both products on
 the FP64 tensor cores, the keys of a tile split over a thread-block
 cluster (`choose_bf16_splits`) whose CTAs combine their partials in rank
@@ -56,7 +56,7 @@ _SIGNATURES = {
     "paged_attention_bf16_smem_bytes": (ctypes.c_longlong, (_I,) * 4),
 }
 DH_FP32 = (32, 64, 128)          # head dims of the fp32 kernel
-DH_BF16 = (32, 64, 128, 160)     # head dims of the bfloat16 kernel
+DH_BF16 = (32, 64, 128, 160, 192)  # head dims of the bfloat16 kernel
 QT_DECODE, QT_PREFILL = 16, 64  # query rows per CTA of the two tile kinds
 STAGE_KEYS = 64                 # keys the kernel stages per step
 _WARPS = 4
@@ -224,9 +224,9 @@ def paged_attention(q, pool, block_table, ctx_lens, *,
     int32; ctx_lens (B,) int32. Returns (B, W, H, Dh) in q's dtype (a
     bfloat16 q takes `attend_bf16`'s rounding points on both devices;
     the kernel raises for a head dim it does not take, fp32 Dh 32 / 64 /
-    128, bfloat16 also 160): query (r, i) attends over the slots at positions
-    <= ctx_lens[r] + i of row r's block-table view, at every span position
-    of every row (the gather oracle's values; how many of them are real
+    128, bfloat16 also 160 and 192): query (r, i) attends over the slots
+    at positions <= ctx_lens[r] + i of row r's block-table view, at every
+    span position of every row (the gather oracle's values; how many of them are real
     tokens does not enter). keys_per_split overrides the kernel's key
     split (`choose_splits`, `choose_bf16_splits`); any positive count is
     exact, block-aligned or not (a bfloat16 q takes at most 8 splits)."""

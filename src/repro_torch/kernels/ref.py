@@ -5,9 +5,11 @@ for bit. They run on CPU and CUDA tensors alike.
 The int8 products are exact, and convert to float32 exactly as the int32
 accumulator of the reference does: on CUDA tensors in float64
 (`torch.matmul` has no int32 CUDA path, and every partial sum is an
-integer below K·127² < 2⁵³), on CPU tensors with `torch._int_mm`'s int32
-sums, which read the int8 codes as they lie (a float64 copy of an expert
-stack is what made a CPU step slow). Every function also takes a stack
+integer below K·127² < 2⁵³), taken in the weight's `column_blocks` (each
+column is its own exact sum, so the blocks change no bit); on CPU
+tensors with `torch._int_mm`'s int32 sums, which read the int8 codes as
+they lie (a float64 copy of an expert stack is what made a CPU step
+slow). Every function also takes a stack
 of matrices, (E, M, K) against (E, K, N): a mixture-of-experts layer's
 experts, each its own product.
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import symmetric_scale
+from repro_torch.core.quant import column_blocks, symmetric_scale
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -23,7 +25,10 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     returned as float32 (the value `acc.astype(f32)` of an int32
     accumulator)."""
     if a.device.type != "cpu":
-        return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        a64 = a.to(torch.float64)
+        parts = [torch.matmul(a64, b[..., cols].to(torch.float64))
+                 for cols in column_blocks(b)]
+        return (parts[0] if len(parts) == 1 else torch.cat(parts, -1)).to(
             torch.float32)
     if a.ndim == 3:
         return torch.stack([int_matmul(x, w) for x, w in zip(a, b)])

@@ -20,13 +20,19 @@ from repro_torch.optim import adamw
 
 def loss_and_grads(params, batch, cfg):
     """((loss, metrics), grads) of `transformer.loss_fn` at `params`;
-    grads has the tree of `params`. Nothing is recorded on `params`
-    themselves (their gradients are taken through detached views)."""
+    grads has the tree of `params`, zeros for a leaf the loss does not
+    read (the token embedding of a batch of `inputs_embeds`), as
+    `jax.grad` gives. Nothing is recorded on `params` themselves (their
+    gradients are taken through detached views)."""
     leaves = adamw.leaf_paths(params)
     live = [(p, t.detach().requires_grad_(True)) for p, t in leaves]
     with torch.enable_grad():
         loss, metrics = tfm.loss_fn(adamw.unflatten(live), batch, cfg)
-    grads = torch.autograd.grad(loss, [t for _, t in live])
+    # only a batch of `inputs_embeds` may leave a leaf out of the loss
+    grads = torch.autograd.grad(loss, [t for _, t in live],
+                                allow_unused="inputs_embeds" in batch)
+    grads = [torch.zeros_like(t) if g is None else g
+             for (_, t), g in zip(live, grads)]
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     return ((loss.detach(), metrics),

@@ -7,8 +7,11 @@ with gradient accumulation, checkpoints, and restart on failure
 
 It runs on the GPU; `--device cpu` runs on the CPU. Checkpoints are in
 the reference's format, so `--resume` continues a run of either package.
-Meshes and the modality frontends are not ported (`--mesh` takes one
-device only).
+The modality-frontend archs (chameleon-34b, musicgen-medium) train on
+embeddings: each batch's tokens become rows of a table drawn as the
+reference draws it, normal(fold_in(PRNGKey(seed), 7), (V, d)) * 0.02
+(`runtime.prng.normal`). Meshes are not ported (`--mesh` takes one device
+only).
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ from repro_torch.configs import get_config
 from repro_torch.data import pipeline
 from repro_torch.launch.steps import apply_grads, loss_and_grads
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import dtype_of
 from repro_torch.optim import adamw
+from repro_torch.runtime import prng
 from repro_torch.runtime.fault import ResilientLoop
 
 
@@ -55,6 +60,17 @@ def make_accum_train_step(cfg, opt_cfg, microbatches: int):
         return params, new_opt, {"loss": loss, **om}
 
     return train_step
+
+
+def frontend_table(cfg, seed: int, device="cpu") -> torch.Tensor:
+    """The frontend stub's embedding table, (V, d) in the model's dtype,
+    drawn on `device`: the reference's normal(fold_in(PRNGKey(seed), 7),
+    (V, d), dtype) * 0.02, the product rounded to the dtype as jax's
+    weakly typed one."""
+    dtype = dtype_of(cfg.dtype)
+    key = prng.fold_in(prng.prng_key(seed).to(device), 7)
+    table = prng.normal(key, (cfg.vocab_size, cfg.d_model), dtype)
+    return table * torch.tensor(0.02, dtype=dtype, device=device)
 
 
 def main(argv=None):
@@ -89,10 +105,6 @@ def main(argv=None):
     if device.type == "cuda":
         _full_fp32()
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.frontend in ("audio", "vision"):
-        raise NotImplementedError(f"the {cfg.frontend} frontend is not "
-                                  f"ported yet (ROADMAP A3: chameleon, "
-                                  f"musicgen)")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 20, 5),
                                 state_bits=args.opt_bits)
@@ -107,6 +119,10 @@ def main(argv=None):
         make = functools.partial(pipeline.hash_batch, args.seed,
                                  batch=args.batch, seq=args.seq,
                                  vocab=cfg.vocab_size, device=device)
+    if cfg.frontend in ("audio", "vision"):
+        table, tokens = frontend_table(cfg, args.seed, device), make
+        make = lambda s: pipeline.lift_to_embeddings(  # noqa: E731
+            tokens(s), table)
     train_step = make_accum_train_step(cfg, opt_cfg, args.microbatches)
 
     state = {"params": params, "opt": opt_state}

@@ -26,6 +26,11 @@ from repro_torch.core import compress as tcomp
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.optim import adamw as tadam
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def ref_params():

@@ -30,6 +30,11 @@ from repro_torch.core import itera as titera
 from repro_torch.core.compress import flatten
 from repro_torch.launch import serve as tserve
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 
 def lowrankish(seed, k, n, decay=0.15):
     """A decaying spectrum with sparse outliers, like trained LLM weights

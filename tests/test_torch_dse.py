@@ -27,6 +27,11 @@ from repro_torch.hw import dse as tdse
 from repro_torch.hw import h100_model as hm
 from repro_torch.launch import serve as tserve
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 
 def _to_port_tree(jp):
     """The reference's parameter tree as the port's (same paths)."""

@@ -31,6 +31,11 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as ttfm
 from repro_torch.runtime import kvblocks as tkv
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -281,7 +286,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.runtime.fault, repro_torch.checkpoint.ckpt, "
             "repro_torch.models.moe, repro_torch.configs.phi3_medium_14b, "
             "repro_torch.configs.stablelm_12b, "
-            "repro_torch.configs.gemma2_9b, repro_torch.kernels.lowrank_qmm; "
+            "repro_torch.configs.gemma2_9b, repro_torch.kernels.lowrank_qmm, "
+            "repro_torch.configs.nemotron_4_340b, "
+            "repro_torch.configs.chameleon_34b, "
+            "repro_torch.configs.musicgen_medium, repro_torch.runtime.prng; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -30,6 +30,11 @@ from repro_torch.configs.base import ModelConfig as TConfig
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttfm
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 # GQA (4 query heads on 2 kv heads), partial RoPE, SwiGLU, RMSNorm and
 # both soft-caps: the attention flavours opus-mt does not exercise
 GQA = dict(name="gqa-rope", layout="dense", num_layers=2, d_model=64,

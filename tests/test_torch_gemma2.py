@@ -32,6 +32,11 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as ttfm
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 ARCH = "gemma2-9b"
 CPU = torch.device("cpu")
 DTYPES = ["float32", "bfloat16"]

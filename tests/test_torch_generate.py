@@ -33,6 +33,11 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttfm
 from repro_torch.runtime.sampling import match_stop_host
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 WINDOWS = [None, 8]
 SAMPLED = dict(max_tokens=6, temperature=0.8, top_k=20, top_p=0.9, seed=3)

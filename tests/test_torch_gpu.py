@@ -1124,7 +1124,7 @@ def _assert_bf16_attention_close(o, ref):
     assert (diff > 0).float().mean().item() <= 1e-4
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128, 160])
+@pytest.mark.parametrize("dh", [32, 64, 128, 160, 192])
 @pytest.mark.parametrize("kv_bits", [16, 8])
 @pytest.mark.parametrize("ctx,ql,cap,kps", [
     ([37, 0, 5, 100], [1, 0, 1, 1], 0.0, None),    # decode, one idle row
@@ -1139,13 +1139,15 @@ def _assert_bf16_attention_close(o, ref):
 def test_paged_attention_bf16_equals_plain(cuda, dh, kv_bits, ctx, ql, cap,
                                            kps):
     """bf16 q over a bf16 pool (kv 16) or int8 codes with fp32 scales, Dh
-    32 to 160 (phi3 128, stablelm 160), 4 query heads a kv head, every
-    position of every row: decode tiles split over a cluster, up to 4096
-    keys, two of them a row; prefill tiles; a row whose keys fill its
-    whole block table; softcap; key splits forced mid-block. One launch a
-    call."""
+    32 to 192 (phi3 128, stablelm 160, nemotron 192), 4 query heads a kv
+    head (12 at Dh 192, nemotron's group, whose decode rows span two
+    tiles), every position of every row: decode tiles split over a
+    cluster, up to 4096 keys, two of them a row; prefill tiles; a row
+    whose keys fill its whole block table; softcap; key splits forced
+    mid-block. One launch a call."""
     rng = np.random.default_rng(dh + kv_bits + sum(ql) + sum(ctx))
-    q, pool, table, ctx_a, _ = _pa_case(rng, ctx, ql, kv_bits, g=4, hd=dh)
+    q, pool, table, ctx_a, _ = _pa_case(rng, ctx, ql, kv_bits,
+                                        g=12 if dh == 192 else 4, hd=dh)
     q = q.to(torch.bfloat16)
     if kv_bits == 16:
         pool = {k: v.to(torch.bfloat16) for k, v in pool.items()}

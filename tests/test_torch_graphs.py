@@ -31,6 +31,11 @@ from repro_torch.runtime import kvblocks as tkv
 from repro_torch.runtime import prng
 from repro_torch.runtime import speculation as tspec
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 SAMPLED = dict(max_tokens=6, temperature=0.8, top_k=20, top_p=0.9, seed=3)
 GEOMETRY = dict(max_batch=3, block_size=4, chunk_tokens=8)
 

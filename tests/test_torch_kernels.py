@@ -29,6 +29,11 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.models import attention as tattn
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 
 def _codes(rng, shape, wl):
     m = tquant.qmax(wl)
@@ -332,7 +337,8 @@ def test_attention_split_choice(b, hk, w, g, mb):
     (8, 10, 1, 4, 32), (8, 8, 1, 4, 32),      # the serving decode step
     (8, 10, 1, 4, 256), (8, 8, 1, 4, 256),    # ... at 4096 keys
     (8, 10, 256, 4, 32), (8, 8, 256, 4, 32),  # a W 256 prefill chunk
-    (1, 8, 256, 4, 32), (1, 1, 1, 1, 3), (2, 2, 3, 4, 9), (8, 8, 8, 1, 32)])
+    (1, 8, 256, 4, 32), (1, 1, 1, 1, 3), (2, 2, 3, 4, 9), (8, 8, 8, 1, 32),
+    (8, 8, 1, 12, 32), (8, 8, 256, 12, 32)])   # nemotron: a group of 12
 def test_bf16_attention_split_choice(b, hk, w, g, mb):
     """The bf16 kernel's plan: decode tiles (W*G <= 16) of 8 query rows,
     prefill tiles of 64; at most 8 splits (a portable cluster) of whole
@@ -341,7 +347,9 @@ def test_bf16_attention_split_choice(b, hk, w, g, mb):
     decode split within the two ring stages, so that one more stage a
     split would break one of those; the serving decode step of phi3 (Hk
     10) and stablelm (Hk 8) covers the card, and two of its CTAs fit an
-    SM; every head dim's CTA fits the card's limit."""
+    SM; nemotron's decode rows (a group of 12) take two 8-row tiles a kv
+    head and cover the card; every head dim's CTA fits the card's
+    limit."""
     bs, sms = 16, 132
     qt, kps, splits = tpa.choose_bf16_splits(b, hk, w, g, mb, bs, sms)
     assert qt == (8 if w * g <= 16 else 64)
@@ -361,6 +369,8 @@ def test_bf16_attention_split_choice(b, hk, w, g, mb):
             assert 2 * (smem + 1024) <= 233472
     if mb * bs == 4096 and w == 1:
         assert splits == 8
+    if (b, w, g) == (8, 1, 12):
+        assert qt == 8 and tiles == b * hk * 2 and tiles * splits >= sms
     for dh in tpa.DH_BF16:
         for quant in (False, True):
             assert tpa.bf16_smem_bytes(qt, dh, quant, splits) <= \
@@ -469,16 +479,18 @@ def test_bf16_split_mirror_equals_plain(splits, quant, cap):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-def test_bf16_split_mirror_matches_reference_oracle(quant):
+@pytest.mark.parametrize("dh,g", [(160, 4), (192, 12)])
+def test_bf16_split_mirror_matches_reference_oracle(dh, g, quant):
     """The split arithmetic at 3 splits against the reference's
     `_span_attend_gather` at bf16, as test_torch_bf16.py holds the plain
-    version: at most 0.1% of elements differ, each by at most 2^-7 of its
-    row's largest value."""
-    rng = np.random.default_rng(7 + quant)
-    q, pool, table, ctx = _bf16_attention_case(rng, quant, dh=160, hk=2,
-                                               g=4)
+    version, at stablelm's Dh 160 with a group of 4 and nemotron's Dh 192
+    with a group of 12: at most 0.1% of elements differ, each by at most
+    2^-7 of its row's largest value."""
+    rng = np.random.default_rng(7 + quant + (0 if dh == 160 else dh))
+    q, pool, table, ctx = _bf16_attention_case(rng, quant, dh=dh, hk=2,
+                                               g=g)
     cfg = dataclasses.replace(j_get_config("stablelm-12b", smoke=True),
-                              num_heads=8, num_kv_heads=2, head_dim=160)
+                              num_heads=2 * g, num_kv_heads=2, head_dim=dh)
     jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
     jpool = {key: jnp.asarray(v.float().numpy(), jnp.bfloat16)
              if v.dtype == torch.bfloat16 else jnp.asarray(v.numpy())

@@ -21,6 +21,11 @@ from repro_torch.models import layers as tl
 from repro_torch.models import transformer as ttfm
 from repro_torch.runtime import kvblocks as tkv
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -39,6 +39,11 @@ from repro_torch.models.layers import mlp_apply
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 ARCHS = ["deepseek-moe-16b", "mixtral-8x22b"]
 SAMPLED = dict(max_tokens=6, temperature=0.8, top_k=20, top_p=0.9, seed=3)

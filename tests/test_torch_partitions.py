@@ -27,6 +27,11 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels.ref import int_matmul
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 
 def _split_k_qmm(xq, sx, wq, sw, packed, tiles):
     """quant_matmul.cu's arithmetic over its partition: for each bm x bn

@@ -18,6 +18,11 @@ from repro_torch.core import quant as tquant
 from repro_torch.core.compress import compress_params as t_compress
 from repro_torch.core.compress import flatten
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 
 def _np(x):
     return np.asarray(x)

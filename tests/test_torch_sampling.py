@@ -31,6 +31,11 @@ from repro_torch.runtime import prng
 from repro_torch.runtime import sampling as tsmp
 from repro_torch.runtime.scheduler import Request as TRequest
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 TINY = float(np.finfo(np.float32).tiny)
 SAMPLED = dict(max_tokens=6, temperature=0.9, top_k=20, top_p=0.9, seed=7)
 

@@ -33,6 +33,11 @@ from repro_torch.runtime import sampling as tsmp
 from repro_torch.runtime import scheduler as tsched
 from repro_torch.runtime import speculation as tspec
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 SPEC = dict(k=3, rank_fraction=0.5)
 
 

@@ -36,6 +36,11 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.optim import adamw as tadam
 from repro_torch.runtime import fault as tfault
 
+# One intra-op thread: the suite runs in several processes at once, and
+# full OpenMP teams there wait on each other (the port's tests in 6
+# processes: 689 s with 8 threads each, 151 s with 1).
+torch.set_num_threads(1)
+
 B, S = 4, 32
 
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's checks on one NVIDIA GPU, for quicker turns
 than the whole script: phase 2's bf16 kernel rows and its rows past
-lowrank_qmm's R 1024, then the gemma2 and bf16 phases (or a subset).
+lowrank_qmm's R 1024, then the gemma2, bf16 and nemotron phases (or a
+subset).
 
-    python3 tools/smoke_phases.py [--phases bf16-kernels,large-ranks,gemma2,bf16]
+    python3 tools/smoke_phases.py \
+        [--phases bf16-kernels,large-ranks,gemma2,bf16,nemotron]
 
 Later phases check their lowrank_qmm launches against what the kernel
 phases compared, so keep those first. Prints each part's failures and
@@ -17,7 +19,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("bf16-kernels", "large-ranks", "gemma2", "bf16")
+PHASES = ("bf16-kernels", "large-ranks", "gemma2", "bf16", "nemotron")
 
 
 def main() -> int:
@@ -32,23 +34,26 @@ def main() -> int:
     from repro_torch.kernels import build
 
     print(build.build())
+    build_failures: list = []
+    cs.print_ptxas(build_failures)
     timer = cs.Timer(torch)
     runs = {"bf16-kernels": lambda f: cs.check_bf16_kernels(torch, timer, f),
             "large-ranks": lambda f: cs.check_large_ranks(torch, timer, f),
             "gemma2": lambda f: cs.gemma2_phase(torch, f),
-            "bf16": lambda f: cs.bf16_phase(torch, f)}
-    failed = False
+            "bf16": lambda f: cs.bf16_phase(torch, f),
+            "nemotron": lambda f: cs.nemotron_phase(torch, f)}
+    failed = bool(build_failures)
     build.reset_launches()
     for name in args.phases.split(","):
         failures: list = []
         t0 = time.perf_counter()
         runs[name](failures)
         if name in ("bf16-kernels", "large-ranks"):
-            cs.COMPARED.update(key[1:] for key in build.LAUNCH_SHAPES
-                               if key[0] == "lowrank_qmm")
+            cs.note_compared()
         print(f"[{name}] failures {failures}; "
               f"{time.perf_counter() - t0:.1f} s")
         failed |= bool(failures)
+    print(f"[timer] {timer.report()}")
     print(cs.card_line())
     return int(failed)
 
