@@ -10,7 +10,8 @@ through these phases, and exits non-zero, printing no result, if any
 fails:
 
 1. build: compile every CUDA kernel from `src/repro_torch/kernels/csrc`
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together; phase 2 checks each
+   integer kernel as soon as its own library is built);
 2. kernels: each kernel against its plain PyTorch version at the serving
    path's shapes -- the integer kernels bit-equal, paged attention within
    1e-5, also with key splits that end mid-block; with the speculative
@@ -24,8 +25,7 @@ fails:
    layer linears); with the dse phase's batch of 512 rows; with the moe
    phase's shapes (the W8 lm head K 2048 -> N 102,400; R 1024 cascades at
    M 8, 32 and 2048; attention at Dh 128, 16 heads, decode and a W 256
-   prefill; both kernels over deepseek-moe-16b's E 64 expert stacks at
-   capacities 1, 30 and 240, one launch a projection) -- timed beside
+   prefill) -- timed beside
    its plain version, a PyTorch library yardstick and the least time the
    card could take (its bound), with a warning line wherever the kernel
    is slower than its plain version; each linear launch also replayed
@@ -33,10 +33,13 @@ fails:
    layer timed through `ops` (the activations' quantization included; a
    low-rank layer on the cascade and on the single engine); the single
    engine, `ops.lrmm(fused=False)`, must give the plain version's bits
-   too; lowrank_qmm past R 1024 (R 1056, 4096, 4128 -- the smallest on
-   the grouped path, T through device memory -- 9216, and an E 8 stack at
-   R 1280) at M 8 and 2048 with an fp32 and a bf16 Y, bit-equal and
-   timed, and the bf16 and gemma2 phases' served ranks with an fp32 Y.
+   too. Compared bit for bit but not timed (their times are PERF.md's):
+   both kernels over deepseek-moe-16b's E 64 expert stacks at capacities
+   1, 30 and 240, one launch a projection; lowrank_qmm past R 1024 (R
+   1056, 4096, 4128 -- the smallest on the grouped path, T through device
+   memory -- 9216, and an E 8 stack at R 1280) at M 8 and 2048 with an
+   fp32 and a bf16 Y, and the bf16, gemma2 and nemotron phases' served
+   ranks with an fp32 Y.
    Every later path checks that each of its lowrank_qmm launches took a
    code path (tile rows, K, R, N, packing) that this phase compared;
 3. engine: opus-mt at full width, compressed by the port with a mixed plan
@@ -165,9 +168,9 @@ fails:
    a profile of each phi3 serve; then stablelm-12b (32 heads of 160 over 8, LayerNorm, 25% rotary),
    bfloat16, 1 of 40 layers, quant-only, greedy at both pools; card ==
    CPU for 4 short requests on every one of those paths. Phase 2
-   compares these models' launch shapes first: both integer kernels
-   with a bf16 output at every row count a step takes (bit-equal), and
-   bf16 attention at Dh 128, 160 and 192 over a bf16 and an int8 pool
+   compares these models' launch shapes first, untimed: both integer
+   kernels with a bf16 output at every row count a step takes
+   (bit-equal), and bf16 attention at Dh 128, 160 and 192 over a bf16 and an int8 pool
    (within one bf16 ulp on at most 1e-4 of the outputs);
 7. gemma2: gemma2-9b at its published widths (d_model 3584, 16 heads of
    256 over 8 KV heads, GeGLU d_ff 14336, vocab 256,000, tied embeddings,
@@ -182,7 +185,23 @@ fails:
    (the prefill's window mask and the rolling local cache's wrap) held to
    the card's own teacher-forced `forward`: its argmax at every position
    but where its top two logits lie within 0.1 (at most one);
-8. nemotron: nemotron-4-340b at its published widths (d_model 18432, 96
+8. mamba: falcon-mamba-7b (Mamba1, attention-free: d_model 4096, Di
+   8192, d_state 16, dt_rank 256, vocab 65,024) and zamba2-2.7b (Mamba2
+   blocks of 80 heads of 64, d_state 64, and a shared attention + GELU
+   block of 32 heads of 80 after every 6; d_model 2560, vocab 32,000) at
+   their published widths, bfloat16, 2 of 64 and 12 of 54 layers (the
+   shared block twice, each time with its own KV cache), seed-0 random
+   weights, compressed on the card under ITERA W4A8 r0.5 (R 2048, 128,
+   16; R 1280, 64, 40) and quant-only W4A8, both with a W8A8 lm head;
+   `generate` of 8 x 128 prompts, 16 new tokens, captured, greedy (and,
+   mixed, sampled): launches exactly 11 / 61 of the plans' kernels a
+   pass, none of paged_attention; prefill and decode times and a profile;
+   card == CPU on 4 x 32 prompts, 8 new, greedy under both plans and
+   sampled under the mixed one. Phase 2 compares every projection first
+   through `ops` (W4, ITERA W4 at those ranks, the W8 heads) at M 8 and
+   1024, the bf16-X-to-fp32-Y and fp32-X cases included, bit-equal, and
+   times each launch key;
+9. nemotron: nemotron-4-340b at its published widths (d_model 18432, 96
    heads of 192 over 8 KV heads, squared-ReLU d_ff 73728 -- six linears a
    layer --, LayerNorm with a bias, half the head dims rotary, vocab
    256,000), bfloat16, 1 of its 96 layers, seed-0 random weights,
@@ -214,6 +233,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -236,6 +256,39 @@ def card_line() -> str:
 
 class PhaseFailed(Exception):
     pass
+
+
+class Builds:
+    """One `nvcc` per kernel library, each started on its own thread, so
+    that phase 2 checks a kernel as soon as its own library is built;
+    `wait(name)` joins that build and raises its error."""
+
+    def __init__(self, build):
+        self.t0 = time.perf_counter()
+        self.secs: dict = {}
+        self.errors: dict = {}
+        self.threads = {name: threading.Thread(target=self._run,
+                                               args=(build, name))
+                        for name in build.SOURCES}
+        for t in self.threads.values():
+            t.start()
+
+    def _run(self, build, name):
+        try:
+            self.secs.update(build.build([name]))
+        except RuntimeError as e:       # nvcc failed: raised in wait()
+            self.errors[name] = e
+
+    def wait(self, name):
+        self.threads[name].join()
+        if name in self.errors:
+            raise self.errors[name]
+
+    def report(self) -> str:
+        return (f"[build] {len(self.secs)} libraries built, the last "
+                f"{time.perf_counter() - self.t0:.1f} s after the start (per "
+                f"source: " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in self.secs.items()) + ")")
 
 
 def check(failures: list, ok: bool, what: str) -> None:
@@ -697,29 +750,23 @@ MOE_E, MOE_R_EXPERT = 64, 704
 MOE_CAPACITIES = (1, 30, 240)
 
 
-def check_expert_stacks(torch, timer, failures):
+def check_expert_stacks(torch, failures):
     """Both integer kernels over deepseek-moe-16b's expert stacks, E 64,
     one launch a projection, at the moe phase's capacities: W4 `lowrank_qmm`
     at R 704 and W4 `quant_matmul` (the quant-only plan), packed where the
     packing rule packs the plan's factors. Each is held bit for bit to its
-    plain version and timed as phase 2's other rows (timer and graph
-    replay); the library yardstick is the `_int_mm` chain looped over the
-    64 experts, replayed in one CUDA graph. Returns (lowrank rows, quant
-    rows)."""
-    from repro_torch.core.itera import LowRankQ
-    from repro_torch.core.quant import QuantizedTensor, pack_int4, packs, qmax
-    from repro_torch.hw.h100_model import PEAK_OPS_INT8
+    plain version (their times are in PERF.md). Returns the worst max
+    abs error."""
+    from repro_torch.core.quant import pack_int4, packs
     from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
                                                  lowrank_qmm_plain)
-    from repro_torch.kernels.ops import (lrmm_hbm_bytes, qmm_hbm_bytes,
-                                         quantize_acts)
+    from repro_torch.kernels.ops import quantize_acts
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_plain)
-    from repro_torch.kernels.ref import requant_rows
 
     g = torch.Generator(device="cuda").manual_seed(5)
     e, r = MOE_E, MOE_R_EXPERT
-    lrows, qrows, worst = [], [], 0.0
+    worst = 0.0
 
     def codes(*shape):
         return torch.randint(-7, 8, shape, generator=g, device="cuda",
@@ -728,9 +775,6 @@ def check_expert_stacks(torch, timer, failures):
     def stored(c, packed):
         return pack_int4(c) if packed else c
 
-    print(f"  expert stacks, E {e}: kernel C K [R] N packed | kernel_ms "
-          "plain_ms library_ms (looped chain, graph) bound_us (bound by) "
-          "| graph_us")
     for c in MOE_CAPACITIES:
         for k, n in MOE_EXPERTS:
             x = torch.randn((e, c, k), generator=g, device="cuda")
@@ -748,28 +792,6 @@ def check_expert_stacks(torch, timer, failures):
             check(failures, torch.equal(y, ref),
                   f"quant_matmul E={e} C={c} K={k} N={n} differs from plain "
                   f"(max abs {err})")
-
-            def q_chain():
-                for i in range(e):
-                    int_mm(torch, xq[i], wc[i]).float() * sx[i] * sw[i]
-
-            node = QuantizedTensor(wq, sw, 4, 0, packed=wp)
-            b_ms, b_by = bound(qmm_hbm_bytes(c, node), 2 * e * c * k * n,
-                               PEAK_OPS_INT8)
-            row = dict(e=e, m=c, k=k, n=n, packed=wp,
-                       ms=timer.kernel(lambda: quant_matmul(xq, sx, wq, sw,
-                                                     w_packed=wp)),
-                       plain_ms=timer(lambda: quant_matmul_plain(
-                           xq, sx, wq, sw, w_packed=wp)),
-                       library_ms=graph_ms(torch, q_chain, n=3),
-                       bound_ms=b_ms, bound_by=b_by,
-                       graph_ms=graph_ms(torch, lambda: quant_matmul(
-                           xq, sx, wq, sw, w_packed=wp)))
-            qrows.append(row)
-            print(f"    quant_matmul {c:3d} {k:4d} {n:4d} {wp!s:5} | "
-                  f"{row['ms']:.4f} {row['plain_ms']:.4f} "
-                  f"{row['library_ms']:.4f} {b_ms * 1e3:.2f} ({b_by}) | "
-                  f"{row['graph_ms'] * 1e3:.2f}")
             # ---- the mixed plan's ITERA cascade at R 704
             w1p, w2p = packs(4, r), packs(4, n)
             w1c, w2c = codes(e, k, r), codes(e, r, n)
@@ -785,33 +807,7 @@ def check_expert_stacks(torch, timer, failures):
             check(failures, torch.equal(y, ref),
                   f"lowrank_qmm E={e} C={c} K={k} R={r} N={n} differs from "
                   f"plain (max abs {err})")
-
-            def l_chain():
-                for i in range(e):
-                    t = int_mm(torch, xq[i], w1c[i]).float() * sx[i] * \
-                        s1[i] * s2[i].reshape(1, -1)
-                    tq, st = requant_rows(t, qmax(8))
-                    int_mm(torch, tq, w2c[i]).float() * st
-
-            node = LowRankQ(QuantizedTensor(args[2], s1, 4, 0, packed=w1p),
-                            QuantizedTensor(args[4], s2, 4, 1, packed=w2p))
-            b_ms, b_by = bound(lrmm_hbm_bytes(c, node),
-                               2 * e * c * r * (k + n), PEAK_OPS_INT8)
-            row = dict(e=e, m=c, k=k, r=r, n=n, wl=4, act_wl=8,
-                       ms=timer.kernel(lambda: lowrank_qmm(*args, **kw)),
-                       plain_ms=timer(lambda: lowrank_qmm_plain(*args, **kw)),
-                       library_ms=graph_ms(torch, l_chain, n=3),
-                       bound_ms=b_ms, bound_by=b_by,
-                       graph_ms=graph_ms(torch,
-                                         lambda: lowrank_qmm(*args, **kw)))
-            lrows.append(row)
-            print(f"    lowrank_qmm  {c:3d} {k:4d} {r} {n:4d} "
-                  f"{w1p!s:5}/{w2p!s:5} | {row['ms']:.4f} "
-                  f"{row['plain_ms']:.4f} {row['library_ms']:.4f} "
-                  f"{b_ms * 1e3:.2f} ({b_by}) | {row['graph_ms'] * 1e3:.2f}")
-    slower_than_plain("quant_matmul", qrows, ("e", "m", "k", "n", "packed"))
-    slower_than_plain("lowrank_qmm", lrows, ("e", "m", "k", "r", "n"))
-    return lrows, qrows, worst
+    return worst
 
 
 def slower_than_plain(name, rows, keys) -> None:
@@ -1016,11 +1012,10 @@ def check_paged_attention(torch, timer, failures):
 # -> N 256,000.
 BF16_RANK_FRACTION = 0.5
 BF16_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
-BF16_TIMED_ROWS = (8, 2048)       # of those, the rows phase 2 also times
 BF16_ATTN = ((40, 10, 128), (32, 8, 160), (96, 8, 192))  # (H, Hk, Dh)
 TOL_ULP_SHARE = 1e-4     # bf16 attention: share of outputs 1 ulp apart
-# untimed bf16 attention comparisons: a decode whose longest row reaches
-# 4096 keys (8 key splits), and key splits forced mid-block (W 1 and 256)
+# bf16 attention: a decode whose longest row reaches 4096 keys (8 key
+# splits), and key splits forced mid-block (W 1 and 256)
 BF16_LONG_DECODE = ([4095, 1000, 0, 2047, 3000, 17, 4000, 511],
                     [1, 1, 0, 1, 1, 1, 1, 1])
 BF16_FORCED_SPLITS = ((1, 100), (256, 200))   # (W, keys_per_split)
@@ -1055,13 +1050,6 @@ def bf16_geometry():
     return qmm, sorted(lrmm)
 
 
-def graph_us(torch, m, fn) -> str:
-    """`graph_ms` of a decode launch (8 rows) in us, as printed; at prefill
-    rows, where a launch's own time dwarfs its overhead, "-" (replaying a
-    multi-ms launch 1,400 times would cost a minute of the script)."""
-    return f"{graph_ms(torch, fn) * 1e3:.2f}" if m == 8 else "-"
-
-
 def _ulp_share(torch, o, ref):
     """(max abs difference, share of elements that differ, whether each
     difference is within one bf16 ulp of the larger value)."""
@@ -1072,36 +1060,27 @@ def _ulp_share(torch, o, ref):
             bool((diff <= ulp).all()))
 
 
-def check_bf16_kernels(torch, timer, failures):
+def check_bf16_kernels(torch, failures):
     """Phase 2 for the bf16 models: both integer kernels with their bf16
     epilogue at every (rows, K, [R,] N) a bf16 serve step launches,
-    bit-equal to the plain versions (timed at 8 and 2048 rows), and
-    paged attention at bf16 with a bf16 or int8 pool, Dh 128, 160 and 192,
-    decode and a W 256 prefill (timed), a 4096-key decode and forced key
-    splits (untimed), within one bf16 ulp on at most TOL_ULP_SHARE of the
-    outputs. Returns {kernel: worst max abs error}."""
-    from repro_torch.core.itera import LowRankQ
+    bit-equal to the plain versions, and paged attention at bf16 with a
+    bf16 or int8 pool, Dh 128, 160 and 192, decode and a W 256 prefill, a
+    4096-key decode and forced key splits, within one bf16 ulp on at most
+    TOL_ULP_SHARE of the outputs (their times are in PERF.md).
+    Returns {kernel: worst max abs error}."""
     from repro_torch.core.quant import QuantizedTensor, pack_int4, packable
-    from repro_torch.hw.h100_model import (PEAK_FLOPS_BF16,
-                                           PEAK_FLOPS_FP64_TC, PEAK_OPS_INT8)
     from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
                                                  lowrank_qmm_plain)
-    from repro_torch.kernels.ops import (lrmm_hbm_bytes, qmm_hbm_bytes,
-                                         quantize_acts)
-    from repro_torch.kernels.paged_attention import (launch_work,
-                                                     paged_attention,
+    from repro_torch.kernels.ops import quantize_acts
+    from repro_torch.kernels.paged_attention import (paged_attention,
                                                      span_attend_gather)
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_plain)
-    from repro_torch.kernels.ref import requant_rows
 
     bf = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(21)
     worst = collections.Counter()
-    rows = {"quant_matmul": [], "lowrank_qmm": [], "paged_attention": []}
     qmm_shapes, lrmm_shapes = bf16_geometry()
-    print("  bf16 quant_matmul: M K N packed | kernel_ms plain_ms "
-          "library_ms bound_us (bound by) | graph_us")
     for (k, n), (wl, packed) in sorted(qmm_shapes.items()):
         # the widest shapes' plain versions take GBs of float64 blocks: a
         # cache full of other shapes' blocks would make them wait on frees
@@ -1127,23 +1106,6 @@ def check_bf16_kernels(torch, timer, failures):
                                         ref.view(torch.int16)),
                   f"bf16 quant_matmul M={m} K={k} N={n} differs from "
                   f"plain (max abs {err})")
-            if m not in BF16_TIMED_ROWS:
-                continue
-            t_k = timer.kernel(lambda: quant_matmul(*args, **kw))
-            t_p = timer(lambda: quant_matmul_plain(*args, **kw))
-            t_l = library_ms(timer, lambda: (
-                int_mm(torch, xq, w).float() * sx * sw).to(bf))
-            node = QuantizedTensor(wq, sw, wl, 0, packed=packed)
-            b_ms, b_by = bound(qmm_hbm_bytes(m, node, out_bytes=2),
-                               2 * m * k * n, PEAK_OPS_INT8)
-            print(f"    {m:5d} {k:5d} {n:6d} {packed!s:5} | {t_k:.4f} "
-                  f"{t_p:.4f} {t_l if t_l is None else round(t_l, 4)} "
-                  f"{b_ms * 1e3:.4f} ({b_by}) | "
-                  + graph_us(torch, m, lambda: quant_matmul(*args, **kw)))
-            rows["quant_matmul"].append(dict(m=m, k=k, n=n, ms=t_k,
-                                             plain_ms=t_p))
-    print("  bf16 lowrank_qmm: M K R N | kernel_ms plain_ms library_ms "
-          "bound_us (bound by) | graph_us")
     for k, r, n in lrmm_shapes:
         torch.cuda.empty_cache()
         w1c = torch.randint(-7, 8, (k, r), generator=g, device="cuda",
@@ -1170,32 +1132,6 @@ def check_bf16_kernels(torch, timer, failures):
                                         ref.view(torch.int16)),
                   f"bf16 lowrank_qmm M={m} K={k} R={r} N={n} differs from "
                   f"plain (max abs {err})")
-            if m not in BF16_TIMED_ROWS:
-                continue
-
-            def chain():
-                t = int_mm(torch, xq, w1c).float() * sx * s1 * \
-                    s2.reshape(1, -1)
-                tq, st = requant_rows(t, 127)
-                return (int_mm(torch, tq, w2c).float() * st).to(bf)
-
-            t_k = timer.kernel(lambda: lowrank_qmm(*args, **kw))
-            t_p = timer(lambda: lowrank_qmm_plain(*args, **kw))
-            t_l = library_ms(timer, chain)
-            node = LowRankQ(QuantizedTensor(w1, s1, 4, 0, packed=w1p),
-                            QuantizedTensor(w2, s2, 4, 1, packed=w2p))
-            b_ms, b_by = bound(lrmm_hbm_bytes(m, node, out_bytes=2),
-                               2 * m * r * (k + n), PEAK_OPS_INT8)
-            print(f"    {m:5d} {k:5d} {r:4d} {n:5d} | {t_k:.4f} {t_p:.4f} "
-                  f"{t_l if t_l is None else round(t_l, 4)} "
-                  f"{b_ms * 1e3:.4f} ({b_by}) | "
-                  + graph_us(torch, m, lambda: lowrank_qmm(*args, **kw)))
-            rows["lowrank_qmm"].append(dict(m=m, k=k, r=r, n=n, ms=t_k,
-                                            plain_ms=t_p))
-    print("  bf16 paged_attention: W kv_bits H Hk Dh | kernel_ms plain_ms "
-          "library_ms bound_us (bound by) f64_floor_us max_abs_err "
-          "share_differing")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def compare(label, q, pool, table, ctx_t, **kw):
         o = paged_attention(q, pool, table, ctx_t, **kw)
@@ -1208,69 +1144,31 @@ def check_bf16_kernels(torch, timer, failures):
               f"(at most {TOL_ULP_SHARE}), all within one ulp: {in_ulp}")
         return err, share
 
+    print("  bf16 paged_attention: W kv_bits H Hk Dh | max_abs_err "
+          "share_differing")
     for kv_bits in (16, 8):
         for h, hk, dh in BF16_ATTN:
             for w in (1, 256):
-                q, pool, table, ctx_t, _, ctx, _ = _span_batch(
+                q, pool, table, ctx_t, *_ = _span_batch(
                     torch, g, w, kv_bits, h=h, dh=dh, hk=hk, dtype=bf)
                 err, share = compare(f"W={w} H={h} Dh={dh} kv{kv_bits}", q,
                                      pool, table, ctx_t)
-                b = q.shape[0]
-                bs = pool["k"].shape[1]
-                s = table.shape[1] * bs
-                bt = table.long()
-
-                def view(key):
-                    x = pool[key][bt].reshape(b, s, hk, dh).to(bf)
-                    if "ks" in pool:
-                        x = x * pool[key[0] + "s"][bt].reshape(
-                            b, s, hk, 1).to(bf)
-                    return x.repeat_interleave(h // hk, 2).transpose(
-                        1, 2).contiguous()
-
-                kk, vv = view("k"), view("v")
-                qq = q.transpose(1, 2).contiguous()
-                pos = ctx_t.long()[:, None] + torch.arange(w, device="cuda")
-                mask = (torch.arange(s, device="cuda")[None, None, :]
-                        <= pos[:, :, None])[:, None]
-                t_k = timer.kernel(lambda: paged_attention(q, pool, table,
-                                                           ctx_t))
-                t_p = timer(lambda: span_attend_gather(q, pool, table,
-                                                       ctx_t))
-                t_l = library_ms(timer, lambda: sdpa(qq, kk, vv,
-                                                     attn_mask=mask))
-                nbytes, flops = launch_work(table.tolist(), ctx, w, bs, hk,
-                                            dh, kv_bits=kv_bits,
-                                            n_q_heads=h, q_bytes=2)
-                b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS_BF16)
-                # the float64 floor: QK^T in both passes and PV, 6 * Dh
-                # flops a visible pair, at the FP64 tensor-core peak
-                f64_us = 1.5 * flops / PEAK_FLOPS_FP64_TC * 1e6
-                print(f"    {w:3d} kv{kv_bits} {h:2d} {hk:2d} {dh:3d} | "
-                      f"{t_k:.4f} {t_p:.4f} "
-                      f"{t_l if t_l is None else round(t_l, 4)} "
-                      f"{b_ms * 1e3:.4f} ({b_by}) {f64_us:.2f} {err:.2e} "
-                      f"{share:.2e}")
-                rows["paged_attention"].append(dict(
-                    w=w, kv_bits=kv_bits, dh=dh, ms=t_k, plain_ms=t_p))
+                print(f"    W {w:3d} kv{kv_bits} {h:2d} {hk:2d} {dh:3d} | "
+                      f"{err:.2e} {share:.2e}")
     for h, hk, dh in BF16_ATTN:
         for kv_bits in (16, 8):
             batch = _span_batch(torch, g, 1, kv_bits, h=h, dh=dh, hk=hk,
                                 dtype=bf, lens=BF16_LONG_DECODE)
             err, share = compare(f"4096-key decode H={h} Dh={dh} "
                                  f"kv{kv_bits}", *batch[:4])
-            print(f"    untimed: 4096-key decode kv{kv_bits} {h:2d} {hk:2d} "
+            print(f"    4096-key decode kv{kv_bits} {h:2d} {hk:2d} "
                   f"{dh:3d} | {err:.2e} {share:.2e}")
         for w, kps in BF16_FORCED_SPLITS:
             batch = _span_batch(torch, g, w, 16, h=h, dh=dh, hk=hk, dtype=bf)
             err, share = compare(f"W={w} H={h} Dh={dh} keys_per_split={kps}",
                                  *batch[:4], keys_per_split=kps)
-            print(f"    untimed: W {w} keys_per_split {kps} {h:2d} {hk:2d} "
+            print(f"    W {w} keys_per_split {kps} {h:2d} {hk:2d} "
                   f"{dh:3d} | {err:.2e} {share:.2e}")
-    for name, keys in (("quant_matmul", ("m", "k", "n")),
-                       ("lowrank_qmm", ("m", "k", "r", "n")),
-                       ("paged_attention", ("w", "kv_bits", "dh"))):
-        slower_than_plain(f"bf16 {name}", rows[name], keys)
     return dict(worst)
 
 
@@ -1284,29 +1182,24 @@ LARGE_RANKS = ((2048, 1056, 2048, 1), (4096, 4096, 4096, 1),
 LARGE_ROWS = (8, 2048)
 
 
-def check_large_ranks(torch, timer, failures):
+def check_large_ranks(torch, failures):
     """lowrank_qmm at LARGE_RANKS, W4 packed where the rule packs, M 8 and
-    2048 rows (each expert's), an fp32 and a bf16 Y: bit-equal to the
-    plain version, and timed (bf16 Y) beside the bound, the plain version
-    and the `_int_mm` chain (one matrix; looped over an expert stack's E
-    in one CUDA graph). Also compares the bf16, gemma2 and nemotron phases'
-    served ranks with an fp32 Y at those rows (the bf16 Y is compared in
-    `check_bf16_kernels`). Returns the worst max abs error."""
-    from repro_torch.core.itera import LowRankQ
+    2048 rows (each expert's), an fp32 and a bf16 Y, bit-equal to the
+    plain version (their times are in PERF.md); also the bf16,
+    gemma2 and nemotron phases' served ranks with an fp32 Y at those rows
+    (the bf16 Y is compared in `check_bf16_kernels`). Returns the worst
+    max abs error."""
     from repro_torch.core.quant import QuantizedTensor, pack_int4, packable
-    from repro_torch.hw.h100_model import NUM_SMS, PEAK_OPS_INT8
+    from repro_torch.hw.h100_model import NUM_SMS
     from repro_torch.kernels import lowrank_qmm as lr
-    from repro_torch.kernels.ops import lrmm_hbm_bytes, quantize_acts
-    from repro_torch.kernels.ref import requant_rows
+    from repro_torch.kernels.ops import quantize_acts
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    worst, rows = 0.0, []
+    worst = 0.0
     _, served = bf16_geometry()
     shapes = [(k, r, n, e, True) for k, r, n, e in LARGE_RANKS] + [
         (k, r, n, 1, False) for k, r, n in served]
-    print("  lowrank_qmm past R 1024: M K R N E path | kernel_ms plain_ms "
-          "library_ms bound_us (bound by)")
-    for k, r, n, e, timed in shapes:
+    for k, r, n, e, both in shapes:
         lead = (e,) if e > 1 else ()
         w1c = torch.randint(-7, 8, (*lead, k, r), generator=g,
                             device="cuda", dtype=torch.int8)
@@ -1323,7 +1216,7 @@ def check_large_ranks(torch, timer, failures):
             xq, sx = quantize_acts(x, 127)
             args = (xq, sx, w1, s1, w2, s2)
             path = lr.choose_tiles(m, r, n, NUM_SMS, lr.smem_bytes, e).path
-            dtypes = ((torch.float32, torch.bfloat16) if timed
+            dtypes = ((torch.float32, torch.bfloat16) if both
                       else (torch.float32,))
             for dt in dtypes:
                 kw = dict(w1_packed=w1p, w2_packed=w2p, act_qmax=127,
@@ -1339,42 +1232,215 @@ def check_large_ranks(torch, timer, failures):
                 check(failures, same,
                       f"lowrank_qmm M={m} K={k} R={r} N={n} E={e} ({path}, "
                       f"{dt}) differs from plain (max abs {err})")
-            if not timed:
-                continue
-
-            def chain():
-                t = int_mm(torch, xq, w1c).float() * sx * s1 * \
-                    s2.reshape(1, -1)
-                tq, st = requant_rows(t, 127)
-                return (int_mm(torch, tq, w2c).float() * st).to(
-                    torch.bfloat16)
-
-            def looped():
-                for i in range(e):
-                    t = int_mm(torch, xq[i], w1c[i]).float() * sx[i] * \
-                        s1[i] * s2[i].reshape(1, -1)
-                    tq, st = requant_rows(t, 127)
-                    (int_mm(torch, tq, w2c[i]).float() * st).to(
-                        torch.bfloat16)
-
-            t_k = timer.kernel(lambda: lr.lowrank_qmm(*args, **kw))
-            t_p = timer(lambda: lr.lowrank_qmm_plain(*args, **kw))
-            # an expert stack's yardstick: the chain looped over E,
-            # replayed in one CUDA graph, as the moe rows'
-            t_l = (library_ms(timer, chain) if e == 1
-                   else graph_ms(torch, looped, n=3))
-            node = LowRankQ(QuantizedTensor(w1, s1, 4, 0, packed=w1p),
-                            QuantizedTensor(w2, s2, 4, 1, packed=w2p))
-            b_ms, b_by = bound(lrmm_hbm_bytes(m, node, out_bytes=2),
-                               2 * e * m * r * (k + n), PEAK_OPS_INT8)
-            print(f"    {m:5d} {k:5d} {r:5d} {n:5d} {e} {path} | "
-                  f"{t_k:.4f} {t_p:.4f} "
-                  f"{t_l if t_l is None else round(t_l, 4)} "
-                  f"{b_ms * 1e3:.4f} ({b_by})")
-            rows.append(dict(m=m, k=k, r=r, n=n, e=e, ms=t_k,
-                             plain_ms=t_p))
-    slower_than_plain("lowrank_qmm", rows, ("m", "k", "r", "n", "e"))
     return worst
+
+
+# ------------------------------------------------- phase 2: the Mamba shapes --
+# of falcon-mamba-7b's 64 layers and zamba2-2.7b's 54 (two groups of six:
+# the shared block runs twice, each time with its own KV cache)
+MAMBA_DEPTHS = {"falcon-mamba-7b": 2, "zamba2-2.7b": 12}
+MAMBA_RANK_FRACTION = 0.5
+MAMBA_ROWS = (8, 1024)          # a decode step's rows, the 8 x 128 prefill's
+MAMBA_TIMED = (8, 128, 16)      # generate: prompts x tokens, new tokens
+MAMBA_SHORT = (4, 32, 8)        # the card == CPU generate
+
+
+def mamba_geometry():
+    """The mamba phase's linears by arch: [(name, K, N, X dtype, Y dtype)]
+    of every projection both plans compress (the quant-only plan's W4, the
+    mixed plan's ITERA at MAMBA_RANK_FRACTION) and the W8 lm head, with the
+    activation and output dtypes the bf16 model gives them: dt_in,
+    bc_proj and dt_lin take a bf16 X to an fp32 Y, dt_proj an fp32 X."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch in MAMBA_DEPTHS:
+        c = get_config(arch)
+        d, s = c.d_model, c.ssm
+        di = d * s.expand
+        if s.version == 1:
+            dtr = s.dt_rank or d // 16
+            lin = [("in_proj", d, 2 * di, "bf16", "bf16"),
+                   ("dt_in", di, dtr, "bf16", "fp32"),
+                   ("bc_proj", di, 2 * s.d_state, "bf16", "fp32"),
+                   ("dt_proj", dtr, di, "fp32", "fp32"),
+                   ("out_proj", di, d, "bf16", "bf16")]
+        else:
+            q = c.num_heads * c.head_dim
+            kv = c.num_kv_heads * c.head_dim
+            lin = [("zx_proj", d, 2 * di, "bf16", "bf16"),
+                   ("bc_in", d, 2 * s.d_state, "bf16", "bf16"),
+                   ("dt_lin", d, di // s.head_dim, "bf16", "fp32"),
+                   ("out_proj", di, d, "bf16", "bf16"),
+                   ("wq", d, q, "bf16", "bf16"), ("wk", d, kv, "bf16", "bf16"),
+                   ("wv", d, kv, "bf16", "bf16"), ("wo", q, d, "bf16", "bf16"),
+                   ("up", d, c.d_ff, "bf16", "bf16"),
+                   ("down", c.d_ff, d, "bf16", "bf16")]
+        out[arch] = lin + [("lm_head", d, c.vocab_size, "bf16", "fp32")]
+    return out
+
+
+def plain_linear(torch, x, node, out_dtype):
+    """What `ops.qmm` / `ops.lrmm` compute for `node`, through the kernels'
+    plain versions on the same tensors."""
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import qmax
+    from repro_torch.kernels.lowrank_qmm import lowrank_qmm_plain
+    from repro_torch.kernels.ops import quantize_acts
+    from repro_torch.kernels.quant_matmul import quant_matmul_plain
+
+    xq, sx = quantize_acts(x, qmax(node.act_wl))
+    if isinstance(node, LowRankQ):
+        r = node.rank
+        return lowrank_qmm_plain(
+            xq, sx, node.w1.values, node.w1.scale.reshape(1, r),
+            node.w2.values, node.w2.scale.reshape(r, 1),
+            w1_packed=node.w1.packed, w2_packed=node.w2.packed,
+            act_qmax=qmax(node.act_wl), out_dtype=out_dtype)
+    return quant_matmul_plain(xq, sx, node.values, node.scale.reshape(1, -1),
+                              w_packed=node.packed, out_dtype=out_dtype)
+
+
+def check_mamba_kernels(torch, timer, failures):
+    """Phase 2 for the mamba phase: every projection of `mamba_geometry`
+    as the served path launches it -- through `ops.qmm` (W4, packed where
+    the rule packs; the W8 head) and `ops.lrmm` (ITERA W4 at the plans'
+    rank), K, R and N padded as `ops` pads them -- at MAMBA_ROWS rows,
+    bit-equal to the plain versions on the same tensors (the activations'
+    quantization included), with the fp32-X and fp32-Y cases; each launch
+    key is timed once at both row counts beside its bound, the plain
+    version and the `_int_mm` yardstick, all three on the kernel's own
+    quantized activations. Returns {kernel: worst max abs error}."""
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import (QuantizedTensor, pack_weights,
+                                        unpack_int4)
+    from repro_torch.hw.h100_model import PEAK_OPS_INT8
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lowrank_qmm import (lowrank_qmm,
+                                                 lowrank_qmm_plain)
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_plain)
+    from repro_torch.kernels.ref import requant_rows
+
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    g = torch.Generator(device="cuda").manual_seed(26)
+    worst = collections.Counter()
+    rule = CompressionConfig(rank_fraction=MAMBA_RANK_FRACTION)
+    rows, seen = [], set()
+
+    def node(k, n, wl, axis, scale_shape):
+        qm = 7 if wl == 4 else 127
+        codes = torch.randint(-qm, qm + 1, (k, n), generator=g,
+                              device="cuda", dtype=torch.int8)
+        scale = torch.rand(scale_shape, generator=g, device="cuda") * 0.02
+        return pack_weights(QuantizedTensor(codes, scale, wl, axis))
+
+    def codes_of(q):
+        return unpack_int4(q.values) if q.packed else q.values
+
+    print("  mamba linears: arch name kernel M K [R] N X->Y packed | "
+          "kernel_ms plain_ms library_ms bound_us (bound by)")
+    for arch, lins in mamba_geometry().items():
+        for name, k, n, xd, yd in lins:
+            torch.cuda.empty_cache()
+            wl = 8 if name == "lm_head" else 4
+            nodes = [node(k, n, wl, 0, (1, n))]
+            if name != "lm_head":
+                r = rule.rank_for("", (k, n))
+                nodes.append(LowRankQ(node(k, r, 4, 0, (1, r)),
+                                      node(r, n, 4, 1, (r, 1))))
+            for w in nodes:
+                lowrank = isinstance(w, LowRankQ)
+                kernel = "lowrank_qmm" if lowrank else "quant_matmul"
+                for m in ((8,) if name == "lm_head" else MAMBA_ROWS):
+                    x = torch.randn((m, k), generator=g, device="cuda").to(
+                        dt[xd])
+                    fn = ops.lrmm if lowrank else ops.qmm
+                    y = fn(x, w, out_dtype=dt[yd])
+                    ref = plain_linear(torch, x, w, dt[yd])
+                    torch.cuda.synchronize()
+                    err = float((y.float() - ref.float()).abs().max())
+                    worst[kernel] = max(worst[kernel], err)
+                    same = (torch.equal(y.view(torch.int16),
+                                        ref.view(torch.int16))
+                            if yd == "bf16" else torch.equal(y, ref))
+                    r_txt = f" R={w.rank}" if lowrank else ""
+                    check(failures, same,
+                          f"mamba {arch} {name} {kernel} M={m} K={k}{r_txt} "
+                          f"N={n} {xd}->{yd} differs from plain (max abs "
+                          f"{err})")
+                    key = (kernel, m, k, w.rank if lowrank else 0, n, xd, yd)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    qm = 127
+                    xq, sx = ops.quantize_acts(x, qm)
+                    if lowrank:
+                        r = w.rank
+                        s1 = w.w1.scale.reshape(1, r)
+                        s2 = w.w2.scale.reshape(r, 1)
+                        args = ops._lrmm_args(xq, sx, w.w1.values, s1,
+                                              w.w2.values, s2, w.w1.packed,
+                                              w.w2.packed)
+                        kw = dict(w1_packed=w.w1.packed,
+                                  w2_packed=w.w2.packed, act_qmax=qm,
+                                  out_dtype=dt[yd])
+                        w1c, w2c = codes_of(w.w1), codes_of(w.w2)
+
+                        def launch():
+                            return lowrank_qmm(*args, **kw)
+
+                        def plain():
+                            return lowrank_qmm_plain(*args, **kw)
+
+                        def chain():
+                            t = int_mm(torch, xq, w1c).float() * sx * s1 * \
+                                s2.reshape(1, -1)
+                            tq, st = requant_rows(t, qm)
+                            return (int_mm(torch, tq, w2c).float() * st).to(
+                                dt[yd])
+
+                        nbytes = ops.lrmm_hbm_bytes(
+                            m, w, out_bytes=2 if yd == "bf16" else 4)
+                        nops = 2 * m * r * (k + n)
+                        packed = (w.w1.packed, w.w2.packed)
+                    else:
+                        sw = w.scale.reshape(1, n)
+                        args = ops._qmm_args(xq, sx, w.values, sw, w.packed)
+                        kw = dict(w_packed=w.packed, out_dtype=dt[yd])
+                        wc = codes_of(w)
+
+                        def launch():
+                            return quant_matmul(*args, **kw)
+
+                        def plain():
+                            return quant_matmul_plain(*args, **kw)
+
+                        def chain():
+                            return (int_mm(torch, xq, wc).float() * sx
+                                    * sw).to(dt[yd])
+
+                        nbytes = ops.qmm_hbm_bytes(
+                            m, w, out_bytes=2 if yd == "bf16" else 4)
+                        nops = 2 * m * k * n
+                        packed = w.packed
+                    t_k = timer.kernel(launch)
+                    t_p = timer(plain)
+                    t_l = library_ms(timer, chain)
+                    b_ms, b_by = bound(nbytes, nops, PEAK_OPS_INT8)
+                    print(f"    {arch} {name} {kernel} {m:5d} {k:5d}"
+                          f"{r_txt} {n:6d} {xd}->{yd} {packed} | "
+                          f"{t_k:.4f} {t_p:.4f} "
+                          f"{t_l if t_l is None else round(t_l, 4)} "
+                          f"{b_ms * 1e3:.4f} ({b_by})")
+                    rows.append(dict(kernel=kernel, m=m, k=k, n=n, ms=t_k,
+                                     plain_ms=t_p))
+    for kernel in ("quant_matmul", "lowrank_qmm"):
+        slower_than_plain(f"mamba {kernel}",
+                          [r for r in rows if r["kernel"] == kernel],
+                          ("m", "k", "n"))
+    return dict(worst)
 
 
 # ------------------------------------------------------- phases 3 and 4 --
@@ -1430,14 +1496,15 @@ def profile_run(torch, run, label: str):
     steps) once more under torch.profiler: the card's busy share of the
     wall time, its device events (kernels, copies, memsets) a step and the
     card's idle time per event, its time by kernel, and the linears'
-    kernels' (quant_matmul's and lowrank_qmm's) card time per step.
-    Informational, nothing is checked;
+    kernels' (quant_matmul's and lowrank_qmm's) card time per step. Only
+    the card's activity is traced: recording every host op as well slowed
+    the host, and so the wall, by more than the run took in a serve of
+    thousands of launches. Informational, nothing is checked;
     a profiler that cannot trace the card is reported and skipped."""
     from torch.profiler import ProfilerActivity, profile
 
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             steps = run()
             torch.cuda.synchronize()
@@ -2648,7 +2715,7 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
 # ---------------------------------------------------------------- train --
 
 # the failure lies between the first two checkpoints
-TRAIN = dict(batch=8, seq=128, steps=200, lr=1e-3, ckpt_every=50,
+TRAIN = dict(batch=8, seq=128, steps=100, lr=1e-3, ckpt_every=50,
              fail_at=75)
 REMAT_STEPS = 12         # steps a remat setting, the first 3 untimed
 # a training-size batch for the remat trade (16,384 tokens a step); its
@@ -2844,8 +2911,9 @@ def train_phase(torch, cfg, failures):
     (a) opus-mt full() (remat "full") from init_params(seed 0) on the
     LatentMarkovTask(32000, seed 0, branching 4, classes 16), batch 8 x
     seq 128, AdamW lr 1e-3, 10% warmup, cosine over TRAIN["steps"], through
-    launch/train.py's step in a ResilientLoop (checkpoints every 100
-    steps, a failure injected at step 150): every loss finite, the last 10
+    launch/train.py's step in a ResilientLoop (checkpoints every
+    TRAIN["ckpt_every"] steps, a failure injected at TRAIN["fail_at"],
+    between the first two): every loss finite, the last 10
     below the first 10, the replayed steps within TRAIN_TOL of the first
     pass; step ms, tokens/s, peak bytes beside the FLOP bound; then
     REMAT_STEPS steps with remat full, dots and off and with the 8-bit
@@ -3064,7 +3132,7 @@ def train_phase(torch, cfg, failures):
         check(failures, counts["paged_attention"] == cfg.num_layers
               * res.steps, f"trained {name}: {counts['paged_attention']} "
               f"paged_attention launches")
-        cpu = InferenceEngine(cfg, params_to(eng.params, "cpu"),
+        cpu = InferenceEngine(cfg, cpu_copy(eng.params),
                               device=torch.device("cpu"), plan=eng.plan)
         parity(torch, f"trained {eng.plan.label} kv16", eng, cpu, short,
                SamplingParams(max_tokens=8), failures)
@@ -3188,8 +3256,7 @@ def moe_phase(torch, failures):
     CPU serves of 4 short requests. Returns the phase's launches."""
     import numpy as np
 
-    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
-                                        params_to)
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
     from repro_torch.core.itera import itera_decompose, reconstruction_error
     from repro_torch.hw.h100_model import HBM_BW
@@ -3348,7 +3415,7 @@ def moe_phase(torch, failures):
                               top_p=0.9, seed=7)
     for name, eng in engines.items():
         t0 = time.perf_counter()
-        cpu = InferenceEngine(cfg, params_to(eng.params, "cpu"),
+        cpu = InferenceEngine(cfg, cpu_copy(eng.params),
                               device=torch.device("cpu"), plan=eng.plan,
                               max_batch=8, block_size=16)
         parity(torch, f"moe {name} kv16", eng, cpu, short, sp8, failures)
@@ -3451,8 +3518,7 @@ def bf16_phase(torch, failures):
     Returns the phase's launches."""
     import numpy as np
 
-    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
-                                        params_to)
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
 
@@ -3529,7 +3595,7 @@ def bf16_phase(torch, failures):
                             f"bf16 {arch} {name} serve")
             # card == CPU: the same compressed tensors on the CPU
             t0 = time.perf_counter()
-            cpu_params = params_to(eng.params, "cpu")
+            cpu_params = cpu_copy(eng.params)
             for kv, e in ((16, eng), (8, eng8)):
                 c = dataclasses.replace(cfg, kv_cache_bits=kv)
                 cpu = InferenceEngine(c, cpu_params,
@@ -3640,8 +3706,7 @@ def gemma2_phase(torch, failures):
     launches."""
     import numpy as np
 
-    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
-                                        params_to)
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models.transformer import init_params
@@ -3723,7 +3788,7 @@ def gemma2_phase(torch, failures):
         if name == "mixed":
             gemma2_window_check(torch, eng, failures)
         t0 = time.perf_counter()
-        cpu = InferenceEngine(cfg, params_to(eng.params, "cpu"),
+        cpu = InferenceEngine(cfg, cpu_copy(eng.params),
                               device=torch.device("cpu"), plan=eng.plan)
         generate_parity(torch, f"gemma2 {name}", eng, cpu, short,
                         SamplingParams(max_tokens=sn), failures)
@@ -3733,6 +3798,158 @@ def gemma2_phase(torch, failures):
     engines.clear()
     torch.cuda.empty_cache()
     print(f"[gemma2] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
+
+# ---------------------------------------------------------- mamba phase --
+def mamba_launches(cfg, plan: str) -> dict:
+    """Kernel launches of one pass of a Mamba model (`prefill` or one
+    `decode_step`): each block's projections (Mamba1: in_proj, dt_in,
+    bc_proj, dt_proj, out_proj; Mamba2: zx_proj, bc_in, dt_lin, out_proj),
+    the hybrid's shared block's six linears at each invocation, and the
+    W8 lm head; no attention kernel (`generate` attends over the
+    contiguous cache in plain PyTorch)."""
+    n = (5 if cfg.ssm.version == 1 else 4) * cfg.num_layers
+    if cfg.layout == "hybrid":
+        n += 6 * (cfg.num_layers // cfg.hybrid_period)
+    if plan == "mixed":
+        return {"lowrank_qmm": n, "quant_matmul": 1}
+    return {"quant_matmul": n + 1}
+
+
+def mamba_phase(torch, failures):
+    """falcon-mamba-7b (Mamba1, attention-free: d_model 4096, Di 8192,
+    d_state 16, dt_rank 256, vocab 65,024) and zamba2-2.7b (Mamba2 blocks,
+    80 heads of 64, d_state 64, and a shared attention + GELU block of 32
+    heads of 80 after every 6: d_model 2560, vocab 32,000) at their
+    published widths in bfloat16, MAMBA_DEPTHS of their layers, seed-0
+    random weights, compressed on the card under the mixed plan (ITERA
+    W4A8 r0.5, W8A8 lm head) and quant-only W4A8 (same head); each plan's
+    `generate` of 8 x 128 prompts, 16 new tokens, greedy (and, mixed,
+    sampled), captured: launches exactly `mamba_launches` a pass, every
+    lowrank_qmm launch on a compared code path and every quant_matmul
+    (K, N) compared in phase 2, none of paged_attention; prefill ms,
+    decode ms a step and tok/s; a profile of each plan's decode steps;
+    card
+    == CPU on 4 x 32 prompts, 8 new, greedy, and sampled under the mixed
+    plan. A decode step's time is the held step graph's replays between
+    CUDA events, and a profile of those replays gives the card's busy
+    share of captured decode. Returns the phase's launches."""
+    import numpy as np
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    launches: collections.Counter = collections.Counter()
+    b, s, n = MAMBA_TIMED
+    sb, ss, sn = MAMBA_SHORT
+    sp, one = SamplingParams(max_tokens=n), SamplingParams(max_tokens=1)
+    sampled = SamplingParams(max_tokens=n, temperature=0.8, top_k=50,
+                             top_p=0.9, seed=7)
+    for arch, depth in MAMBA_DEPTHS.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        c = cfg.ssm
+        print(f"[mamba] {cfg.name} ({cfg.layout}, Mamba{c.version}): d_model "
+              f"{cfg.d_model}, Di {cfg.d_model * c.expand}, d_state "
+              f"{c.d_state}, d_conv {c.d_conv}"
+              + (f", dt_rank {c.dt_rank}" if c.version == 1 else
+                 f", {cfg.d_model * c.expand // c.head_dim} heads of "
+                 f"{c.head_dim}; shared block: {cfg.num_heads} heads of "
+                 f"{cfg.head_dim}, {cfg.mlp_act} d_ff {cfg.d_ff}, every "
+                 f"{cfg.hybrid_period} layers")
+              + f", vocab {cfg.vocab_size}; depth {depth} of "
+              f"{full.num_layers}, {cfg.dtype}: "
+              f"{cfg.param_count() / 1e9:.3f} B parameters; {card_line()}")
+        params = init_params(cfg, seed=0, device="cuda")
+        engines = {}
+        mixed = functools.partial(bf16_mixed_plan,
+                                  rank_fraction=MAMBA_RANK_FRACTION)
+        for name, make in (("mixed", mixed), ("quant-only", quant_plan)):
+            t0 = time.perf_counter()
+            eng = InferenceEngine.build(cfg, make(params), params=params,
+                                        device="cuda")
+            torch.cuda.synchronize()
+            print(f"[mamba] {arch} {name} ({eng.plan.label}): compressed on "
+                  f"the card in {time.perf_counter() - t0:.1f} s; weights "
+                  f"{eng.weight_hbm_bytes() / 2**20:.1f} MiB; "
+                  f"{eng.report.summary()}")
+            engines[name] = eng
+        del params
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(26)
+        prompts = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+        short = rng.integers(1, cfg.vocab_size, (sb, ss)).astype(np.int32)
+        for name, eng in engines.items():
+            per_pass = mamba_launches(cfg, "mixed" if name == "mixed"
+                                      else "quant")
+            runs = [("greedy captured", sp)]
+            if name == "mixed":
+                runs.append(("sampled captured", sampled))
+            for label, p in runs:
+                eng.generate(prompts, p)        # warm-up: capture the step
+                pre = eng.generate(prompts, one)
+                build.reset_launches()
+                res = eng.generate(prompts, p)
+                torch.cuda.synchronize()
+                counts = dict(build.LAUNCHES)
+                launches.update(counts)
+                check_compared(failures, f"mamba {arch} {name} {label}")
+                qmm = {key[1:] for key in build.LAUNCH_SHAPES
+                       if key[0] == "quant_matmul"}
+                check(failures, qmm <= COMPARED_QMM,
+                      f"mamba {arch} {name} {label}: quant_matmul launched "
+                      f"at (K, N) {sorted(qmm - COMPARED_QMM)}, which phase "
+                      f"2 did not compare")
+                want = {k: v * n for k, v in per_pass.items()}
+                check(failures, counts == want,
+                      f"mamba {arch} {name} {label}: launches {counts}, "
+                      f"expected {per_pass} a pass x {n}")
+                out = np.asarray(res.tokens)
+                check(failures, out.shape == (b, n) and bool(
+                    ((out >= 0) & (out < cfg.vocab_size)).all()),
+                    f"mamba {arch} {name} {label}: tokens {out.shape} out "
+                    f"of range")
+                # the eager prefill's time varies more than a whole decode
+                # takes, so a decode step is timed on its own: the held
+                # step graph replayed n - 1 times between CUDA events
+                step = eng._decoder(b, s + n, p.temperature > 0)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n - 1):
+                    step()
+                end.record()
+                torch.cuda.synchronize()
+                print(f"[mamba] {arch} {name} {label}: generate {b} x {s} "
+                      f"prompts, {n} tokens: {res.seconds * 1e3:.1f} ms, "
+                      f"{res.tokens_per_second:.1f} tok/s; prefill "
+                      f"{pre.seconds * 1e3:.1f} ms; decode "
+                      f"{start.elapsed_time(end) / (n - 1):.3f} ms a step "
+                      f"(replays, CUDA events); launches {counts}")
+            step = eng._decoder(b, s + n, False)
+            profile_run(torch, lambda: ([step() for _ in range(n - 1)],
+                                        n - 1)[1],
+                        f"mamba {arch} {name} decode replays")
+            t0 = time.perf_counter()
+            cpu = InferenceEngine(cfg, cpu_copy(eng.params),
+                                  device=torch.device("cpu"), plan=eng.plan)
+            short_sp = SamplingParams(max_tokens=sn)
+            generate_parity(torch, f"mamba {arch} {name}", eng, cpu, short,
+                            short_sp, failures)
+            if name == "mixed":
+                generate_parity(torch, f"mamba {arch} {name} sampled", eng,
+                                cpu, short, dataclasses.replace(
+                                    sampled, max_tokens=sn), failures)
+            print(f"[mamba] {arch} {name}: CPU parity in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del cpu
+        engines.clear()
+        torch.cuda.empty_cache()
+    print(f"[mamba] phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches)
 
 
@@ -3762,8 +3979,7 @@ def nemotron_phase(torch, failures):
     launches."""
     import numpy as np
 
-    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
-                                        params_to)
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
     from repro_torch.hw.h100_model import NUM_SMS
     from repro_torch.kernels import lowrank_qmm as lr
@@ -3832,7 +4048,7 @@ def nemotron_phase(torch, failures):
         profile_run(torch, lambda: eng.serve(reqs, sp).steps,
                     f"nemotron {name} serve")
         t0 = time.perf_counter()
-        cpu_params = params_to(eng.params, "cpu")
+        cpu_params = cpu_copy(eng.params)
         for kv, e in ((16, eng), (8, eng8)):
             cpu = InferenceEngine(dataclasses.replace(cfg, kv_cache_bits=kv),
                                   cpu_params, device=torch.device("cpu"),
@@ -3847,6 +4063,26 @@ def nemotron_phase(torch, failures):
     torch.cuda.empty_cache()
     print(f"[nemotron] phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches)
+
+
+def cpu_copy(params):
+    """`params` on the CPU for a card == CPU engine, every packed W4 node
+    in its int8-carrier layout: the same codes, so the plain versions
+    give the same bits, without unpacking the nibbles at every call (which
+    took most of nemotron's CPU parity: 1.36 G codes a matrix)."""
+    from repro_torch.core.compress import map_with_path
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import QuantizedTensor, unpack_weights
+
+    def one(_, leaf):
+        leaf = leaf.to("cpu")
+        if isinstance(leaf, LowRankQ):
+            return LowRankQ(unpack_weights(leaf.w1), unpack_weights(leaf.w2))
+        if isinstance(leaf, QuantizedTensor):
+            return unpack_weights(leaf)
+        return leaf
+
+    return map_with_path(one, params)
 
 
 def generate_parity(torch, label, gpu, cpu, prompts, sp, failures) -> None:
@@ -3913,8 +4149,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch.api.engine import (InferenceEngine, SamplingParams,
-                                        params_to)
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.runtime.speculation import DraftSpec
@@ -3922,29 +4157,31 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 1. build ----------------------------------------------------
-    t0 = time.perf_counter()
-    secs = build.build()
-    print(f"[build] {len(secs)} libraries built in "
-          f"{time.perf_counter() - t0:.1f} s (per source: "
-          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    # ---- 1. build (and 2. kernels vs their plain versions) -------------
+    # each library builds on its own thread; phase 2 checks the integer
+    # kernels while paged_attention, the longest build, still compiles
+    builds = Builds(build)
     failures: list = []
-    print_ptxas(failures)
-
-    # ---- 2. kernels vs their plain versions ----------------------------
     timer = Timer(torch)
     build.reset_launches()
-    kern = {"quant_matmul": check_quant_matmul(torch, timer, failures),
-            "lowrank_qmm": check_lowrank_qmm(torch, timer, failures),
-            "paged_attention": check_paged_attention(torch, timer, failures)}
-    _, _, worst = check_expert_stacks(torch, timer, failures)
+    builds.wait("quant_matmul")
+    kern = {"quant_matmul": check_quant_matmul(torch, timer, failures)}
+    builds.wait("lowrank_qmm")
+    kern["lowrank_qmm"] = check_lowrank_qmm(torch, timer, failures)
+    worst = check_expert_stacks(torch, failures)
     for name in ("quant_matmul", "lowrank_qmm"):
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
-    for name, err in check_bf16_kernels(torch, timer, failures).items():
-        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
     kern["lowrank_qmm"]["max_abs_err"] = max(
         kern["lowrank_qmm"]["max_abs_err"],
-        check_large_ranks(torch, timer, failures))
+        check_large_ranks(torch, failures))
+    for name, err in check_mamba_kernels(torch, timer, failures).items():
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
+    builds.wait("paged_attention")
+    print(builds.report())
+    print_ptxas(failures)
+    kern["paged_attention"] = check_paged_attention(torch, timer, failures)
+    for name, err in check_bf16_kernels(torch, failures).items():
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
     note_compared()
     print(f"[kernels] {timer.report()}")
     end_phase("kernels", failures)
@@ -4056,7 +4293,7 @@ def main() -> int:
     # equal lengths for generate: 29 tokens, a 32-token bucket
     rect = rng.integers(1, cfg.vocab_size, (4, 29)).astype(np.int32)
     for e in (eng, qeng):
-        cpu_params = params_to(e.params, "cpu")
+        cpu_params = cpu_copy(e.params)
         for kv in (16, 8):
             c = dataclasses.replace(cfg, kv_cache_bits=kv)
             gpu = InferenceEngine(c, e.params, device=e.device, plan=e.plan)
@@ -4084,7 +4321,7 @@ def main() -> int:
     # CPU serves the same compressed tensors (cuSOLVER and LAPACK give
     # other singular vectors, so compressing twice would give two models)
     for label, e in compressed.items():
-        cpu = InferenceEngine(cfg, params_to(e.params, "cpu"),
+        cpu = InferenceEngine(cfg, cpu_copy(e.params),
                               device=torch.device("cpu"), plan=e.plan)
         parity(torch, f"{label} {e.plan.label} kv16", e, cpu, short, sp8,
                failures)
@@ -4107,6 +4344,12 @@ def main() -> int:
     for name, n in gemma2_phase(torch, failures).items():
         launches[name] += n
     end_phase("gemma2", failures)
+
+    # ---- the Mamba layouts: falcon-mamba-7b and zamba2-2.7b ---------------
+    failures = []
+    for name, n in mamba_phase(torch, failures).items():
+        launches[name] += n
+    end_phase("mamba", failures)
 
     # ---- nemotron-4-340b: Dh 192, six linears a layer, the widest linears --
     failures = []

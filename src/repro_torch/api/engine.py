@@ -8,7 +8,8 @@
 
 `generate` on a rectangular (B, S) batch is the static-batching baseline:
 one `prefill` of the whole batch (prompts right-padded to a power-of-two
-length bucket where padding is inert), then `decode_step`s in lockstep
+length bucket where padding is inert; the Mamba layouts, whose state
+would take the pads in, at exact length), then `decode_step`s in lockstep
 over a contiguous KV cache, every row to max_tokens, with stops applied
 afterwards. Ragged prompt lists go through `serve`. Both paths pick tokens
 with the same sampler and counter-based keys, so their greedy and seeded
@@ -494,8 +495,10 @@ class InferenceEngine:
             if n > 1:
                 step = self._decoder(toks.shape[0], padded + n, sampled)
                 ins = step.inputs
-                for group, leaves in cache.items():   # "kv", or paired
-                    for name, leaf in leaves.items():   # "local", "global"
+                # "kv"; "local" and "global"; or "ssm" ({"h", "conv"})
+                # and the hybrid's "shared_kv"
+                for group, leaves in cache.items():
+                    for name, leaf in leaves.items():
                         ins["cache"][group][name].copy_(leaf)
                 ins["tok"].copy_(tok)
                 ins["pos"].fill_(s)
@@ -529,7 +532,9 @@ class InferenceEngine:
         geometry, bound to the engine-held decode cache of that geometry,
         which `generate` refills from each prefill (opus-mt's 8 x 160
         positions hold about 31 MB; a local/global model holds both
-        groups, the local one rolling); its static inputs are the input
+        groups, the local one rolling; a Mamba model its blocks' states
+        and conv tails, which each step updates in place, and the hybrid's
+        shared-block KV caches); its static inputs are the input
         token, the position, the output counter and the sampling controls,
         each advanced in place by the step itself."""
         key = (b, max_len, sampled)

@@ -3,11 +3,13 @@
 Only the fields the port reads are kept: the dense and mixture-of-experts
 layouts with causal attention (optionally windowed, or local and global
 layers in alternation: `local_global_period`, `local_window`), the
-whole-sequence attention's implementation, the MLP and norm flavors, the
-experts (`MoEConfig`), the KV-cache word length, the input frontend, and
-the training-time policy (remat, the loss's chunk). Field names and
-defaults match the reference, so a config reads the same in both
-packages.
+attention-free Mamba layout ("ssm") and the Mamba2 backbone with a shared
+attention block ("hybrid", `hybrid_period`), the whole-sequence
+attention's implementation, the MLP and norm flavors, the experts
+(`MoEConfig`) and the Mamba blocks (`SSMConfig`), the KV-cache word
+length, the input frontend, and the training-time policy (remat, the
+loss's chunk). Field names and defaults match the reference, so a config
+reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -25,9 +27,20 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    version: int = 1               # 1 = Mamba1 selective scan, 2 = Mamba2 SSD
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64             # Mamba2 only
+    dt_rank: Optional[int] = None  # default d_model // 16
+    chunk: int = 128               # chunked-scan block (perf option)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    layout: str = "dense"          # dense | moe (ssm, hybrid not ported)
+    layout: str = "dense"          # dense | moe | ssm | hybrid
     num_layers: int = 4
     d_model: int = 256
     num_heads: int = 4
@@ -51,8 +64,10 @@ class ModelConfig:
     # MLP flavor
     mlp_act: str = "swiglu"                 # swiglu | relu2 | gelu | geglu
 
-    # mixture-of-experts block (layout "moe")
+    # mixture-of-experts / ssm blocks
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid_period: int = 6                  # Zamba2: shared attn every N blocks
 
     # modality frontend stub: "none" -> token ids; "audio"/"vision" ->
     # precomputed frame/patch embeddings are fed directly
@@ -74,6 +89,17 @@ class ModelConfig:
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.layout == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM / hybrid / bounded-window attention."""
+        if self.layout in ("ssm", "hybrid"):
+            return True
+        return self.attn_window is not None and self.local_global_period == 0
+
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks), by the
         reference's formula."""
@@ -90,7 +116,20 @@ class ModelConfig:
         if self.layout == "moe":
             e = self.moe.num_experts + self.moe.num_shared
             return n + L * (attn + e * mlp + d * self.moe.num_experts)
-        raise NotImplementedError(f"layout {self.layout!r} is not ported yet")
+        di = d * self.ssm.expand
+        if self.layout == "ssm":
+            dtr = self.ssm.dt_rank or d // 16
+            blk = d * 2 * di + di * (dtr + 2 * self.ssm.d_state) \
+                + dtr * di + di * d + di * self.ssm.d_conv \
+                + di * self.ssm.d_state
+            return n + L * blk
+        if self.layout == "hybrid":
+            nh = di // self.ssm.head_dim
+            blk = d * (2 * di + 2 * self.ssm.d_state + nh) + di * d \
+                + di * self.ssm.d_conv
+            # mamba2 blocks (no per-block MLP), one shared attention + MLP
+            return n + L * blk + attn + mlp
+        raise ValueError(self.layout)
 
     def active_param_count(self) -> int:
         """Active parameters per token (moe: the top-k and shared experts

@@ -117,16 +117,26 @@ def lrmm(x: torch.Tensor, lr: LowRankQ, *, out_dtype=None,
         y = quant_matmul(*_qmm_args(tq, st, w2v, ones, w2p), w_packed=w2p,
                          out_dtype=out_dtype)[..., :n]
         return y.reshape(*lead, n)
-    if _on_cuda(x):
+    y = lowrank_qmm(*_lrmm_args(xq, sx, w1v, s1, w2v, s2, w1p, w2p),
+                    w1_packed=w1p, w2_packed=w2p, act_qmax=qm,
+                    out_dtype=out_dtype)[..., :n]
+    return y.reshape(*lead, n)
+
+
+def _lrmm_args(xq, sx, w1v, s1, w2v, s2, w1p, w2p):
+    """lowrank_qmm's arguments, padded for the CUDA kernel on CUDA (K to
+    16, R and N to 32)."""
+    if _on_cuda(xq):
+        k = xq.shape[-1]
+        r = s1.shape[-1]
+        n = w2v.shape[-1] * 2 if w2p else w2v.shape[-1]
         kp, rp, np_ = _up(k, 16), _up(r, 32), _up(n, 32)
         xq = _pad(xq, xq.shape[-2], kp).contiguous()
         w1v = _pad(w1v, kp, rp // 2 if w1p else rp).contiguous()
         s1 = _pad(s1, 1, rp, 1.0).contiguous()
         w2v = _pad(w2v, rp, np_ // 2 if w2p else np_).contiguous()
         s2 = _pad(s2, rp, 1, 1.0).contiguous()
-    y = lowrank_qmm(xq, sx, w1v, s1, w2v, s2, w1_packed=w1p, w2_packed=w2p,
-                    act_qmax=qm, out_dtype=out_dtype)[..., :n]
-    return y.reshape(*lead, n)
+    return xq, sx, w1v, s1, w2v, s2
 
 
 def _qmm_args(xq, sx, wv, sw, packed):

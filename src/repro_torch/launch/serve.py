@@ -15,9 +15,10 @@ tokens as they complete through `serve_stream` (both need --ragged).
 Requests are greedy unless --temperature > 0 (with --top-k / --top-p,
 seeded by --seed); --eos-id and --stop end a request early. --arch takes
 every name of `repro_torch.configs` (opus-mt, phi3-medium-14b,
-stablelm-12b, gemma2-9b, deepseek-moe-16b, mixtral-8x22b); the model's
-dtype is its config's (bfloat16 for the full phi3-medium-14b, stablelm-12b
-and gemma2-9b). gemma2-9b's local/global layers run rectangular only: the
+stablelm-12b, gemma2-9b, nemotron-4-340b, deepseek-moe-16b,
+mixtral-8x22b, falcon-mamba-7b, zamba2-2.7b, ...); the model's dtype is
+its config's (bfloat16 at full size). gemma2-9b's local/global layers and
+the Mamba archs (falcon-mamba-7b, zamba2-2.7b) run rectangular only: the
 blocked KV pool refuses them, as the reference's does, so --ragged does.
 
   python -m repro_torch.launch.serve --arch opus-mt --compression svd \

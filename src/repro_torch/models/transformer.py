@@ -1,18 +1,24 @@
-"""Decoder-only LM (port of `repro.models.transformer`) in the dense and
-mixture-of-experts layouts (an MoE block, `models.moe`, in place of every
-layer's MLP): the whole-sequence `forward` (the calibration pass SRA
-runs, and the training forward, each layer under activation
-checkpointing when `cfg.remat`), the sequence-chunked training loss (`loss_fn`), the
-rectangular path (`init_cache`, `prefill` with its decode cache,
-`decode_step`) and the serving step over the blocked KV pool. Dense
-models may alternate local (windowed, rolling cache) and global layers
-in pairs (`local_global_period`, gemma2), as the reference's scan over
-pairs; the blocked KV pool refuses them, so they decode rectangular.
+"""Decoder-only LM (port of `repro.models.transformer`) in the dense,
+mixture-of-experts (an MoE block, `models.moe`, in place of every
+layer's MLP), attention-free Mamba ("ssm": Mamba1 blocks, falcon-mamba)
+and hybrid ("hybrid": Mamba2 blocks, and one shared-weight attention +
+MLP block after every `hybrid_period` of them, each invocation with its
+own KV cache; zamba2) layouts: the whole-sequence `forward` (the
+calibration pass SRA runs, and the training forward, each layer under
+activation checkpointing when `cfg.remat`), the sequence-chunked
+training loss (`loss_fn`), the rectangular path (`init_cache`, `prefill`
+with its decode cache, `decode_step`) and, for dense and moe models, the
+serving step over the blocked KV pool. Dense models may alternate local
+(windowed, rolling cache) and global layers in pairs
+(`local_global_period`, gemma2), as the reference's scan over pairs; the
+blocked KV pool refuses them and the Mamba layouts, so they decode
+rectangular.
 
 Parameters are a plain dict of tensors with the reference's tree layout
-and path names ("layers/attn/wq", "lm_head", ...): per-layer weights are
-stacked along a leading L axis, as the reference's scan-stacked leaves,
-so compression plans and checkpoints address the same paths in both
+and path names ("layers/attn/wq", "layers/mixer/in_proj",
+"shared_block/mlp/up", "lm_head", ...): per-layer weights are stacked
+along a leading L axis, as the reference's scan-stacked leaves, so
+compression plans and checkpoints address the same paths in both
 packages. The forward pass loops over layers in Python.
 """
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (add_norm, apply_linear, apply_norm,
                                        dtype_of,
@@ -34,16 +41,23 @@ from repro_torch.runtime import sampling as smp
 from repro_torch.runtime.kvblocks import check_paged_support
 
 
+LAYOUTS = ("dense", "moe", "ssm", "hybrid")
+
+
 def _check_layout(cfg) -> None:
-    if cfg.layout not in ("dense", "moe"):
+    if cfg.layout not in LAYOUTS:
         raise NotImplementedError(f"layout {cfg.layout!r} is not ported yet")
+    if cfg.layout in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(f"layout {cfg.layout!r} needs cfg.ssm")
+    if cfg.layout == "hybrid" and cfg.num_layers % cfg.hybrid_period:
+        raise ValueError(f"hybrid layers ({cfg.num_layers}) must be a "
+                         f"multiple of hybrid_period ({cfg.hybrid_period})")
 
 
 # ------------------------------------------------------------------ init --
 def init_params(cfg, *, seed: int = 0, device="cpu"):
-    """Random parameters of the dense or moe layout from a torch generator
-    on `device` (the same shapes and scales as the reference; not jax's
-    numbers)."""
+    """Random parameters of any layout from a torch generator on `device`
+    (the same shapes and scales as the reference; not jax's numbers)."""
     _check_layout(cfg)
     dtype = dtype_of(cfg.dtype)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -61,24 +75,36 @@ def init_params(cfg, *, seed: int = 0, device="cpu"):
                                         device=device)}
         return {"gamma": torch.zeros((*lead, d), dtype=dtype, device=device)}
 
-    p = {"embed": normal(cfg.vocab_size, d, std=0.02),
-         "final_norm": norm(),
-         "layers": {
-             "ln1": norm(L),
-             "attn": {"wq": normal(L, d, h * hd, std=d ** -0.5),
-                      "wk": normal(L, d, hk * hd, std=d ** -0.5),
-                      "wv": normal(L, d, hk * hd, std=d ** -0.5),
-                      "wo": normal(L, h * hd, d, std=(h * hd) ** -0.5)},
-             "ln2": norm(L)}}
-    if cfg.layout == "moe":
-        p["layers"]["moe"] = moe_mod.moe_init(
-            cfg, lambda *shape, **kw: normal(L, *shape, **kw))
-    else:
-        mlp = {"up": normal(L, d, cfg.d_ff, std=d ** -0.5),
-               "down": normal(L, cfg.d_ff, d, std=cfg.d_ff ** -0.5)}
+    def dense_block(*lead):
+        blk = {"ln1": norm(*lead),
+               "attn": {"wq": normal(*lead, d, h * hd, std=d ** -0.5),
+                        "wk": normal(*lead, d, hk * hd, std=d ** -0.5),
+                        "wv": normal(*lead, d, hk * hd, std=d ** -0.5),
+                        "wo": normal(*lead, h * hd, d,
+                                     std=(h * hd) ** -0.5)},
+               "ln2": norm(*lead)}
+        if cfg.layout == "moe":
+            blk["moe"] = moe_mod.moe_init(
+                cfg, lambda *shape, **kw: normal(*lead, *shape, **kw))
+            return blk
+        mlp = {"up": normal(*lead, d, cfg.d_ff, std=d ** -0.5),
+               "down": normal(*lead, cfg.d_ff, d, std=cfg.d_ff ** -0.5)}
         if cfg.mlp_act in ("swiglu", "geglu"):
-            mlp["gate"] = normal(L, d, cfg.d_ff, std=d ** -0.5)
-        p["layers"]["mlp"] = mlp
+            mlp["gate"] = normal(*lead, d, cfg.d_ff, std=d ** -0.5)
+        blk["mlp"] = mlp
+        return blk
+
+    p = {"embed": normal(cfg.vocab_size, d, std=0.02), "final_norm": norm()}
+    if cfg.layout in ("dense", "moe"):
+        p["layers"] = dense_block(L)
+    else:
+        init = mamba.mamba1_init if cfg.ssm.version == 1 else \
+            mamba.mamba2_init
+        p["layers"] = {"ln": norm(L), "mixer": init(
+            cfg, lambda *shape, **kw: normal(L, *shape, **kw),
+            lambda t: t.to(device).expand(L, *t.shape).clone())}
+        if cfg.layout == "hybrid":
+            p["shared_block"] = dense_block()
     if not cfg.tie_embeddings:
         p["lm_head"] = normal(d, cfg.vocab_size, std=d ** -0.5)
     return p
@@ -120,13 +146,15 @@ def embed(params, tokens, cfg, pos0=0):
     frontend stub, `data.pipeline.lift_to_embeddings`); pos0: the
     absolute position of tokens[:, 0], for the whole batch (a host int,
     or a 0-dim device tensor: rectangular decode) or one for each row (a
-    (B,) int tensor: serving)."""
+    (B,) int tensor: serving). Token embeddings are scaled by
+    sqrt(d_model), except in the ssm layout."""
     dtype = dtype_of(cfg.dtype)
     if tokens.ndim == 3:
         h = tokens.to(dtype)
     else:
         h = params["embed"][tokens.long()]
-        h = h * _embed_scale(cfg.d_model, dtype)
+        if cfg.layout != "ssm":
+            h = h * _embed_scale(cfg.d_model, dtype)
     if cfg.pos_emb == "sinusoidal":
         ar = torch.arange(tokens.shape[1], device=h.device)
         if isinstance(pos0, torch.Tensor):
@@ -256,19 +284,54 @@ def _maybe_remat(cfg, fn):
     return run
 
 
-def forward(params, tokens, cfg):
-    """Whole sequences through the dense or moe layout: tokens (B, S) int
-    (or embeddings (B, S, D)) -> (final-normed hidden (B, S, D), aux
-    loss: the MoE blocks' load-balance losses summed over layers from
-    0.0, or 0.0 in the dense layout). Layers attend causally within
+def _mamba_order(cfg) -> list:
+    """The ssm and hybrid layouts' blocks in order: ("mamba", layer) for
+    each layer, and in the hybrid layout ("shared", invocation) after
+    every `hybrid_period` layers -- the shared block, whose invocation g
+    has KV cache g."""
+    out = []
+    for i in range(cfg.num_layers):
+        out.append(("mamba", i))
+        if cfg.layout == "hybrid" and (i + 1) % cfg.hybrid_period == 0:
+            out.append(("shared", i // cfg.hybrid_period))
+    return out
+
+
+def _mamba_body(cfg, h, lp, *, engine, return_state=False):
+    """One Mamba block over whole sequences: h + mixer(norm(h)) (and the
+    block's decode cache)."""
+    hn = apply_norm(h, lp["ln"], cfg.norm, cfg.norm_eps)
+    pre = mamba.mamba1_prefill if cfg.ssm.version == 1 else \
+        mamba.mamba2_prefill
+    y, state = pre(lp["mixer"], hn, cfg, engine=engine)
+    return (h + y, state) if return_state else h + y
+
+
+def forward(params, tokens, cfg, *, ssm_engine="sequential"):
+    """Whole sequences through the model: tokens (B, S) int (or
+    embeddings (B, S, D)) -> (final-normed hidden (B, S, D), aux loss:
+    the MoE blocks' load-balance losses summed over layers from 0.0, or
+    0.0 in the other layouts). Layers attend causally within
     `cfg.attn_window`, or, paired, within `local_window` (even layers) and
-    over the whole sequence (odd ones). The ssm and hybrid layouts are not
-    ported yet."""
+    over the whole sequence (odd ones). The Mamba blocks scan with
+    `ssm_engine` ("sequential" or "chunked")."""
     _check_layout(cfg)
     h = embed(params, tokens, cfg)
+    layers = _layer_list(params, cfg)
+    if cfg.layout in ("ssm", "hybrid"):
+        body = _maybe_remat(cfg, functools.partial(_mamba_body,
+                                                   engine=ssm_engine))
+        shared = _maybe_remat(cfg, _dense_body)
+        for kind, i in _mamba_order(cfg):
+            if kind == "mamba":
+                h = body(cfg, h, layers[i])
+            else:
+                h = shared(cfg, h, params["shared_block"],
+                           window=cfg.attn_window)[0]
+        return apply_norm(h, params["final_norm"], cfg.norm,
+                          cfg.norm_eps), 0.0
     body = _maybe_remat(cfg, _dense_body)
     aux, hn = 0.0, None
-    layers = _layer_list(params, cfg)
     for i, (lp, (_, _, window)) in enumerate(zip(layers, _cache_slots(cfg))):
         h, a, hn = body(cfg, h, lp, hn, _next_ln(cfg, layers, i),
                         window=window)
@@ -316,12 +379,13 @@ def chunked_loss(params, h, labels, cfg):
     return total / (b * s)
 
 
-def loss_fn(params, batch, cfg, *, aux_weight=0.01):
+def loss_fn(params, batch, cfg, *, aux_weight=0.01,
+            ssm_engine="sequential"):
     """(ce + aux_weight * aux, {"ce", "aux"}) of a batch {"tokens" or
     "inputs_embeds", "labels"}; aux is the MoE load-balance loss, 0.0 in
-    the dense layout."""
+    the other layouts."""
     inputs = batch.get("inputs_embeds", batch.get("tokens"))
-    h, aux = forward(params, inputs, cfg)
+    h, aux = forward(params, inputs, cfg, ssm_engine=ssm_engine)
     ce = chunked_loss(params, h, batch["labels"], cfg)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -333,22 +397,49 @@ def init_cache(cfg, batch, max_len, dtype=None, device="cpu"):
     min(attn_window, max_len) for a rolling cache. With the local/global
     pairing, {"local": ..., "global": ...}, each stacked over L / 2
     layers, the local one rolling over min(local_window, max_len)
-    slots."""
+    slots. The ssm layout's is {"ssm": {"h", "conv"}}, the Mamba blocks'
+    states (L, B, ...) in float32 and their conv tails (L, B, d_conv - 1,
+    Di) in `dtype`; the hybrid layout's also holds "shared_kv", one KV
+    cache for each invocation of the shared block (L / hybrid_period of
+    them)."""
     _check_layout(cfg)
+    if cfg.layout in ("ssm", "hybrid"):
+        return _mamba_init_cache(cfg, batch, max_len, dtype, device)
     groups = {}
     for group, _, window in _cache_slots(cfg):
         groups.setdefault(group, [0, window])[0] += 1
-    out = {}
-    for group, (n, window) in groups.items():
-        kv = attn.init_kv_cache(cfg, batch, max_len, window=window,
+    return {group: _repeated(n, attn.init_kv_cache(
+                cfg, batch, max_len, window=window, dtype=dtype,
+                device=device))
+            for group, (n, window) in groups.items()}
+
+
+def _repeated(n: int, tree: dict) -> dict:
+    """Each leaf of `tree` repeated along a new leading axis of n."""
+    return {k: v[None].repeat(n, *([1] * v.ndim)) for k, v in tree.items()}
+
+
+def _mamba_init_cache(cfg, batch, max_len, dtype, device):
+    dtype = dtype or dtype_of(cfg.dtype)
+    init = (mamba.mamba1_init_cache if cfg.ssm.version == 1
+            else mamba.mamba2_init_cache)
+    out = {"ssm": _repeated(cfg.num_layers, init(cfg, batch, dtype, device))}
+    if cfg.layout == "hybrid":
+        kv = attn.init_kv_cache(cfg, batch, max_len, window=cfg.attn_window,
                                 dtype=dtype, device=device)
-        out[group] = {k: v[None].repeat(n, *([1] * v.ndim))
-                      for k, v in kv.items()}
+        out["shared_kv"] = _repeated(cfg.num_layers // cfg.hybrid_period, kv)
     return out
 
 
+def _stacked(per_layer: list) -> dict:
+    """Per-layer caches (dicts of tensors) as one dict of stacked
+    leaves."""
+    return {name: torch.stack([c[name] for c in per_layer])
+            for name in per_layer[0]}
+
+
 def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
-            last_pos=None):
+            last_pos=None, ssm_engine="sequential"):
     """A (B, S) prompt batch through every layer at once: returns (logits
     (B, 1, V) f32 of one position, the decode cache for positions 0..S-1
     in `max_len` (default S) slots, as `init_cache` lays it out).
@@ -356,23 +447,41 @@ def prefill(params, tokens, cfg, *, max_len=None, cache_dtype=None,
     last_pos: the position whose logits come back (default S - 1). Prompts
     right-padded to a length bucket pass their true last position; the
     pad positions' K/V sit in slots no decode query reaches before
-    `decode_step` overwrites them."""
+    `decode_step` overwrites them. A Mamba block's state would take the
+    pads in, so the ssm and hybrid layouts take exact-length prompts; their
+    blocks scan with `ssm_engine`."""
     _check_layout(cfg)
     cdt = cache_dtype or dtype_of(cfg.dtype)
     h = embed(params, tokens, cfg)
     caches: dict = {}
     hn = None
     layers = _layer_list(params, cfg)
-    for i, (lp, (group, _, window)) in enumerate(zip(layers,
-                                                     _cache_slots(cfg))):
-        h, _, hn, (k, v) = _dense_body(cfg, h, lp, hn,
-                                       _next_ln(cfg, layers, i),
-                                       window=window, return_kv=True)
-        caches.setdefault(group, []).append(attn.build_cache_from_kv(
-            k, v, window=window, max_len=max_len, dtype=cdt,
-            quantized=cfg.kv_cache_bits == 8))
-    cache = {group: {name: torch.stack([c[name] for c in per_layer])
-                     for name in per_layer[0]}
+
+    def kv_cache(k, v, window):
+        return attn.build_cache_from_kv(k, v, window=window, max_len=max_len,
+                                        dtype=cdt,
+                                        quantized=cfg.kv_cache_bits == 8)
+
+    if cfg.layout in ("ssm", "hybrid"):
+        for kind, i in _mamba_order(cfg):
+            if kind == "mamba":
+                h, state = _mamba_body(cfg, h, layers[i], engine=ssm_engine,
+                                       return_state=True)
+                caches.setdefault("ssm", []).append(state)
+            else:
+                h, _, _, (k, v) = _dense_body(cfg, h, params["shared_block"],
+                                              window=cfg.attn_window,
+                                              return_kv=True)
+                caches.setdefault("shared_kv", []).append(
+                    kv_cache(k, v, cfg.attn_window))
+    else:
+        for i, (lp, (group, _, window)) in enumerate(zip(layers,
+                                                         _cache_slots(cfg))):
+            h, _, hn, (k, v) = _dense_body(cfg, h, lp, hn,
+                                           _next_ln(cfg, layers, i),
+                                           window=window, return_kv=True)
+            caches.setdefault(group, []).append(kv_cache(k, v, window))
+    cache = {group: _stacked(per_layer)
              for group, per_layer in caches.items()}
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     last = h.shape[1] - 1 if last_pos is None else int(last_pos)
@@ -383,25 +492,46 @@ def decode_step(params, cache, tokens, pos, cfg):
     """One decode step for the whole batch at position `pos`: a 0-dim int
     device tensor (the reference's traced position, so one captured step
     serves every position) or a host int, which becomes one. tokens (B, 1)
-    int; the cache is updated in place. Returns (logits (B, 1, V) f32,
-    cache)."""
+    int; the cache is updated in place (a Mamba block's state and conv
+    tail too). Returns (logits (B, 1, V) f32, cache)."""
     _check_layout(cfg)
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.long, device=tokens.device)
     h = embed(params, tokens, cfg, pos)
     hn = None
     layers = _layer_list(params, cfg)
-    for j, (lp, (group, i, window)) in enumerate(zip(layers,
-                                                     _cache_slots(cfg))):
+
+    def dense_step(h, hn, lp, kv, window, next_ln):
         if hn is None:
             hn = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
-        a, _ = attn.decode_attention(lp["attn"], hn,
-                                     {k: v[i] for k, v in
-                                      cache[group].items()}, pos,
-                                     cfg, window=window)
+        a, _ = attn.decode_attention(lp["attn"], hn, kv, pos, cfg,
+                                     window=window)
         h, hn = add_norm(h, a, lp["ln2"], cfg.norm, cfg.norm_eps)
-        h, hn = _residual(cfg, h, _ffn(cfg, lp, hn)[0],
-                          _next_ln(cfg, layers, j))
+        return _residual(cfg, h, _ffn(cfg, lp, hn)[0], next_ln)
+
+    if cfg.layout in ("ssm", "hybrid"):
+        step = mamba.mamba1_step if cfg.ssm.version == 1 else \
+            mamba.mamba2_step
+        for kind, i in _mamba_order(cfg):
+            if kind == "shared":
+                h, _ = dense_step(h, None, params["shared_block"],
+                                  {k: v[i] for k, v in
+                                   cache["shared_kv"].items()},
+                                  cfg.attn_window, None)
+                continue
+            lp = layers[i]
+            hn = apply_norm(h, lp["ln"], cfg.norm, cfg.norm_eps)
+            y, state = step(lp["mixer"], hn,
+                            {k: v[i] for k, v in cache["ssm"].items()}, cfg)
+            for k, v in state.items():
+                cache["ssm"][k][i].copy_(v)
+            h = h + y
+    else:
+        for j, (lp, (group, i, window)) in enumerate(zip(layers,
+                                                         _cache_slots(cfg))):
+            h, hn = dense_step(h, hn, lp,
+                               {k: v[i] for k, v in cache[group].items()},
+                               window, _next_ln(cfg, layers, j))
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     return logits_for(params, h, cfg), cache
 

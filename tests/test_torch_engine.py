@@ -289,7 +289,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.gemma2_9b, repro_torch.kernels.lowrank_qmm, "
             "repro_torch.configs.nemotron_4_340b, "
             "repro_torch.configs.chameleon_34b, "
-            "repro_torch.configs.musicgen_medium, repro_torch.runtime.prng; "
+            "repro_torch.configs.musicgen_medium, repro_torch.runtime.prng, "
+            "repro_torch.models.mamba, repro_torch.configs.falcon_mamba_7b, "
+            "repro_torch.configs.zamba2_2p7b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

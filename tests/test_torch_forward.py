@@ -189,7 +189,10 @@ def test_compressed_forward_argmax_matches_reference(compressed, plan):
 def test_forward_refuses_what_is_not_ported(weights):
     """The local/global pairing runs (the opus weights paired, window 3
     over 6 tokens: forward's logits and prefill's within 1e-4 of the
-    reference's); the ssm layout is still refused."""
+    reference's); so does the ssm layout (falcon-mamba-7b's smoke config
+    from the reference's seed-1 weights: forward's hidden states and
+    prefill's logits within 1e-4); an unknown attention implementation
+    is refused."""
     jp, tp = weights["opus"]
     toks = _tokens(512, s=6)
     jc, tc = _configs("opus", local_global_period=2, local_window=3)
@@ -200,11 +203,17 @@ def test_forward_refuses_what_is_not_ported(weights):
     lt, cache = ttfm.prefill(tp, torch.from_numpy(toks), tc)
     assert sorted(cache) == ["global", "local"]
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=1e-4)
-    toks = torch.from_numpy(_tokens(512, s=4))
-    _, tc = _configs("opus", layout="ssm")
-    for entry in (ttfm.forward, ttfm.prefill):
-        with pytest.raises(NotImplementedError, match="ssm"):
-            entry(tp, toks, tc)
+    jm = j_get_config("falcon-mamba-7b", smoke=True)
+    tm = t_get_config("falcon-mamba-7b", smoke=True)
+    jpm = jtfm.init_params(jax.random.PRNGKey(1), jm)
+    tpm = _to_port_tree(jpm)
+    toks = _tokens(jm.vocab_size, s=6)
+    for entry in (jtfm.forward, jtfm.prefill):
+        want = jax.jit(lambda p, t: entry(p, t, jm))(jpm, jnp.asarray(toks))[0]
+        got = getattr(ttfm, entry.__name__)(tpm, torch.from_numpy(toks),
+                                            tm)[0]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-4, err_msg=entry.__name__)
     _, tc = _configs("opus")
     x = torch.zeros((1, 4, tc.d_model))
     lp = {k: v[0] for k, v in tp["layers"]["attn"].items()}

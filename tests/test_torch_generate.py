@@ -205,11 +205,13 @@ def test_prefill_and_decode_logits_match_reference(models, plan, kv_bits,
                                    atol=1e-4, err_msg=f"pos {pos}")
 
 
-def test_rectangular_path_refuses_unported_layouts(models):
+def test_rectangular_path_refuses_unported_layouts(models, tmp_path):
     """A paired (local/global) config's `init_cache` and `prefill` give
     the reference's cache tree, {"local", "global"} with the local one
     rolling, with prefill's leaves within 1e-4 of the reference's; the
-    ssm layout is still refused."""
+    ssm layout's `decode_step` (falcon-mamba-7b's smoke config, the
+    reference's seed-0 weights) gives the reference's logits and SSM
+    cache within 1e-4 from the same cache."""
     jc, tc = _cfgs()
     jpair = dataclasses.replace(jc, local_global_period=2, local_window=3)
     pair = dataclasses.replace(tc, local_global_period=2, local_window=3)
@@ -233,9 +235,24 @@ def test_rectangular_path_refuses_unported_layouts(models):
                                        err_msg=f"{group}/{name}")
     cache = ttfm.init_cache(tc, 1, 8)
     assert cache["kv"]["k"].shape == (2, 1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttfm.decode_step(p, cache, toks[:, :1], 0,
-                         dataclasses.replace(tc, layout="ssm"))
+    jc = j_get_config("falcon-mamba-7b", smoke=True)
+    tc = t_get_config("falcon-mamba-7b", smoke=True)
+    jp = jtfm.init_params(jax.random.PRNGKey(0), jc)
+    path = tmp_path / "ckpt"
+    ckpt.save(str(path), 0, jp)
+    tp = bridge.load_checkpoint(str(path))
+    _, jcache = jax.jit(lambda p, t: jtfm.prefill(p, t, jc))(
+        jp, jnp.asarray(toks.numpy()))
+    tcache = {"ssm": {k: torch.from_numpy(np.array(v))
+                      for k, v in jcache["ssm"].items()}}
+    lj, jcache = jax.jit(lambda p, c, t: jtfm.decode_step(p, c, t, 4, jc))(
+        jp, jcache, jnp.asarray(toks.numpy()[:, :1]))
+    lt, tcache = ttfm.decode_step(tp, tcache, toks[:, :1], 4, tc)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=1e-4)
+    for name, leaf in jcache["ssm"].items():
+        np.testing.assert_allclose(tcache["ssm"][name].numpy(),
+                                   np.asarray(leaf), rtol=0, atol=1e-4,
+                                   err_msg=name)
 
 
 # --------------------------------------------------------------- engine --

@@ -1195,3 +1195,96 @@ def test_paged_attention_bf16_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="key splits"):
         pa.paged_attention(q.to(cuda, torch.bfloat16), pool, tab, ctx_t,
                            keys_per_split=1)
+
+
+# The Mamba layouts' linears at their full widths (falcon-mamba-7b,
+# zamba2-2.7b at rank fraction 0.5): (K, R, N, X dtype, Y dtype), R the
+# ITERA rank (unpadded: 16 and 40 pad to 32 and 64, N 80 to 96)
+_MAMBA_LINEARS = [
+    (4096, 2048, 16384, torch.bfloat16, torch.bfloat16),   # in_proj
+    (8192, 128, 256, torch.bfloat16, torch.float32),       # dt_in
+    (8192, 16, 32, torch.bfloat16, torch.float32),         # bc_proj
+    (256, 128, 8192, torch.float32, torch.float32),        # dt_proj
+    (8192, 2048, 4096, torch.bfloat16, torch.bfloat16),    # out_proj
+    (2560, 1280, 10240, torch.bfloat16, torch.bfloat16),   # zx_proj, up
+    (2560, 64, 128, torch.bfloat16, torch.bfloat16),       # bc_in
+    (2560, 40, 80, torch.bfloat16, torch.float32),         # dt_lin
+    (5120, 1280, 2560, torch.bfloat16, torch.bfloat16),    # out_proj
+    (2560, 1280, 2560, torch.bfloat16, torch.bfloat16),    # wq/wk/wv/wo
+    (10240, 1280, 2560, torch.bfloat16, torch.bfloat16),   # down
+]
+
+
+def _w4(rng, shape, axis):
+    """A W4 node as compression stores it: packed where the rule packs."""
+    scale_shape = (1, shape[1]) if axis == 0 else (shape[0], 1)
+    return quant.pack_weights(quant.QuantizedTensor(
+        _codes(rng, shape, 4), _uniform(rng, scale_shape, 0.001, 0.02), 4,
+        axis))
+
+
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("k,r,n,xd,yd", _MAMBA_LINEARS)
+def test_mamba_linears_on_the_card_equal_the_cpu(cuda, m, k, r, n, xd, yd):
+    """`ops.qmm` (W4) and `ops.lrmm` (ITERA W4) at the Mamba layouts'
+    shapes and dtype pairs (a bf16 X to an fp32 Y; an fp32 X in a bf16
+    model), the activations' quantization included: the card's kernels
+    give the CPU's plain bits, one launch a call."""
+    rng = np.random.default_rng(k + r + n + m)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        xd)
+    nodes = [_w4(rng, (k, n), 0),
+             itera.LowRankQ(_w4(rng, (k, r), 0), _w4(rng, (r, n), 1))]
+    for w, fn, name in zip(nodes, (ops.qmm, ops.lrmm),
+                           ("quant_matmul", "lowrank_qmm")):
+        before = build.LAUNCHES[name]
+        y = fn(x.to(cuda), w.to(cuda), out_dtype=yd)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == before + 1
+        want = fn(x, w, out_dtype=yd)
+        assert y.dtype == want.dtype == yd and y.shape == (m, n)
+        assert torch.equal(y.cpu().view(torch.int16 if yd == torch.bfloat16
+                                        else torch.int32),
+                           want.view(torch.int16 if yd == torch.bfloat16
+                                     else torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_mamba_generate_on_the_card_gives_the_cpu_tokens(cuda, arch):
+    """The smoke config in bf16 with every projection under ITERA W4 r0.5
+    (the narrow ones too, so no dense bf16 matmul is left to sum in
+    another order on the card; the hybrid's shared block too) and a W8
+    head: `generate` captured on the card, greedy and sampled, gives the
+    CPU's tokens, with exact launches a pass and none of
+    paged_attention."""
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.api.plan import CompressionPlan, LayerPlan
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
+    params = init_params(cfg, seed=0)
+    base = CompressionPlan.uniform(
+        params, method="itera", weight_wl=4, rank_fraction=0.5, min_dim=4,
+        exclude=r"(embed|norm|ln|lm_head|A_log|bias|conv|/D$)")
+    plan = base.replace(layers=base.layers + (LayerPlan("lm_head", "quant",
+                                                        8),))
+    cpu = InferenceEngine.build(cfg, plan, params=params, device="cpu")
+    gpu = InferenceEngine.build(cfg, None, params=cpu.params, device=cuda)
+    invocations = cfg.num_layers // cfg.hybrid_period
+    per_pass = sum(cfg.num_layers if lp.path.startswith("layers/")
+                   else invocations for lp in base.layers)
+    assert per_pass == cfg.num_layers * (5 if cfg.ssm.version == 1 else 4) \
+        + (6 * invocations if cfg.layout == "hybrid" else 0)
+    prompts = np.random.default_rng(1).integers(1, 256, (3, 12)).astype(
+        np.int32)
+    for sp in (SamplingParams(max_tokens=6),
+               SamplingParams(max_tokens=6, temperature=0.8, top_k=20,
+                              seed=3)):
+        gpu.generate(prompts, sp)
+        build.reset_launches()
+        got = gpu.generate(prompts, sp).tokens
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"lowrank_qmm": per_pass * 6,
+                                        "quant_matmul": 6}
+        assert np.array_equal(got, cpu.generate(prompts, sp).tokens)

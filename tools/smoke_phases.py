@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's checks on one NVIDIA GPU, for quicker turns
-than the whole script: phase 2's bf16 kernel rows and its rows past
-lowrank_qmm's R 1024, then the gemma2, bf16 and nemotron phases (or a
-subset).
+than the whole script: phase 2's bf16 kernel rows, its rows past
+lowrank_qmm's R 1024 and its Mamba linears, then the gemma2, mamba, bf16
+and nemotron phases (or a subset).
 
-    python3 tools/smoke_phases.py \
-        [--phases bf16-kernels,large-ranks,gemma2,bf16,nemotron]
+    python3 tools/smoke_phases.py [--phases bf16-kernels,large-ranks,\
+        mamba-kernels,gemma2,mamba,bf16,nemotron]
 
 Later phases check their lowrank_qmm launches against what the kernel
 phases compared, so keep those first. Prints each part's failures and
@@ -19,7 +19,9 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("bf16-kernels", "large-ranks", "gemma2", "bf16", "nemotron")
+PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels", "gemma2", "mamba",
+          "bf16", "nemotron")
+KERNEL_PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels")
 
 
 def main() -> int:
@@ -37,8 +39,11 @@ def main() -> int:
     build_failures: list = []
     cs.print_ptxas(build_failures)
     timer = cs.Timer(torch)
-    runs = {"bf16-kernels": lambda f: cs.check_bf16_kernels(torch, timer, f),
-            "large-ranks": lambda f: cs.check_large_ranks(torch, timer, f),
+    runs = {"bf16-kernels": lambda f: cs.check_bf16_kernels(torch, f),
+            "large-ranks": lambda f: cs.check_large_ranks(torch, f),
+            "mamba-kernels": lambda f: cs.check_mamba_kernels(torch, timer,
+                                                              f),
+            "mamba": lambda f: cs.mamba_phase(torch, f),
             "gemma2": lambda f: cs.gemma2_phase(torch, f),
             "bf16": lambda f: cs.bf16_phase(torch, f),
             "nemotron": lambda f: cs.nemotron_phase(torch, f)}
@@ -48,7 +53,7 @@ def main() -> int:
         failures: list = []
         t0 = time.perf_counter()
         runs[name](failures)
-        if name in ("bf16-kernels", "large-ranks"):
+        if name in KERNEL_PHASES:
             cs.note_compared()
         print(f"[{name}] failures {failures}; "
               f"{time.perf_counter() - t0:.1f} s")
