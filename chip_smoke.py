@@ -2715,15 +2715,16 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
 # ---------------------------------------------------------------- train --
 
 # the failure lies between the first two checkpoints
-TRAIN = dict(batch=8, seq=128, steps=100, lr=1e-3, ckpt_every=50,
-             fail_at=75)
+TRAIN = dict(batch=8, seq=128, steps=60, lr=1e-3, ckpt_every=30,
+             fail_at=45)
 REMAT_STEPS = 12         # steps a remat setting, the first 3 untimed
 # a training-size batch for the remat trade (16,384 tokens a step); its
 # first 2 steps untimed
 TRAIN_BIG = dict(batch=32, seq=512, steps=8)
 # the train CLI: hash data, 2 microbatches, checkpoints every 3 steps, a
 # failure injected at step 4, then resumed from the step-3 checkpoint
-TRAIN_CLI = dict(steps=6, microbatches=2, ckpt_every=3, fail_at=4)
+TRAIN_CLI = dict(steps=6, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                 microbatches=2, ckpt_every=3, fail_at=4)
 TRAIN_TOL = 1e-5         # replayed steps against the first pass, relative
 CARD_CPU_TOL = 1e-4      # loss and grad norm, card against the CPU
 
@@ -2741,12 +2742,15 @@ def train_flops(cfg, tokens: int, remat: bool, seq: int) -> float:
 
 
 def run_train(torch, cfg, opt_cfg, task, steps, *, loop_kw=None,
-              ckpt_dir=None, batch=TRAIN["batch"], seq=TRAIN["seq"]):
+              ckpt_dir=None, batch=TRAIN["batch"], seq=TRAIN["seq"],
+              ssm_engine=None):
     """Train from init_params(seed 0) on the card with launch/train.py's
-    step on batch x seq tokens of `task`; with `loop_kw`, inside a
-    ResilientLoop saving to `ckpt_dir`.
+    step (or, given `ssm_engine`, launch/steps.py's `make_train_step`
+    with that scan engine) on batch x seq tokens of `task`; with
+    `loop_kw`, inside a ResilientLoop saving to `ckpt_dir`.
     Returns (state, [(step, loss, ms)], loop report or None)."""
     from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import make_accum_train_step
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import adamw
@@ -2754,7 +2758,10 @@ def run_train(torch, cfg, opt_cfg, task, steps, *, loop_kw=None,
 
     params = init_params(cfg, seed=0, device="cuda")
     state = {"params": params, "opt": adamw.init(params, opt_cfg)}
-    step = make_accum_train_step(cfg, opt_cfg, 1)
+    if ssm_engine is None:
+        step = make_accum_train_step(cfg, opt_cfg, 1)
+    else:
+        step = make_train_step(cfg, opt_cfg, ssm_engine=ssm_engine)
     log = []
 
     def step_fn(state, s):
@@ -2800,13 +2807,16 @@ def profile_steps(torch, cfg, opt_cfg, task, state, label, *,
     profile_run(torch, run, label)
 
 
-def train_cli_check(torch, cfg, out_dir, failures) -> None:
-    """launch/train.py's `main` at full width on its default device (the
-    card), as a user runs it: TRAIN_CLI's steps on `hash_batch` data in 2
-    microbatches, a failure injected and restored from a checkpoint; then
-    the last checkpoint removed and the run continued with --resume from
-    the one before. Both runs' losses are held to make_accum_train_step's
-    on the same initial weights and batches, within TRAIN_TOL relative."""
+def train_cli_check(torch, cfg, out_dir, failures, *, arch="opus-mt",
+                    smoke=False, c=TRAIN_CLI, tag="train") -> None:
+    """launch/train.py's `main` for `arch` (`cfg`, at full width unless
+    `smoke`) on its default device (the card), as a user runs it: c's
+    steps of c's batch x seq tokens of `hash_batch` data in c's
+    microbatches, a failure injected and restored from a
+    checkpoint; then the last checkpoint removed and the run continued
+    with --resume from the one before. Both runs' losses are held to
+    make_accum_train_step's on the same initial weights and batches,
+    within TRAIN_TOL relative."""
     import shutil
 
     import numpy as np
@@ -2816,13 +2826,14 @@ def train_cli_check(torch, cfg, out_dir, failures) -> None:
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import adamw
 
-    c = TRAIN_CLI
+    batch, seq = c["batch"], c["seq"]
     ckpt_dir = out_dir / "cli"
-    argv = ["--arch", "opus-mt", "--steps", str(c["steps"]),
-            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+    argv = ["--arch", arch, "--steps", str(c["steps"]),
+            "--batch", str(batch), "--seq", str(seq),
             "--lr", str(TRAIN["lr"]), "--microbatches",
             str(c["microbatches"]), "--data", "hash", "--ckpt-dir",
-            str(ckpt_dir), "--ckpt-every", str(c["ckpt_every"])]
+            str(ckpt_dir), "--ckpt-every", str(c["ckpt_every"])] \
+        + (["--smoke"] if smoke else [])
     t0 = time.perf_counter()
     first = train.main(argv + ["--inject-failure-at", str(c["fail_at"])])
     shutil.rmtree(ckpt_dir / f"step_{c['steps']:08d}")
@@ -2839,29 +2850,29 @@ def train_cli_check(torch, cfg, out_dir, failures) -> None:
     own = []
     for s in range(c["steps"]):
         params, opt, m = step(params, opt, hash_batch(
-            0, s, TRAIN["batch"], TRAIN["seq"], cfg.vocab_size,
-            device="cuda"))
+            0, s, batch, seq, cfg.vocab_size, device="cuda"))
         own.append(float(m["loss"]))
     del params, opt
     back = c["fail_at"] // c["ckpt_every"] * c["ckpt_every"]
     want = {"injected": own[:c["fail_at"]] + own[back:],
             "resumed": own[back:]}
     got = {"injected": first, "resumed": resumed}
-    print(f"[train] CLI at full width on the card ({wall:.1f} s, "
-          f"{c['microbatches']} microbatches, hash data): own step losses "
+    print(f"[{tag}] CLI --arch {arch}{' --smoke' if smoke else ''} on the "
+          f"card ({wall:.1f} s, {batch} x {seq}, {c['microbatches']} "
+          f"microbatches, hash data): own step losses "
           + " ".join(f"{x:.6f}" for x in own))
     for name in want:
         ok = len(got[name]) == len(want[name])
         worst = max((abs(a - b) / abs(b) for a, b
                      in zip(got[name], want[name])), default=0.0)
         same = ok and got[name] == want[name]
-        print(f"[train] CLI {name} run: {len(got[name])} losses against "
+        print(f"[{tag}] CLI {name} run: {len(got[name])} losses against "
               f"{len(want[name])}, largest relative difference "
               f"{worst:.3e}, bit-equal: {same}")
-        check(failures, ok and worst <= TRAIN_TOL, f"train: the CLI's "
-              f"{name} run differs from the step's own losses "
+        check(failures, ok and worst <= TRAIN_TOL, f"{tag}: the {arch} "
+              f"CLI's {name} run differs from the step's own losses "
               f"({len(got[name])} losses, {worst:.3e} relative)")
-    check(failures, all(np.isfinite(own)), "train: a CLI loss is not "
+    check(failures, all(np.isfinite(own)), f"{tag}: a CLI loss is not "
           "finite")
 
 
@@ -3139,18 +3150,10 @@ def train_phase(torch, cfg, failures):
         engines[name], served[name] = eng, res
 
     # (e) what trained weights answer ---------------------------------------
-    acc = {}
-    for name, params in (("dense", trained),
-                         ("quant-only W4", engines["quant-only"].params),
-                         ("ITERA W4 r0.5", engines["mixed"].params)):
-        hits = []
-        with torch.inference_mode():
-            for i in range(6):
-                b = task.batch(10_000 + i, 8, 64, device="cuda")
-                h, _ = tfm.forward(params, b["tokens"], cfg)
-                pred = torch.argmax(tfm.logits_for(params, h, cfg), dim=-1)
-                hits.append(float((pred == b["labels"]).float().mean()))
-        acc[name] = float(np.mean(hits))
+    acc = {name: heldout_accuracy(torch, cfg, params, task, (6, 8, 64))
+           for name, params in (("dense", trained),
+                                ("quant-only W4", engines["quant-only"].params),
+                                ("ITERA W4 r0.5", engines["mixed"].params))}
     check_compared(failures, "trained accuracy")
     print("[train] held-out greedy next-token accuracy (6 x 8 x 64 at step "
           "10,000; the lm head W8A8 in both compressed plans): "
@@ -3708,6 +3711,7 @@ def gemma2_phase(torch, failures):
 
     from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LatentMarkovTask
     from repro_torch.kernels import build
     from repro_torch.models.transformer import init_params
 
@@ -3801,6 +3805,329 @@ def gemma2_phase(torch, failures):
     return dict(launches)
 
 
+# ---------------------------------------------------- mamba-train phase --
+# falcon-mamba-7b and zamba2-2.7b trained at their published widths and
+# MAMBA_DEPTHS in bf16 through the chunked engine on `batch` x seq tokens
+# a step, AdamW with 8-bit state (a 32-bit state's checkpoints, 10 bytes a
+# parameter, cost more than its steps: PERF.md section 4) and a warmup of
+# `warmup` steps; a checkpoint every ckpt_every steps (and at step 0) and
+# a failure injected at fail_at, after the first one
+MAMBA_TRAIN = {"falcon-mamba-7b": dict(batch=8, seq=128),
+               # its step time at 8 x 128: PERF.md section 6
+               "zamba2-2.7b": dict(batch=4, seq=128)}
+MAMBA_STEPS = dict(steps=20, lr=3e-4, warmup=5, state_bits=8, ckpt_every=11,
+                   fail_at=13)
+MAMBA_ENGINE_STEPS = 2   # steps each engine takes from the same state
+MAMBA_CPU = (1, 32)      # batch x seq of the card == CPU steps
+# loss and grad norm of one bf16 step from the same state and batch on two
+# devices or through two engines, relative: their float32 sums (a bf16
+# matmul's, the scan's) run in other orders, and a last-bit difference
+# flips a bf16 rounding now and then. On the CPU the port's bf16 losses
+# lie 2e-4-3e-4 from the reference's and its gradients as far from the
+# reference's as the reference's from its own fp32 gradient
+# (tests/test_torch_mamba_train.py, ROADMAP C8).
+MAMBA_BF16_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
+# the falcon-mamba-7b train CLI (its smoke config: a full-width step runs
+# the sequential engine over 64 layers)
+MAMBA_CLI = dict(steps=6, batch=4, seq=32, microbatches=2, ckpt_every=3,
+                 fail_at=4)
+MAMBA_EVAL = (3, 8, 128)  # held-out batches x rows x tokens (M 1024)
+
+
+def mamba_train_flops(cfg, tokens: int, seq: int) -> float:
+    """Least FLOPs of a Mamba train step: 2 a linear parameter and token
+    (every block's projections, the hybrid's shared block at each
+    invocation, the lm head) plus the shared attention's QK^T and PV over
+    the causal half (2 seq d_model a token and invocation), three times
+    that with the backward pass, four under remat "full". The scan's
+    elementwise work (Di x d_state a token and layer, under 0.5% of
+    these) is left out."""
+    d, c = cfg.d_model, cfg.ssm
+    di = d * c.expand
+    if c.version == 1:
+        dtr = c.dt_rank or d // 16
+        layer = d * 2 * di + di * dtr + di * 2 * c.d_state + dtr * di \
+            + di * d
+    else:
+        layer = d * 2 * di + d * 2 * c.d_state + d * (di // c.head_dim) \
+            + di * d
+    uses = cfg.num_layers // cfg.hybrid_period \
+        if cfg.layout == "hybrid" else 0
+    shared = 4 * d * d + 2 * d * cfg.d_ff
+    forward = 2 * (cfg.num_layers * layer + uses * shared
+                   + d * cfg.vocab_size) + uses * 2 * seq * d
+    return (4 if cfg.remat and cfg.remat_policy == "full" else 3) \
+        * forward * tokens
+
+
+def state_32bit(state):
+    """A train state with 8-bit AdamW moments as one with 32-bit moments:
+    each dequantized, the parameters and the count shared."""
+    from repro_torch.optim import adamw
+
+    leaves = adamw.leaf_paths(state["params"])
+    opt = state["opt"]
+    return {"params": state["params"], "opt": {
+        "m": adamw.unflatten((p, adamw._dq8(adamw._at(opt["m"], p), x.shape))
+                             for p, x in leaves),
+        "v": adamw.unflatten((p, adamw._dq8log(adamw._at(opt["v"], p),
+                                               x.shape))
+                             for p, x in leaves),
+        "count": opt["count"]}}
+
+
+def heldout_accuracy(torch, cfg, params, task, shape=MAMBA_EVAL,
+                     ssm_engine="chunked"):
+    """Greedy next-token accuracy of `params` on held-out LatentMarkovTask
+    batches (`shape`: batches x rows x tokens, from step 10,000),
+    `forward` without gradients (the Mamba blocks through `ssm_engine`)."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tfm
+
+    n, rows, seq = shape
+    hits = []
+    with torch.inference_mode():
+        for i in range(n):
+            b = task.batch(10_000 + i, rows, seq, device="cuda")
+            h, _ = tfm.forward(params, b["tokens"], cfg,
+                               ssm_engine=ssm_engine)
+            pred = torch.argmax(tfm.logits_for(params, h, cfg), dim=-1)
+            hits.append(float((pred == b["labels"]).float().mean()))
+    return float(np.mean(hits))
+
+
+def mamba_train_phase(torch, failures):
+    """Training of the Mamba layouts on the card: falcon-mamba-7b and
+    zamba2-2.7b at their published widths, MAMBA_DEPTHS of their layers
+    (zamba2's shared block runs twice), bf16, remat "full" (the full
+    configs'), seed-0 random weights, on LatentMarkovTask(vocab, seed 0,
+    branching 4, classes 16).
+    (a) MAMBA_STEPS' steps of MAMBA_TRAIN's batch through
+    `make_train_step(..., ssm_engine="chunked")` in a ResilientLoop with a
+    checkpoint and an injected failure: every loss finite, the last 10
+    below the first 10, the replayed steps within TRAIN_TOL of the first
+    pass; step ms, tokens/s and peak bytes beside the FLOP bound at the
+    bf16 peak; a profile of one step.
+    (b) MAMBA_ENGINE_STEPS steps from the trained state, each taken from
+    the same state and batch by the chunked and the sequential engine:
+    loss and grad norm within MAMBA_BF16_TOL (the reference's equivalence
+    of its engines); the first one's gradients taken twice, the leaves
+    that differ in any bit printed.
+    (c) the same number of steps on MAMBA_CPU's batch through the
+    sequential engine on the card and on the CPU from one copy of that
+    state (its moments dequantized to 32 bits): within MAMBA_BF16_TOL.
+    (d) falcon-mamba-7b's train CLI on the card (`train_cli_check`, its
+    smoke config, MAMBA_CLI).
+    (e) the trained model's held-out greedy accuracy (`heldout_accuracy`).
+    Returns {arch: (config, trained parameters on the card, accuracy)} for
+    the mamba phase to compress and generate from."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.api.engine import _full_fp32, params_to
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import map_with_path
+    from repro_torch.data.pipeline import LatentMarkovTask
+    from repro_torch.hw.h100_model import PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import adamw
+
+    _full_fp32()
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "mamba_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    c = MAMBA_STEPS
+    trained = {}
+    for arch, depth in MAMBA_DEPTHS.items():
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        bsz, seq = MAMBA_TRAIN[arch]["batch"], MAMBA_TRAIN[arch]["seq"]
+        tokens = bsz * seq
+        task = LatentMarkovTask(cfg.vocab_size, seed=0, branching=4,
+                                classes=16)
+        opt_cfg = adamw.AdamWConfig(lr=c["lr"], warmup_steps=c["warmup"],
+                                    total_steps=c["steps"],
+                                    state_bits=c["state_bits"])
+        print(f"[mamba-train] {arch}: depth {depth} of {full.num_layers}, "
+              f"{cfg.dtype}, remat {cfg.remat_policy if cfg.remat else 'off'}"
+              f", chunk {cfg.ssm.chunk}; {cfg.param_count() / 1e9:.3f} B "
+              f"parameters; {bsz} x {seq} tokens a step; AdamW "
+              f"{c['state_bits']}-bit state; {card_line()}")
+
+        # (a) the resilient run through the chunked engine ----------------
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, log, report = run_train(
+            torch, cfg, opt_cfg, task, c["steps"], batch=bsz, seq=seq,
+            ssm_engine="chunked", ckpt_dir=str(out_dir / arch),
+            loop_kw=dict(ckpt_every=c["ckpt_every"],
+                         inject_failure_at=c["fail_at"]))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = report.losses
+        first, replay = {}, {}
+        for s, loss, _ in log:
+            (replay if s in first else first)[s] = loss
+        ms = [t for _, _, t in log[2:]]
+        ms_p50 = float(np.median(ms))
+        ckpt_s = wall - sum(t for _, _, t in log) / 1e3
+        flops = mamba_train_flops(cfg, tokens, seq)
+        bound_ms = flops / PEAK_FLOPS_BF16 * 1e3
+        print(f"[mamba-train] {arch}: {report.steps_run} steps in {wall:.1f}"
+              f" s, {ckpt_s:.1f} s of it outside the steps (checkpoints, "
+              f"restore, batches): failures {report.failures}, restores "
+              f"{report.restores}; replayed steps {min(replay)}-"
+              f"{max(replay)}")
+        print(f"[mamba-train] {arch}: step ms p50 {ms_p50:.2f} (min "
+              f"{min(ms):.2f}, max {max(ms):.2f}) after 2 warm-up steps "
+              f"({log[0][2]:.1f}, {log[1][2]:.1f}); "
+              f"{tokens / ms_p50 * 1e3:.0f} tokens/s; bound {bound_ms:.3f} "
+              f"ms ({flops / 1e12:.3f} TFLOP at the bf16 peak) = "
+              f"{bound_ms / ms_p50:.4f} of the step; peak {peak} bytes "
+              f"({peak / 2**30:.2f} GiB) above the {base} already allocated")
+        first10, last10 = np.mean(losses[:10]), np.mean(losses[-10:])
+        print(f"[mamba-train] {arch}: losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; first10 {first10:.4f} last10 {last10:.4f}; entropy "
+              f"floor {task.entropy_floor():.4f}; uniform "
+              f"{np.log(cfg.vocab_size):.4f}")
+        check(failures, bool(np.all(np.isfinite(losses))),
+              f"mamba-train {arch}: a loss is not finite")
+        check(failures, last10 < first10,
+              f"mamba-train {arch}: the loss did not decrease")
+        check(failures, report.failures == 1 and report.restores == 1
+              and len(replay) == c["fail_at"] - c["ckpt_every"],
+              f"mamba-train {arch}: {report.failures} failures, "
+              f"{report.restores} restores, {len(replay)} steps replayed")
+        worst = max(abs(replay[s] - first[s]) / abs(first[s])
+                    for s in replay)
+        same = all(replay[s] == first[s] for s in replay)
+        print(f"[mamba-train] {arch}: replayed losses: largest relative "
+              f"difference {worst:.3e}, bit-equal: {same}")
+        check(failures, worst <= TRAIN_TOL, f"mamba-train {arch}: a "
+              f"replayed loss differs by {worst:.3e} relative")
+        shutil.rmtree(out_dir / arch)
+
+        # (b) the two engines from the same state ---------------------------
+        engines = {e: make_train_step(cfg, opt_cfg, ssm_engine=e)
+                   for e in ("chunked", "sequential")}
+        def clone(tree):
+            return map_with_path(lambda _, t: t.clone(), tree)
+
+        cur = clone(state)
+        for i in range(MAMBA_ENGINE_STEPS):
+            b = task.batch(20_000 + i, bsz, seq, device="cuda")
+            if i == 0:
+                # the gradients' bits, taken twice: the embedding's
+                # backward scatters with atomics
+                g = [adamw.leaf_paths(loss_and_grads(
+                    cur["params"], b, cfg, ssm_engine="chunked")[1])
+                    for _ in range(2)]
+                moved = [p for (p, x), (_, y) in zip(*g)
+                         if not torch.equal(x, y)]
+                print(f"[mamba-train] {arch}: gradients taken twice on the "
+                      f"same state and batch: {len(g[0]) - len(moved)} of "
+                      f"{len(g[0])} leaves bit-equal; differing: "
+                      f"{moved or 'none'}")
+                del g
+            m, sec = {}, {}
+            for e in ("sequential", "chunked"):
+                st = clone(cur) if e == "sequential" else cur
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st["params"], st["opt"], m[e] = engines[e](
+                    st["params"], st["opt"], b)
+                torch.cuda.synchronize()
+                sec[e] = time.perf_counter() - t0
+                del st
+            rel = {k: abs(float(m["sequential"][k]) - float(m["chunked"][k]))
+                   / abs(float(m["chunked"][k])) for k in MAMBA_BF16_TOL}
+            print(f"[mamba-train] {arch}: engines from the same state, step "
+                  f"{i}: loss {float(m['sequential']['loss']):.6f} "
+                  f"(sequential, {sec['sequential'] * 1e3:.0f} ms) / "
+                  f"{float(m['chunked']['loss']):.6f} (chunked, "
+                  f"{sec['chunked'] * 1e3:.0f} ms), grad norm "
+                  f"{float(m['sequential']['grad_norm']):.6f} / "
+                  f"{float(m['chunked']['grad_norm']):.6f}; relative "
+                  f"{rel['loss']:.3e} / {rel['grad_norm']:.3e}")
+            check(failures, all(rel[k] <= t for k, t
+                                in MAMBA_BF16_TOL.items()),
+                  f"mamba-train {arch}: the sequential engine differs from "
+                  f"the chunked one at step {i}: {rel}")
+        profile_run(torch, lambda: (engines["chunked"](
+            cur["params"], cur["opt"],
+            task.batch(20_100, bsz, seq, device="cuda")), 1)[1],
+            f"mamba-train {arch} chunked step {bsz} x {seq}")
+
+        # (c) the card against the CPU from the same state -------------------
+        # Trained moments: no first step's sign-like update to amplify a
+        # difference. Dequantized to 32 bits, and through the sequential
+        # engine (held to the chunked one in (b)): on the CPU the 8-bit
+        # update and the chunked engine's float64 scan cost most of the
+        # phase at these widths (PERF.md section 4).
+        cb, cs = MAMBA_CPU
+        t0 = time.perf_counter()
+        cur = state_32bit(cur)
+        host = params_to(cur, "cpu")
+        step32 = make_train_step(cfg, dataclasses.replace(
+            opt_cfg, state_bits=32), ssm_engine="sequential")
+        sec = {"copy": time.perf_counter() - t0, "cuda": 0.0, "cpu": 0.0}
+        for i in range(MAMBA_ENGINE_STEPS):
+            b = task.batch(30_000 + i, cb, cs)
+            m = {}
+            for dev, st in (("cuda", cur), ("cpu", host)):
+                t1 = time.perf_counter()
+                st["params"], st["opt"], m[dev] = step32(
+                    st["params"], st["opt"],
+                    {k: v.to(dev) for k, v in b.items()})
+                float(m[dev]["loss"])
+                sec[dev] += time.perf_counter() - t1
+            mg, mc = m["cuda"], m["cpu"]
+            rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+                   for k in MAMBA_BF16_TOL}
+            print(f"[mamba-train] {arch}: card vs CPU step {i} ({cb} x {cs},"
+                  f" sequential): loss {float(mg['loss']):.7f} / "
+                  f"{float(mc['loss']):.7f}, grad norm "
+                  f"{float(mg['grad_norm']):.6f} / "
+                  f"{float(mc['grad_norm']):.6f}, relative "
+                  f"{rel['loss']:.3e} / {rel['grad_norm']:.3e}")
+            check(failures, all(rel[k] <= t for k, t
+                                in MAMBA_BF16_TOL.items()),
+                  f"mamba-train {arch}: card and CPU differ at step {i}: "
+                  f"{rel}")
+        print(f"[mamba-train] {arch}: card vs CPU in "
+              f"{time.perf_counter() - t0:.1f} s: the state to the CPU "
+              f"{sec['copy']:.1f} s, steps on the card {sec['cuda']:.1f} s, "
+              f"on the CPU ({torch.get_num_threads()} threads) "
+              f"{sec['cpu']:.1f} s")
+        del cur, host, engines
+        torch.cuda.empty_cache()
+
+        # (d) the train CLI ---------------------------------------------------
+        if arch == "falcon-mamba-7b":
+            train_cli_check(torch, get_config(arch, smoke=True), out_dir,
+                            failures, arch=arch, smoke=True, c=MAMBA_CLI,
+                            tag="mamba-train")
+
+        # (e) what the trained weights answer --------------------------------
+        acc = heldout_accuracy(torch, cfg, state["params"], task)
+        print(f"[mamba-train] {arch}: held-out greedy next-token accuracy "
+              f"of the trained dense model ({MAMBA_EVAL[0]} x "
+              f"{MAMBA_EVAL[1]} x {MAMBA_EVAL[2]} at step 10,000, chunked "
+              f"engine): {acc:.4f}; {time.perf_counter() - t_arch:.1f} s")
+        trained[arch] = (cfg, state["params"], acc)
+        del state
+        torch.cuda.empty_cache()
+    print(f"[mamba-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    return trained
+
+
 # ---------------------------------------------------------- mamba phase --
 def mamba_launches(cfg, plan: str) -> dict:
     """Kernel launches of one pass of a Mamba model (`prefill` or one
@@ -3817,14 +4144,17 @@ def mamba_launches(cfg, plan: str) -> dict:
     return {"quant_matmul": n + 1}
 
 
-def mamba_phase(torch, failures):
+def mamba_phase(torch, failures, trained=None):
     """falcon-mamba-7b (Mamba1, attention-free: d_model 4096, Di 8192,
     d_state 16, dt_rank 256, vocab 65,024) and zamba2-2.7b (Mamba2 blocks,
     80 heads of 64, d_state 64, and a shared attention + GELU block of 32
     heads of 80 after every 6: d_model 2560, vocab 32,000) at their
-    published widths in bfloat16, MAMBA_DEPTHS of their layers, seed-0
-    random weights, compressed on the card under the mixed plan (ITERA
-    W4A8 r0.5, W8A8 lm head) and quant-only W4A8 (same head); each plan's
+    published widths in bfloat16, MAMBA_DEPTHS of their layers, the
+    mamba-train phase's trained weights (`trained`, as it returns them;
+    seed-0 random weights without it), compressed on the card under the
+    mixed plan (ITERA W4A8 r0.5, W8A8 lm head) and quant-only W4A8 (same
+    head), and, trained, each compressed model's held-out greedy accuracy
+    beside the dense one's (`heldout_accuracy`); each plan's
     `generate` of 8 x 128 prompts, 16 new tokens, greedy (and, mixed,
     sampled), captured: launches exactly `mamba_launches` a pass, every
     lowrank_qmm launch on a compared code path and every quant_matmul
@@ -3839,6 +4169,7 @@ def mamba_phase(torch, failures):
 
     from repro_torch.api.engine import InferenceEngine, SamplingParams
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LatentMarkovTask
     from repro_torch.kernels import build
     from repro_torch.models.transformer import init_params
 
@@ -3864,7 +4195,11 @@ def mamba_phase(torch, failures):
               + f", vocab {cfg.vocab_size}; depth {depth} of "
               f"{full.num_layers}, {cfg.dtype}: "
               f"{cfg.param_count() / 1e9:.3f} B parameters; {card_line()}")
-        params = init_params(cfg, seed=0, device="cuda")
+        dense_acc = None
+        if trained:
+            _, params, dense_acc = trained.pop(arch)
+        else:
+            params = init_params(cfg, seed=0, device="cuda")
         engines = {}
         mixed = functools.partial(bf16_mixed_plan,
                                   rank_fraction=MAMBA_RANK_FRACTION)
@@ -3880,6 +4215,17 @@ def mamba_phase(torch, failures):
             engines[name] = eng
         del params
         torch.cuda.empty_cache()
+        if dense_acc is not None:
+            task = LatentMarkovTask(cfg.vocab_size, seed=0, branching=4,
+                                    classes=16)
+            acc = {name: heldout_accuracy(torch, cfg, eng.params, task)
+                   for name, eng in engines.items()}
+            check_compared(failures, f"mamba {arch} trained accuracy")
+            print(f"[mamba] {arch} trained: held-out greedy next-token "
+                  f"accuracy ({MAMBA_EVAL[0]} x {MAMBA_EVAL[1]} x "
+                  f"{MAMBA_EVAL[2]} at step 10,000, chunked engine; the lm "
+                  f"head W8A8 in both plans): dense {dense_acc:.4f}, "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()))
         rng = np.random.default_rng(26)
         prompts = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
         short = rng.integers(1, cfg.vocab_size, (sb, ss)).astype(np.int32)
@@ -4347,7 +4693,10 @@ def main() -> int:
 
     # ---- the Mamba layouts: falcon-mamba-7b and zamba2-2.7b ---------------
     failures = []
-    for name, n in mamba_phase(torch, failures).items():
+    trained = mamba_train_phase(torch, failures)
+    end_phase("mamba-train", failures)
+    failures = []
+    for name, n in mamba_phase(torch, failures, trained).items():
         launches[name] += n
     end_phase("mamba", failures)
 

@@ -27,8 +27,7 @@ from repro_torch.api.engine import _full_fp32, resolve_device
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.data import pipeline
-from repro_torch.launch.steps import (apply_grads, check_trainable,
-                                      loss_and_grads)
+from repro_torch.launch.steps import apply_grads, loss_and_grads
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim import adamw
@@ -106,7 +105,6 @@ def main(argv=None):
     if device.type == "cuda":
         _full_fp32()
     cfg = get_config(args.arch, smoke=args.smoke)
-    check_trainable(cfg)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 20, 5),
                                 state_bits=args.opt_bits)

@@ -30,11 +30,16 @@ and the CPU give each other's:
   * the state's contraction with C (an einsum over d_state) is taken in
     float64 and rounded once, so its order of summation does not matter.
 The chunked engine mirrors `jax.lax.associative_scan`'s combine order,
-but is held to the reference within a tolerance, not bit for bit.
+but is held to the reference within a tolerance, not bit for bit. When
+gradients are recorded each chunk runs under activation checkpointing,
+as the reference's `jax.checkpoint` chunk step.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models.layers import _bf, _exp_f32, apply_linear
 
@@ -62,9 +67,10 @@ def _silu_wide(x: torch.Tensor) -> torch.Tensor:
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softplus of float32 x, logaddexp(x, 0) = max(x, 0) +
     log1p(exp(-|x|)), each transcendental from float64 rounded to
-    float32."""
+    float32. max(x, 0) is (x + |x|) / 2, the same bits, so that the
+    gradient at the tie x = 0 is logaddexp's 0.5 (`clamp_min` gives 1)."""
     e = _exp_f32(-x.abs())
-    return torch.clamp_min(x, 0.0) + torch.log1p(e.to(torch.float64)).to(
+    return (x + x.abs()) * 0.5 + torch.log1p(e.to(torch.float64)).to(
         torch.float32)
 
 
@@ -159,15 +165,25 @@ def _ssm_scan(make_ab, emit, xs: dict, h0: torch.Tensor, engine: str,
     q = min(chunk, seq_len)
     while seq_len % q:
         q -= 1
+    step = functools.partial(_chunk_step, make_ab, emit)
+    if torch.is_grad_enabled():
+        # the reference's @jax.checkpoint chunk_step: the backward pass
+        # recomputes a chunk's associative scan instead of keeping its
+        # (B, Q, ..., d_state) internals
+        step = functools.partial(ckpt.checkpoint, step, use_reentrant=False)
     h, ys = h0, []
     for i in range(0, seq_len, q):
-        x_c = {k: v[:, i:i + q] for k, v in xs.items()}
-        a_c, b_c = make_ab(x_c)                       # (B, Q, ...)
-        cum_a, hin = _associative_scan(a_c, b_c)
-        h_all = fma(cum_a, h[:, None], hin)
-        h = h_all[:, -1]
-        ys.append(emit(h_all, x_c))
+        h, y = step(h, {k: v[:, i:i + q] for k, v in xs.items()})
+        ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+def _chunk_step(make_ab, emit, h, x_c):
+    """One chunk of the chunked engine: (the state after it, its ys)."""
+    a_c, b_c = make_ab(x_c)                           # (B, Q, ...)
+    cum_a, hin = _associative_scan(a_c, b_c)
+    h_all = fma(cum_a, h[:, None], hin)
+    return h_all[:, -1], emit(h_all, x_c)
 
 
 # ----------------------------------------------------------------- mamba1 --

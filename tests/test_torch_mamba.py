@@ -34,6 +34,7 @@ from repro.models import mamba as jm
 from repro.models import transformer as jtfm
 from repro_torch import bridge
 from repro_torch.api import engine as tengine
+from repro_torch.checkpoint import ckpt as tck
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import compress as tcomp
 from repro_torch.launch import serve as tserve
@@ -429,10 +430,11 @@ def test_generate_matches_reference(models, arch, dtype, plan):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_serve_and_training_refuse(models, arch, tmp_path):
+def test_serve_refuses_and_training_runs(models, arch, tmp_path):
     """`serve` (and so a ragged `generate`) refuses both layouts as the
-    reference's does; the train step and the train CLI refuse them, naming
-    the layout; the serve CLI generates in lockstep."""
+    reference's does; a train step and the train CLI take them (their
+    gradients against the reference's: tests/test_torch_mamba_train.py);
+    the serve CLI generates in lockstep."""
     jc, tc = _cfgs(arch)
     jp, tp = models[arch, "float32", "itera"]
     te = tengine.InferenceEngine(tc, tp, device=CPU)
@@ -446,11 +448,15 @@ def test_serve_and_training_refuse(models, arch, tmp_path):
             prompts, jengine.SamplingParams(max_tokens=2))
     batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
              "labels": torch.ones((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=tc.layout):
-        tsteps.loss_and_grads(tp, batch, tc)
-    with pytest.raises(NotImplementedError, match=tc.layout):
-        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                     "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    _, dense = models[arch, "float32", "dense"]
+    (loss, _), grads = tsteps.loss_and_grads(dense, batch, tc)
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in
+               tck.flatten(grads).values())
+    losses = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                          "--steps", "1", "--batch", "2", "--seq", "8",
+                          "--ckpt-dir", str(tmp_path)])
+    assert len(losses) == 1 and np.isfinite(losses[0])
     res = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--batch", "2", "--prompt-len", "8", "--gen", "4",
                        "--compression", "itera", "--wl", "4",

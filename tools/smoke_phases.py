@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's checks on one NVIDIA GPU, for quicker turns
 than the whole script: phase 2's bf16 kernel rows, its rows past
-lowrank_qmm's R 1024 and its Mamba linears, then the gemma2, mamba, bf16
-and nemotron phases (or a subset).
+lowrank_qmm's R 1024 and its Mamba linears, then the gemma2, mamba-train,
+mamba, bf16 and nemotron phases (or a subset).
 
     python3 tools/smoke_phases.py [--phases bf16-kernels,large-ranks,\
-        mamba-kernels,gemma2,mamba,bf16,nemotron]
+        mamba-kernels,gemma2,mamba-train,mamba,bf16,nemotron]
 
 Later phases check their lowrank_qmm launches against what the kernel
-phases compared, so keep those first. Prints each part's failures and
+phases compared, so keep those first. The mamba phase compresses the
+weights the mamba-train phase trained when that ran before it, else
+seed-0 weights. Prints each part's failures and
 seconds, and the card's name and power limit; exits 1 if any failed.
 """
 from __future__ import annotations
@@ -19,8 +21,8 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels", "gemma2", "mamba",
-          "bf16", "nemotron")
+PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels", "gemma2",
+          "mamba-train", "mamba", "bf16", "nemotron")
 KERNEL_PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels")
 
 
@@ -43,10 +45,13 @@ def main() -> int:
             "large-ranks": lambda f: cs.check_large_ranks(torch, f),
             "mamba-kernels": lambda f: cs.check_mamba_kernels(torch, timer,
                                                               f),
-            "mamba": lambda f: cs.mamba_phase(torch, f),
+            "mamba-train": lambda f: trained.update(
+                cs.mamba_train_phase(torch, f)),
+            "mamba": lambda f: cs.mamba_phase(torch, f, trained or None),
             "gemma2": lambda f: cs.gemma2_phase(torch, f),
             "bf16": lambda f: cs.bf16_phase(torch, f),
             "nemotron": lambda f: cs.nemotron_phase(torch, f)}
+    trained: dict = {}
     failed = bool(build_failures)
     build.reset_launches()
     for name in args.phases.split(","):
