@@ -131,6 +131,33 @@ fails:
    a step, tok/s) of the mixed kv16 plan (GRAPH_ROUNDS rounds: median,
    min and max), and one serve and one generate of each under
    torch.profiler;
+   tp: tensor-parallel serving (`launch.mesh`, `launch.sharding`) of
+   opus-mt at full width. tp 1 over NCCL in this process, captured: the
+   mixed plan at fp32 and int8 KV serving the graphs phase's 8 requests,
+   16 tokens, with the solo captured engine's tokens and launches, the
+   step graphs captured, TPOT p50 A B B A beside the solo engine's and
+   the NCCL kernels a step under torch.profiler (a one-rank NCCL
+   all-reduce launches none: these graphs hold no real collective, and
+   capturing one is not verified here); `all_reduce` called while the
+   step graphs were captured, and an eager tp 1 engine over the same
+   NCCL group calling it exactly 2L times a step with the solo tokens.
+   tp 2 over gloo, two rank
+   processes sharing the card, eagerly (gloo reduces CUDA tensors through
+   the host, which a CUDA graph cannot capture; NCCL refuses two ranks on
+   one card): the mixed plan's compressed weights at kv 16 and 8 on 4
+   short requests == the same weights at tp 2 on the CPU, and so does a
+   bf16 quant-only engine (compressed in each rank; its tokens against
+   the solo engine's are printed, not gated: a compressed K-site
+   requantizes its activations over each rank's features, as the
+   reference's); a dense fp32 engine == the solo card engine on the 8
+   requests; the svd W8 r0.75 plan on the
+   N-sites with speculation (DraftSpec(k=4, rank_fraction=0.25)) == the
+   plain solo engine, drafts made; every lowrank_qmm and quant_matmul
+   launch at a key phase 2 compared (its per-rank shapes: K 512 -> N 256
+   / 1024 and K 256 / 1024 -> N 512, every row count a step takes,
+   bit-equal, untimed; attention at 4 heads of 64); the ranks' step
+   times printed, which are not a TP speed; the CPU's tp 2 ranks run
+   while the card's do;
 4. parity: the compressed weights of the phase-3 plans, of the svd plan
    and of the SRA plans (each compressed once on the card), copied to the
    CPU, and the dse phase's deployed plans, serve 4 short requests there
@@ -226,6 +253,7 @@ card's name and power limit as nvidia-smi gives them, and
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -1060,6 +1088,94 @@ def _ulp_share(torch, o, ref):
             bool((diff <= ulp).all()))
 
 
+# the tp phase's per-rank launches (opus-mt full: d_model 512, 8 heads of
+# 64, d_ff 2048): (K, R, N, wl) of lowrank_qmm -- at tp 1 the mixed plan's
+# own; at tp 2 its N-sites (K 512, N 256 / 1024) and K-sites (K 256 /
+# 1024, N 512) at R 256, the svd plan's N-sites at R 384 (W8) and its
+# draft's R 64 --, (K, N) of the quant-only plan's packed W4 quant_matmul
+# at tp 2 with a bf16 Y, and the W8 head; attention at 4 heads of 64. A
+# step takes 8 x W rows, W a power of two up to the 256-token chunk.
+TP_LOWRANK = ((512, 256, 512, 4), (512, 256, 2048, 4), (2048, 256, 512, 4),
+              (512, 256, 256, 4), (512, 256, 1024, 4), (256, 256, 512, 4),
+              (1024, 256, 512, 4), (512, 384, 256, 8), (512, 384, 1024, 8),
+              (512, 64, 256, 8), (512, 64, 1024, 8))
+TP_QMM = ((512, 256), (512, 1024), (256, 512), (1024, 512))
+
+
+def check_tp_kernels(torch, failures):
+    """Phase 2 for the tp phase: every per-rank launch shape at tp 2
+    through `ops` (so padded and packed as served), at every row count of
+    BF16_ROWS, bit-equal to the plain versions on the same tensors (fp32
+    Y for the cascades, bf16 Y for the quant-only plan and its W8 head);
+    paged attention at 4 heads of 64 over fp32 / int8 pools (within
+    TOL_ATTN) and bf16 (within one bf16 ulp on at most TOL_ULP_SHARE of
+    the outputs), decode, verify and a W 256 prefill. Compared, not
+    timed. Returns {kernel: worst max abs error}."""
+    from repro_torch.core.itera import LowRankQ
+    from repro_torch.core.quant import QuantizedTensor, pack_weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     span_attend_gather)
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    worst = collections.Counter()
+
+    def node(k, n, wl, axis, scale_shape):
+        qm = 7 if wl == 4 else 127
+        codes = torch.randint(-qm, qm + 1, (k, n), generator=g,
+                              device="cuda", dtype=torch.int8)
+        scale = torch.rand(scale_shape, generator=g, device="cuda") * 0.02
+        return pack_weights(QuantizedTensor(codes, scale, wl, axis))
+
+    cases = [(LowRankQ(node(k, r, wl, 0, (1, r)), node(r, n, wl, 1, (r, 1))),
+              torch.float32, ops.lrmm, f"K={k} R={r} N={n} W{wl}")
+             for k, r, n, wl in TP_LOWRANK]
+    cases += [(node(k, n, 4, 0, (1, n)), torch.bfloat16, ops.qmm,
+               f"K={k} N={n} W4") for k, n in TP_QMM]
+    cases += [(node(512, 32000, 8, 0, (1, 32000)), yd, ops.qmm,
+               "lm head K=512 N=32000 W8") for yd in (torch.float32,
+                                                      torch.bfloat16)]
+    for w, yd, fn, what in cases:
+        kernel = "lowrank_qmm" if fn is ops.lrmm else "quant_matmul"
+        k = (w.w1 if kernel == "lowrank_qmm" else w).shape[0]
+        rows = (8,) if "lm head" in what else BF16_ROWS
+        for m in rows:
+            x = torch.randn((m, k), generator=g, device="cuda")
+            if yd == torch.bfloat16:
+                x = x.to(yd)
+            y = fn(x, w, out_dtype=yd)
+            ref = plain_linear(torch, x, w, yd)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            worst[kernel] = max(worst[kernel], err)
+            check(failures, torch.equal(y.view(torch.int16),
+                                        ref.view(torch.int16))
+                  if yd == torch.bfloat16 else torch.equal(y, ref),
+                  f"tp {kernel} M={m} {what} differs from plain (max abs "
+                  f"{err})")
+    for dtype, kv_bits in ((torch.float32, 16), (torch.float32, 8),
+                           (torch.bfloat16, 16), (torch.bfloat16, 8)):
+        for w in (1, 8, 256):
+            q, pool, table, ctx_t, *_ = _span_batch(
+                torch, g, w, kv_bits, h=4, dh=64, dtype=dtype)
+            o = paged_attention(q, pool, table, ctx_t)
+            ref = span_attend_gather(q, pool, table, ctx_t)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                err = float((o - ref).abs().max())
+                ok = err <= TOL_ATTN
+            else:
+                err, share, ulp = _ulp_share(torch, o, ref)
+                ok = ulp and share <= TOL_ULP_SHARE
+            worst["paged_attention"] = max(worst["paged_attention"], err)
+            check(failures, ok, f"tp paged_attention 4 heads of 64 W={w} "
+                  f"{dtype} kv{kv_bits}: max abs {err}")
+    print(f"  tp per-rank shapes: {len(cases)} linears at up to "
+          f"{len(BF16_ROWS)} row counts and 12 attention cases compared, "
+          f"worst {dict(worst)}")
+    return dict(worst)
+
+
 def check_bf16_kernels(torch, failures):
     """Phase 2 for the bf16 models: both integer kernels with their bf16
     epilogue at every (rows, K, [R,] N) a bf16 serve step launches,
@@ -1491,6 +1607,22 @@ def workload(vocab: int, seed: int = 0):
     return reqs
 
 
+def device_rows(prof) -> list:
+    """(card ms, events, name) of each name among a finished profile's
+    device-side events (kernels, copies, memsets; the host ops that
+    launched them carry the same time again), summed straight from the
+    trace: `prof.key_averages()` builds the profiler's per-op event tree
+    first, which took 14-28 s for the 118k events of an opus-mt serve."""
+    acc = collections.defaultdict(lambda: [0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if (str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0
+                and not e.is_user_annotation()):
+            a = acc[e.name()]
+            a[0] += e.duration_ns()
+            a[1] += 1
+    return [(ns / 1e6, n, key) for key, (ns, n) in acc.items()]
+
+
 def profile_run(torch, run, label: str):
     """`run()` (a serve, a generate or train steps, returning its number of
     steps) once more under torch.profiler: the card's busy share of the
@@ -1500,21 +1632,18 @@ def profile_run(torch, run, label: str):
     the card's activity is traced: recording every host op as well slowed
     the host, and so the wall, by more than the run took in a serve of
     thousands of launches. Informational, nothing is checked;
-    a profiler that cannot trace the card is reported and skipped."""
+    a profiler that cannot trace the card is reported and skipped (None
+    is returned, else the (card ms, events, name) rows)."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_all = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             steps = run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies, memsets): the host ops
-        # that launched them carry the same time again
-        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0]
+        rows = device_rows(prof)
     except Exception as e:      # the profiler is optional here
         print(f"[profile] not available: {type(e).__name__}: {e}")
         return
@@ -1525,7 +1654,8 @@ def profile_run(torch, run, label: str):
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, card busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy / wall_ms):.1f}%; {events} device events, "
-          f"{events / steps:.1f} a step, {gap_us:.2f} us idle an event")
+          f"{events / steps:.1f} a step, {gap_us:.2f} us idle an event; "
+          f"{time.perf_counter() - t_all:.1f} s with the profiler's own work")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:7d} x  {key[:90]}")
     lin = [(ms, n) for ms, n, key in rows
@@ -1534,6 +1664,7 @@ def profile_run(torch, run, label: str):
     print(f"[profile] {label}: linears (quant_matmul, lowrank_qmm) "
           f"{ms:.3f} ms of card time over {sum(r[1] for r in lin)} "
           f"launches in {steps} steps = {ms / steps:.4f} ms a step")
+    return rows
 
 
 def host_us_per_call(torch, fn, reps: int = 200) -> float:
@@ -2710,6 +2841,302 @@ def graphs_phase(torch, cfg, engines, reqs, failures):
                     f"{mode} mixed kv16 serve")
         profile_run(torch, lambda: (e.generate(prompts, sp), n)[1],
                     f"{mode} mixed kv16 generate")
+
+
+# ------------------------------------------------------------------ tp --
+
+TP_SHORT = (16, 29, 47, 64)      # the mixed plan's card == CPU requests
+TP_SVD = dict(method="svd", weight_wl=8, rank_fraction=0.75,
+              include=r"/(wq|wk|wv|gate|up)$")   # N-sites only
+TP_DRAFT = dict(k=4, rank_fraction=0.25)
+TP_ROUNDS = 1            # A B B A rounds of the tp 1 TPOT comparison
+
+
+def count_all_reduces():
+    """Wrap `torch.distributed.all_reduce` (which
+    `runtime.shardctx.psum_tp` calls) with a counter; returns the counter
+    and a function that puts the original back."""
+    import torch.distributed as dist
+
+    reduce = dist.all_reduce
+    calls = collections.Counter()
+
+    def counted(*args, **kwargs):
+        calls["all_reduce"] += 1
+        return reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    return calls, lambda: setattr(dist, "all_reduce", reduce)
+
+
+def tp_rank(mesh, cases):
+    """One rank process of the tp phase's tp 2 meshes: each case's engine
+    built on this rank, eagerly, from seed 0 (compressed here under
+    "plan") or from a checkpoint of compressed weights, and its requests
+    served. Returns rank 0's tokens, launch counters, TPOT p50 and wall
+    ms a step by case. The card's ranks and the CPU's run at once: a
+    card's rank takes one intra-op thread, a CPU's rank half of the rest
+    of the host's (the spawning process's count)."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.api.engine import InferenceEngine
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1 if mesh.device.type == "cuda"
+                          else max(1, (threads - 2) // 2))
+    # the all-reduces a serve makes (this process ends with the mesh)
+    calls, _ = count_all_reduces()
+    out = {}
+    for name, c in cases.items():
+        if c["weights"] == "seed":
+            params = init_params(c["cfg"], seed=0, device=mesh.device)
+            plan = quant_plan(params) if c.get("plan") == "quant" else None
+        else:
+            params = bridge.load_checkpoint(c["weights"], device=mesh.device)
+            plan = None
+        eng = InferenceEngine.build(c["cfg"], plan, params=params, mesh=mesh,
+                                    cuda_graphs=False, max_batch=8,
+                                    block_size=16,
+                                    speculate=c.get("speculate"))
+        build.reset_launches()
+        calls.clear()
+        res = eng.serve(c["prompts"], c["sampling"])
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = dict(outputs=[o.copy() for o in res.outputs],
+                         counts=launch_counts(), tpot=res.tpot_p50,
+                         step_ms=res.seconds / res.steps * 1e3,
+                         steps=res.steps, drafted=res.drafted,
+                         spec_rounds=res.spec_rounds,
+                         all_reduces=calls["all_reduce"])
+    return out
+
+
+def tp_phase(torch, failures, engines=None):
+    """Tensor-parallel serving of opus-mt full() (see the module's
+    docstring, "tp"). `engines`: {"kv16", "kv8"} solo captured engines of
+    the mixed plan (built here when None). Returns the launches of its
+    runs on the card (tp 1 in this process, rank 0 of the tp 2 runs)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import CompressionConfig, shape_spectra
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_serving_mesh, spawn
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime.speculation import DraftSpec
+
+    cfg = get_config("opus-mt")
+    if engines is None:
+        eng = build_engine(torch, cfg, mixed_plan)
+        engines = {"kv16": eng, "kv8": InferenceEngine(
+            dataclasses.replace(cfg, kv_cache_bits=8), eng.params,
+            device=eng.device, plan=eng.plan, max_batch=8, block_size=16)}
+    reqs = workload(cfg.vocab_size)[:GRAPHS_REQS]
+    sp = SamplingParams(max_tokens=GRAPHS_TOKENS)
+    launches = collections.Counter()
+    card = card_line()
+
+    def run(e, prompts=reqs):
+        build.reset_launches()
+        res = e.serve(prompts, sp)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches.update(counts[0])
+        return res, counts
+
+    # ---- tp 1 over NCCL, in this process, captured ----------------------
+    t_tp1 = time.perf_counter()
+    mesh = make_serving_mesh(1)
+    calls, restore = count_all_reduces()
+    two_l = 2 * cfg.num_layers
+    try:
+        for label, solo in engines.items():
+            tp1 = InferenceEngine(solo.cfg, solo.params, device=solo.device,
+                                  plan=solo.plan, mesh=mesh, max_batch=8,
+                                  block_size=16)
+            solo.serve(reqs[:2], SamplingParams(max_tokens=2))
+            calls.clear()
+            # warm-up: builds, captures (each step graph runs its step once
+            # eagerly, then captures it)
+            tp1.serve(reqs[:2], SamplingParams(max_tokens=2))
+            (got, c_got), (want, c_want) = run(tp1), run(solo)
+            captured = calls["all_reduce"]
+            check_compared(failures, f"tp 1 {label}")
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(got.outputs, want.outputs))
+            check(failures, same, f"tp 1 nccl {label}: tokens differ from "
+                  f"the solo captured engine's")
+            check(failures, c_got == c_want and got.steps == want.steps,
+                  f"tp 1 nccl {label}: launches {c_got[0]} over {got.steps} "
+                  f"steps, solo {c_want[0]} over {want.steps}")
+            graphs = tp1.graph_stats()["graphs"]
+            check(failures, graphs > 0, f"tp 1 nccl {label}: no step graph "
+                  f"was captured")
+            check(failures, captured > 0 and captured % two_l == 0,
+                  f"tp 1 nccl {label}: {captured} all_reduce calls while "
+                  f"{graphs} step graphs were made, not a multiple of 2L "
+                  f"= {two_l}")
+            print(f"[tp] tp 1 nccl {label}: {captured} all_reduce calls "
+                  f"({captured / two_l:g} x 2L) while {graphs} step graphs "
+                  f"were warmed up and captured, none on replays")
+            eager = InferenceEngine(solo.cfg, solo.params, device=solo.device,
+                                    plan=solo.plan, mesh=mesh,
+                                    cuda_graphs=False, max_batch=8,
+                                    block_size=16)
+            calls.clear()
+            res, c_eager = run(eager)
+            same_eager = all(np.array_equal(a, b)
+                             for a, b in zip(res.outputs, want.outputs))
+            check(failures, same_eager and c_eager == c_want,
+                  f"tp 1 nccl eager {label}: tokens or launches differ from "
+                  f"the solo captured engine's")
+            check(failures, calls["all_reduce"] == two_l * res.steps,
+                  f"tp 1 nccl eager {label}: {calls['all_reduce']} "
+                  f"all_reduce calls over {res.steps} steps, not 2L = "
+                  f"{two_l} a step")
+            print(f"[tp] tp 1 nccl eager {label}: == solo: {same_eager}; "
+                  f"{calls['all_reduce']} all_reduce calls over {res.steps} "
+                  f"steps = {calls['all_reduce'] / res.steps:g} a step")
+            del eager
+            tpot = collections.defaultdict(list)
+            for i in range(TP_ROUNDS):
+                pair = (("solo", solo), ("tp 1", tp1))
+                for name, e in (pair if i % 2 else pair[::-1]) + (
+                        pair[::-1] if i % 2 else pair):
+                    tpot[name].append(run(e)[0].tpot_p50 * 1e3)
+            med = {k: float(np.median(v)) for k, v in tpot.items()}
+            print(f"[tp] tp 1 nccl {label}: captured == solo: {same}; "
+                  f"launches {c_got[0]} over {got.steps} steps; {graphs} "
+                  f"graphs; TPOT p50 {med['tp 1']:.3f} ms (solo "
+                  f"{med['solo']:.3f} ms, ratio "
+                  f"{med['tp 1'] / med['solo']:.3f}; {TP_ROUNDS} A B B A "
+                  f"rounds of {len(reqs)} requests x {sp.max_tokens} "
+                  f"tokens) on {card}")
+            rows = (profile_run(torch, lambda: run(tp1)[0].steps,
+                                f"tp 1 nccl {label} serve")
+                    if label == "kv16" else None)
+            if rows:
+                nccl = sum(n for _, n, key in rows if "nccl" in key.lower())
+                print(f"[tp] tp 1 nccl {label}: {nccl} NCCL kernels over "
+                      f"{got.steps} steps = {nccl / got.steps:g} a step "
+                      f"(2L = {two_l}; an all-reduce over one rank launches "
+                      f"nothing)")
+    finally:
+        restore()
+        dist.destroy_process_group()
+
+    # ---- tp 2 over gloo: two rank processes on this card, eagerly --------
+    print(f"[tp] tp 1 over NCCL: {time.perf_counter() - t_tp1:.1f} s")
+    t_solo = time.perf_counter()
+    rng = np.random.default_rng(1)
+    short = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in TP_SHORT]
+    sp8 = SamplingParams(max_tokens=8)
+    out_dir = ROOT / "build" / "tp"
+    mixed_dir = str(out_dir / "mixed")
+    ckpt.save(mixed_dir, 0, engines["kv16"].params, keep=1)
+    cases, want = {}, {}
+    for kv in (16, 8):
+        cases[f"mixed kv{kv}"] = dict(
+            cfg=dataclasses.replace(cfg, kv_cache_bits=kv),
+            weights=mixed_dir, prompts=short, sampling=sp8)
+    dense = InferenceEngine.build(cfg, None, seed=0, device="cuda",
+                                  max_batch=8, block_size=16)
+    want["dense fp32"] = run(dense)[0].outputs
+    cases["dense fp32"] = dict(cfg=cfg, weights="seed", prompts=reqs,
+                               sampling=sp)
+    # quant-only: compressed in each rank on the card; the CPU's ranks
+    # read the solo engine's compression of the same weights
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = init_params(bcfg, seed=0, device="cuda")
+    bsolo = InferenceEngine.build(bcfg, quant_plan(bparams), params=bparams,
+                                  device="cuda", max_batch=8, block_size=16)
+    del bparams
+    build.reset_launches()
+    solo_short = {"bf16 quant-only": bsolo.serve(short, sp8).outputs}
+    bf16_dir = str(out_dir / "bf16-quant")
+    ckpt.save(bf16_dir, 0, bsolo.params, keep=1)
+    del bsolo
+    cases["bf16 quant-only"] = dict(cfg=bcfg, weights="seed", plan="quant",
+                                    prompts=short, sampling=sp8)
+    cpu_cases = {name: c for name, c in cases.items()
+                 if name.startswith("mixed")}
+    cpu_cases["bf16 quant-only"] = dict(cases["bf16 quant-only"],
+                                        weights=bf16_dir, plan=None)
+    # shaped weights, as the reference's TP speculation test: drafts get
+    # accepted, so rounds emit several tokens
+    svd = InferenceEngine.build(cfg, CompressionConfig(**TP_SVD),
+                                params=shape_spectra(init_params(
+                                    cfg, seed=0, device="cuda"), alpha=3.0),
+                                device="cuda", max_batch=8, block_size=16)
+    want["svd speculative"] = run(svd)[0].outputs
+    svd_dir = str(out_dir / "svd")
+    ckpt.save(svd_dir, 0, svd.params, keep=1)
+    cases["svd speculative"] = dict(cfg=cfg, weights=svd_dir, prompts=reqs,
+                                    sampling=sp,
+                                    speculate=DraftSpec(**TP_DRAFT))
+    print(f"[tp] solo engines and checkpoints: "
+          f"{time.perf_counter() - t_solo:.1f} s")
+    # the CPU's ranks run while the card's do (`tp_rank` shares the
+    # host's threads between them)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        on_cpu = pool.submit(spawn, tp_rank, 2, cpu_cases,
+                             devices=["cpu"] * 2, timeout=600)
+        got = spawn(tp_rank, 2, cases, devices=["cuda:0"] * 2,
+                    backend="gloo", timeout=600)
+        t_card = time.perf_counter() - t0
+        cpu = on_cpu.result()
+    print(f"[tp] tp 2 gloo: {len(cases)} engines on one card in "
+          f"{t_card:.1f} s and {len(cpu_cases)} on the CPU, at once, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in cases:
+        g = got[name]
+        w = cpu[name]["outputs"] if name in cpu else want[name]
+        same = len(g["outputs"]) == len(w) and all(
+            np.array_equal(a, b) for a, b in zip(g["outputs"], w))
+        against = "tp 2 on the CPU" if name in cpu else "the solo card engine"
+        check(failures, same, f"tp 2 gloo {name}: tokens differ from "
+              f"{against}'s")
+        shapes = g["counts"][1]
+        seen_lr = {k[1:] for k in shapes if k[0] == "lowrank_qmm"}
+        seen_q = {k[1:] for k in shapes if k[0] == "quant_matmul"}
+        check(failures, seen_lr <= COMPARED and seen_q <= COMPARED_QMM,
+              f"tp 2 gloo {name}: launches at keys phase 2 did not compare: "
+              f"{sorted(seen_lr - COMPARED)} {sorted(seen_q - COMPARED_QMM)}")
+        launches.update(g["counts"][0])
+        if name == "svd speculative":
+            check(failures, g["drafted"] > 0, "tp 2 gloo svd speculative: "
+                  "no draft token was proposed")
+        per_step = g["all_reduces"] / g["steps"]
+        print(f"[tp] tp 2 gloo {name}: {g['all_reduces']} all-reduces over "
+              f"{g['steps']} steps ({per_step:g} a step; {g['spec_rounds']} "
+              f"drafting rounds)")
+        if not g["spec_rounds"]:
+            check(failures, g["all_reduces"] == 2 * cfg.num_layers
+                  * g["steps"], f"tp 2 gloo {name}: {per_step:g} "
+                  f"all-reduces a step, not 2L = {2 * cfg.num_layers}")
+        if name in solo_short:
+            # compressed K-sites requantize their activations over each
+            # rank's features (the reference's rule): close to the solo
+            # engine, not bit-equal; measured, not gated
+            a = np.concatenate(g["outputs"])
+            b = np.concatenate(solo_short[name])
+            print(f"[tp] tp 2 gloo {name}: {int((a == b).sum())} of {a.size}"
+                  f" tokens equal the solo card engine's")
+        print(f"[tp] tp 2 gloo {name}: == {against}: {same}; launches "
+              f"{g['counts'][0]} over {g['steps']} steps; drafted "
+              f"{g['drafted']}; gloo through the host on one card: not a TP "
+              f"speed: TPOT p50 {g['tpot'] * 1e3:.2f} ms, wall "
+              f"{g['step_ms']:.2f} ms a step")
+    return dict(launches)
 
 
 # ---------------------------------------------------------------- train --
@@ -3897,7 +4324,45 @@ def heldout_accuracy(torch, cfg, params, task, shape=MAMBA_EVAL,
     return float(np.mean(hits))
 
 
-def mamba_train_phase(torch, failures):
+def mamba_cpu_steps(arch, step, host, batches, on_card, sec):
+    """The CPU's half of the mamba-train phase's check (c): `step` from
+    the `host` state on each of `batches`, each step's loss and grad norm
+    held to the card's (`on_card`) within MAMBA_BF16_TOL. Returns the
+    lines to print and the failed checks."""
+    import torch
+
+    lines, failures = [], []
+    t0 = time.perf_counter()
+    for i, (b, mg) in enumerate(zip(batches, on_card)):
+        host["params"], host["opt"], m = step(host["params"], host["opt"], b)
+        mc = {k: float(m[k]) for k in MAMBA_BF16_TOL}
+        rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in MAMBA_BF16_TOL}
+        lines.append(
+            f"[mamba-train] {arch}: card vs CPU step {i} "
+            f"({len(b['tokens'])} x {b['tokens'].shape[1]}, sequential): loss "
+            f"{mg['loss']:.7f} / {mc['loss']:.7f}, grad norm "
+            f"{mg['grad_norm']:.6f} / {mc['grad_norm']:.6f}, relative "
+            f"{rel['loss']:.3e} / {rel['grad_norm']:.3e}")
+        check(failures, all(rel[k] <= t for k, t in MAMBA_BF16_TOL.items()),
+              f"mamba-train {arch}: card and CPU differ at step {i}: {rel}")
+    lines.append(
+        f"[mamba-train] {arch}: card vs CPU: the state to the CPU "
+        f"{sec['copy']:.1f} s, steps on the card {sec['cuda']:.1f} s, on the "
+        f"CPU ({torch.get_num_threads()} threads, on a thread of the phase) "
+        f"{time.perf_counter() - t0:.1f} s")
+    return lines, failures
+
+
+def join_cpu_steps(pending, failures) -> None:
+    """Wait for `mamba_cpu_steps` futures; print their lines and add their
+    failed checks to `failures`."""
+    for done in pending:
+        lines, failed = done.result()
+        print("\n".join(lines))
+        failures.extend(failed)
+
+
+def mamba_train_phase(torch, failures, defer=None):
     """Training of the Mamba layouts on the card: falcon-mamba-7b and
     zamba2-2.7b at their published widths, MAMBA_DEPTHS of their layers
     (zamba2's shared block runs twice), bf16, remat "full" (the full
@@ -3916,7 +4381,11 @@ def mamba_train_phase(torch, failures):
     that differ in any bit printed.
     (c) the same number of steps on MAMBA_CPU's batch through the
     sequential engine on the card and on the CPU from one copy of that
-    state (its moments dequantized to 32 bits): within MAMBA_BF16_TOL.
+    state (its moments dequantized to 32 bits): within MAMBA_BF16_TOL;
+    the CPU's steps (`mamba_cpu_steps`) run on a thread while the phase
+    goes on (falcon-mamba-7b's while zamba2-2.7b trains); with a `defer`
+    list, those still running when the phase ends are appended to it for
+    the caller to join (`join_cpu_steps`), else the phase waits for them.
     (d) falcon-mamba-7b's train CLI on the card (`train_cli_check`, its
     smoke config, MAMBA_CLI).
     (e) the trained model's held-out greedy accuracy (`heldout_accuracy`).
@@ -3940,6 +4409,8 @@ def mamba_train_phase(torch, failures):
     shutil.rmtree(out_dir, ignore_errors=True)
     c = MAMBA_STEPS
     trained = {}
+    cpu_pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_steps = []          # each arch's card == CPU steps (c), on the pool
     for arch, depth in MAMBA_DEPTHS.items():
         t_arch = time.perf_counter()
         full = get_config(arch)
@@ -4070,42 +4541,28 @@ def mamba_train_phase(torch, failures):
         # difference. Dequantized to 32 bits, and through the sequential
         # engine (held to the chunked one in (b)): on the CPU the 8-bit
         # update and the chunked engine's float64 scan cost most of the
-        # phase at these widths (PERF.md section 4).
+        # phase at these widths (PERF.md section 4). The card's steps run
+        # here; the CPU's on a thread while the phase goes on, joined and
+        # checked before it ends.
         cb, cs = MAMBA_CPU
         t0 = time.perf_counter()
         cur = state_32bit(cur)
         host = params_to(cur, "cpu")
         step32 = make_train_step(cfg, dataclasses.replace(
             opt_cfg, state_bits=32), ssm_engine="sequential")
-        sec = {"copy": time.perf_counter() - t0, "cuda": 0.0, "cpu": 0.0}
-        for i in range(MAMBA_ENGINE_STEPS):
-            b = task.batch(30_000 + i, cb, cs)
-            m = {}
-            for dev, st in (("cuda", cur), ("cpu", host)):
-                t1 = time.perf_counter()
-                st["params"], st["opt"], m[dev] = step32(
-                    st["params"], st["opt"],
-                    {k: v.to(dev) for k, v in b.items()})
-                float(m[dev]["loss"])
-                sec[dev] += time.perf_counter() - t1
-            mg, mc = m["cuda"], m["cpu"]
-            rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
-                   for k in MAMBA_BF16_TOL}
-            print(f"[mamba-train] {arch}: card vs CPU step {i} ({cb} x {cs},"
-                  f" sequential): loss {float(mg['loss']):.7f} / "
-                  f"{float(mc['loss']):.7f}, grad norm "
-                  f"{float(mg['grad_norm']):.6f} / "
-                  f"{float(mc['grad_norm']):.6f}, relative "
-                  f"{rel['loss']:.3e} / {rel['grad_norm']:.3e}")
-            check(failures, all(rel[k] <= t for k, t
-                                in MAMBA_BF16_TOL.items()),
-                  f"mamba-train {arch}: card and CPU differ at step {i}: "
-                  f"{rel}")
-        print(f"[mamba-train] {arch}: card vs CPU in "
-              f"{time.perf_counter() - t0:.1f} s: the state to the CPU "
-              f"{sec['copy']:.1f} s, steps on the card {sec['cuda']:.1f} s, "
-              f"on the CPU ({torch.get_num_threads()} threads) "
-              f"{sec['cpu']:.1f} s")
+        sec = {"copy": time.perf_counter() - t0}
+        batches = [task.batch(30_000 + i, cb, cs)
+                   for i in range(MAMBA_ENGINE_STEPS)]
+        t0 = time.perf_counter()
+        on_card = []
+        for b in batches:
+            cur["params"], cur["opt"], m = step32(
+                cur["params"], cur["opt"],
+                {k: v.to("cuda") for k, v in b.items()})
+            on_card.append({k: float(m[k]) for k in MAMBA_BF16_TOL})
+        sec["cuda"] = time.perf_counter() - t0
+        cpu_steps.append(cpu_pool.submit(mamba_cpu_steps, arch, step32,
+                                         host, batches, on_card, sec))
         del cur, host, engines
         torch.cuda.empty_cache()
 
@@ -4124,7 +4581,15 @@ def mamba_train_phase(torch, failures):
         trained[arch] = (cfg, state["params"], acc)
         del state
         torch.cuda.empty_cache()
-    print(f"[mamba-train] phase took {time.perf_counter() - t_phase:.1f} s")
+    if defer is None:
+        join_cpu_steps(cpu_steps, failures)
+    else:
+        join_cpu_steps([f for f in cpu_steps if f.done()], failures)
+        defer.extend(f for f in cpu_steps if not f.done())
+    cpu_pool.shutdown(wait=False)
+    print(f"[mamba-train] phase took {time.perf_counter() - t_phase:.1f} s"
+          + (f"; {len(defer)} arch's card == CPU steps still run on the "
+             f"CPU" if defer else ""))
     return trained
 
 
@@ -4528,6 +4993,8 @@ def main() -> int:
     kern["paged_attention"] = check_paged_attention(torch, timer, failures)
     for name, err in check_bf16_kernels(torch, failures).items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
+    for name, err in check_tp_kernels(torch, failures).items():
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
     note_compared()
     print(f"[kernels] {timer.report()}")
     end_phase("kernels", failures)
@@ -4627,6 +5094,11 @@ def main() -> int:
     graphs_phase(torch, cfg, {"mixed kv16": eng, "mixed int8 KV": eng8,
                               "quant-only kv16": qeng}, reqs, failures)
     end_phase("graphs", failures)
+    failures = []
+    for name, n in tp_phase(torch, failures, {"kv16": eng,
+                                              "kv8": eng8}).items():
+        launches[name] += n
+    end_phase("tp", failures)
 
     # ---- 4. card vs CPU --------------------------------------------------
     failures = []
@@ -4693,12 +5165,16 @@ def main() -> int:
 
     # ---- the Mamba layouts: falcon-mamba-7b and zamba2-2.7b ---------------
     failures = []
-    trained = mamba_train_phase(torch, failures)
+    deferred: list = []
+    trained = mamba_train_phase(torch, failures, defer=deferred)
     end_phase("mamba-train", failures)
     failures = []
     for name, n in mamba_phase(torch, failures, trained).items():
         launches[name] += n
     end_phase("mamba", failures)
+    failures = []
+    join_cpu_steps(deferred, failures)      # zamba2-2.7b's, during mamba
+    end_phase("mamba-train card vs CPU", failures)
 
     # ---- nemotron-4-340b: Dh 192, six linears a layer, the widest linears --
     failures = []

@@ -41,6 +41,24 @@ KV pool and the static step inputs of a serve geometry, the decode cache
 of a generate geometry) across calls, and resets that state at the
 start of each call. `cuda_graphs=False` runs the same steps eagerly on
 the card, for A/B runs; on the CPU they always run eagerly.
+
+Tensor parallelism (`build(mesh=...)`, a `launch.mesh.ServingMesh`): one
+process a rank, each building the full weights from the same seed or the
+same `params`, compressing them, then keeping its slice
+(`launch.sharding`): column-sliced wq/wk/wv/gate/up, row-sliced wo/down,
+a replicated embedding and lm head, and a KV pool (or decode cache) of
+its own heads. Every step (serve, speculative, generate's prefill and
+decode) runs with the per-rank config and all-reduces a float32 partial
+at each wo and down (2L a step, `runtime.shardctx`), so every rank holds
+the same residual stream, logits and tokens, and takes the same
+scheduling decisions (they depend on token counts only). Over NCCL the
+step graphs are captured with the all-reduce calls in their steps (at
+one rank NCCL launches nothing for them; a capture across cards is not
+verified); over gloo, which reduces CUDA tensors through the host, the
+engine must be built with `cuda_graphs=False`. The engine runs on the
+mesh's device. Every rank builds and compresses the full model on that
+device before slicing it, so a rank needs the memory of the whole
+compressed model.
 """
 from __future__ import annotations
 
@@ -58,10 +76,12 @@ from repro_torch.core.compress import (CompressionConfig, compress_params,
                                        flatten, map_with_path)
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import graphs as gr
 from repro_torch.runtime import kvblocks
 from repro_torch.runtime import sampling as smp
+from repro_torch.runtime import shardctx
 from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.speculation import DraftSpec, SpeculationController
 
@@ -386,18 +406,39 @@ _HELD_GEOMETRIES = 4     # serve / generate geometries whose state an engine kee
 
 
 class InferenceEngine:
-    """Compressed model + in-flight-batching server on one device."""
+    """Compressed model + in-flight-batching server on one device, or one
+    rank of a tensor-parallel mesh."""
 
     def __init__(self, cfg: ModelConfig, params, *, device, plan=None,
                  report=None, max_batch: int = 8, block_size: int = 16,
                  chunk_tokens: int = 256, bucket_prompts: bool = True,
                  prefix_cache: bool = True,
                  speculate: DraftSpec | None = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None):
+        """params: the model's full weights on `device`; with a `mesh`
+        (`launch.mesh.ServingMesh`) they lie on the mesh rank's device,
+        where the engine runs (`device` is not read), and the engine keeps
+        this rank's slice of them as `self.params`."""
         _full_fp32()
         self.cfg = cfg
+        self.mesh = mesh
+        tp, rank = (mesh.size, mesh.rank) if mesh is not None else (0, 0)
+        if mesh is not None:
+            device = mesh.device
+            shd.check_tp_geometry(cfg, tp)
+            if cuda_graphs and mesh.backend == "gloo" and \
+                    device.type == "cuda":
+                raise ValueError(
+                    "gloo all-reduces CUDA tensors through the host, which a "
+                    "CUDA graph cannot capture: build the engine with "
+                    "cuda_graphs=False, or over NCCL")
+        # the per-rank config the steps run with (the full one without a
+        # mesh) and the TP group they bind (None: no all-reduce)
+        self.step_cfg = shd.tp_local_config(cfg, tp)
+        self._tp_group = mesh.group if mesh is not None else None
+        self.params = (shd.tp_shard_params(params, tp, rank)
+                       if mesh is not None else params)
         self.device = device
-        self.params = params
         self.plan = plan
         self.report = report
         self.max_batch = max_batch
@@ -408,16 +449,18 @@ class InferenceEngine:
         # where padding is inert (see `_can_bucket`)
         self.bucket_prompts = bucket_prompts and self._can_bucket(cfg)
         # per-layer views of the stacked weights, sliced once
-        self._step_params = tfm.split_layers(params, cfg.num_layers)
+        self._step_params = tfm.split_layers(self.params, cfg.num_layers)
         # the draft shares every tensor it does not truncate with `params`
-        self.speculation = (SpeculationController(speculate, cfg, params)
+        # (with a mesh: derived from the full weights, then sliced)
+        self.speculation = (SpeculationController(speculate, cfg, params,
+                                                  mesh=mesh)
                             if speculate is not None else None)
         # seeds the prefix-cache content hashes: blocks are never shared
         # across engines whose K/V for the same tokens would differ
         plan_id = plan.dumps() if plan is not None else "dense"
         self._cache_fingerprint = hashlib.sha256(
-            f"{cfg.name}:{cfg.dtype}:{cfg.kv_cache_bits}:{plan_id}".encode()
-        ).digest()
+            f"{cfg.name}:{cfg.dtype}:{cfg.kv_cache_bits}:{plan_id}:tp{tp}:"
+            f"rank{rank}".encode()).digest()
         # steps are captured as CUDA graphs on the card unless the caller
         # asks for the eager loop (A/B runs); one private memory pool for
         # all of this engine's graphs (see `runtime.graphs`)
@@ -486,10 +529,11 @@ class InferenceEngine:
                     "top_k": sampling.top_k, "top_p": sampling.top_p,
                     "seed": sampling.seed}
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with torch.inference_mode(), shardctx.tp_group(self._tp_group):
             logits, cache = tfm.prefill(self._step_params,
-                                        _upload(toks, self.device), self.cfg,
-                                        max_len=padded + n, last_pos=s - 1)
+                                        _upload(toks, self.device),
+                                        self.step_cfg, max_len=padded + n,
+                                        last_pos=s - 1)
             tok = self._pick(logits, sampled, counter=0, **controls)
             out = [tok]
             if n > 1:
@@ -546,7 +590,8 @@ class InferenceEngine:
         def scalar(dt, value=0):
             return torch.full((), value, dtype=dt, device=dev)
 
-        inputs = {"cache": tfm.init_cache(self.cfg, b, max_len, device=dev),
+        inputs = {"cache": tfm.init_cache(self.step_cfg, b, max_len,
+                                          device=dev),
                   "tok": torch.zeros((b, 1), dtype=torch.int32, device=dev),
                   "pos": scalar(torch.long), "counter": scalar(torch.int32),
                   "temperature": scalar(torch.float32),
@@ -556,7 +601,7 @@ class InferenceEngine:
 
         def decode(cache, tok, pos, counter, **controls):
             logits, _ = tfm.decode_step(self._step_params, cache, tok, pos,
-                                        self.cfg)
+                                        self.step_cfg)
             nxt = self._pick(logits, sampled, counter=counter, **controls)
             tok.copy_(nxt)
             pos.add_(1)
@@ -568,7 +613,13 @@ class InferenceEngine:
         return step
 
     def _step_graph(self, fn, inputs) -> gr.StepGraph:
-        return gr.StepGraph(fn, inputs, capture=self.cuda_graphs,
+        """A step graph of `fn` that runs (and is captured) with the
+        engine's TP group bound."""
+        def step(**kw):
+            with shardctx.tp_group(self._tp_group):
+                return fn(**kw)
+
+        return gr.StepGraph(step, inputs, capture=self.cuda_graphs,
                             pool=self._graph_pool)
 
     def graph_stats(self) -> dict:
@@ -587,7 +638,7 @@ class InferenceEngine:
               max_batch: int = 8, block_size: int = 16,
               chunk_tokens: int = 256, prefix_cache: bool = True,
               kv_bits: int | None = None, speculate=None,
-              cuda_graphs: bool = True) -> "InferenceEngine":
+              cuda_graphs: bool = True, mesh=None) -> "InferenceEngine":
         """arch: config name or a ModelConfig. plan: CompressionPlan, a
         uniform `CompressionConfig` (lowered to a plan against the
         weights; its per-layer `ranks`, e.g. from SRA, go through
@@ -599,12 +650,20 @@ class InferenceEngine:
         plan's draft or the defaults) or an int draft depth k turns
         speculation on; False or 0 turns it off. cuda_graphs=False runs
         every step eagerly on the card instead of replaying its CUDA graph
-        (for A/B runs; the CPU always runs eagerly)."""
+        (for A/B runs; the CPU always runs eagerly). mesh: this process's
+        `launch.mesh.ServingMesh` for tensor-parallel serving: the weights
+        are built in full (from `seed` or `params`), compressed, then
+        sliced to the rank, and the engine runs on the mesh's device
+        (`device` is not read)."""
+        if mesh is not None:
+            device = mesh.device
         dev = resolve_device(device)
         _full_fp32()                        # before compression runs
         cfg = get_config(arch, smoke=smoke) if isinstance(arch, str) else arch
         if kv_bits is not None:
             cfg = dataclasses.replace(cfg, kv_cache_bits=kv_bits)
+        if mesh is not None:
+            shd.check_tp_geometry(cfg, mesh.size)
         if params is None:
             params = tfm.init_params(cfg, seed=seed, device=dev)
         else:
@@ -626,7 +685,7 @@ class InferenceEngine:
                    max_batch=max_batch, block_size=block_size,
                    chunk_tokens=chunk_tokens, prefix_cache=prefix_cache,
                    speculate=_resolve_speculate(speculate, plan),
-                   cuda_graphs=cuda_graphs)
+                   cuda_graphs=cuda_graphs, mesh=mesh)
 
     # ------------------------------------------------------------- serve --
     def serve(self, requests, sampling: SamplingParams | None = None, *,
@@ -761,7 +820,7 @@ class InferenceEngine:
         key = (cap, mb, num_blocks, bs, n_stops, stop_len)
         slot = _held(self._serve_slots, key)
         if slot is None:
-            slot = _ServeSlot(self.cfg, *key, self.device)
+            slot = _ServeSlot(self.step_cfg, *key, self.device)
             _hold(self._serve_slots, key, slot)
         slot.reset()
         return slot
@@ -822,7 +881,7 @@ class InferenceEngine:
         def serve(buf, tables, prev, recent, stops):
             toks, fin, pushed, _ = tfm.serve_step(
                 self._step_params, slot.pool, tables, buf, prev, recent,
-                stops, self.cfg, sample=do_sample, stop=do_stop)
+                stops, self.step_cfg, sample=do_sample, stop=do_stop)
             prev.copy_(toks)
             if do_stop:
                 recent.copy_(pushed)

@@ -33,6 +33,16 @@ blocked KV pool refuses them, as the reference's does, so --ragged does.
 
 It runs on the GPU; `--device cpu` runs the kernels' plain versions on
 the CPU instead (there is no silent fallback).
+
+--mesh N serves tensor-parallel over N rank processes started from this
+command (`launch.mesh.spawn`): attention/KV heads and MLP hidden columns
+split N ways, one all-reduce at each wo and down. The ranks take
+cuda:0 ... cuda:N-1 over NCCL, or with --device cpu N CPU ranks over
+gloo; the tokens are the single-device engine's, and rank 0 prints.
+--mesh 0 (the default) is the single-device engine, as in the reference.
+
+  python -m repro_torch.launch.serve --arch opus-mt --smoke --device cpu \
+      --mesh 2 --ragged
 """
 from __future__ import annotations
 
@@ -43,8 +53,11 @@ import numpy as np
 from repro_torch.api.engine import (InferenceEngine, SamplingParams,
                                     TokenEvent, params_to, resolve_device)
 from repro_torch.api.plan import CompressionPlan
+from repro_torch.configs import get_config
 from repro_torch.core.compress import CompressionConfig
 from repro_torch.data.pipeline import MarkovTask
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.sharding import check_tp_geometry
 from repro_torch.runtime.speculation import DraftSpec
 
 
@@ -195,14 +208,34 @@ def main(argv=None):
     ap.add_argument("--stream", action="store_true",
                     help="consume the serve through serve_stream and print "
                          "tokens as they complete")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="tensor-parallel serving over N rank processes: "
+                         "attention/KV heads and MLP hidden dims split N "
+                         "ways, one all-reduce at each wo and down (the "
+                         "tokens are unchanged); cuda:0..N-1 over NCCL, or "
+                         "N CPU ranks over gloo with --device cpu")
     args = ap.parse_args(argv)
     if not args.ragged and (args.stream or args.speculate):
         ap.error("--stream and --speculate serve through the scheduler: "
                  "add --ragged")
+    if args.mesh < 0:
+        ap.error(f"--mesh must be >= 0, got {args.mesh}")
+    if args.mesh == 0:
+        return _run(None, args)
+    check_tp_geometry(get_config(args.arch, smoke=args.smoke), args.mesh)
+    devices = (None if args.device in (None, "cuda")
+               else [args.device] * args.mesh)
+    print(f"[serve] tensor-parallel over mesh (data=1, model={args.mesh})")
+    return mesh_mod.spawn(_run, args.mesh, args, devices=devices)
 
+
+def _run(mesh, args):
+    """Build the engine (on `mesh`'s rank when given), run the requests
+    and return the result; prints on the single device or rank 0."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     if args.plan is not None:
         plan = CompressionPlan.load(args.plan)
-        print(f"[serve] {plan.summary()}")
+        say(f"[serve] {plan.summary()}")
     elif args.compression != "none":
         plan = CompressionConfig(method=args.compression, weight_wl=args.wl,
                                  rank_fraction=args.rank_fraction)
@@ -215,12 +248,13 @@ def main(argv=None):
                               act_wl=args.draft_act_wl)
     engine = InferenceEngine.build(
         args.arch, plan, smoke=args.smoke, seed=args.seed,
-        device=args.device, verbose=True, max_batch=args.max_batch,
+        device=None if mesh is not None else args.device,
+        verbose=mesh is None or mesh.rank == 0, max_batch=args.max_batch,
         block_size=args.block_size, chunk_tokens=args.chunk_tokens,
         prefix_cache=args.prefix_cache, kv_bits=args.kv_bits,
-        speculate=speculate)
+        speculate=speculate, mesh=mesh)
     if args.plan is None and engine.plan is not None:
-        print(f"[serve] {engine.plan.summary()}")
+        say(f"[serve] {engine.plan.summary()}")
     task = MarkovTask(engine.cfg.vocab_size, seed=args.seed)
     prompts = task.batch(0, args.batch, args.prompt_len)["tokens"].numpy()
     sampling = SamplingParams(
@@ -229,32 +263,32 @@ def main(argv=None):
         stop=tuple(tuple(int(t) for t in s.split(",")) for s in args.stop))
     if not args.ragged:
         res = engine.generate(prompts, sampling)
-        print(f"[serve] generated {res.tokens.shape} on {engine.device} in "
-              f"{res.seconds:.3f}s ({res.tokens_per_second:.1f} tok/s)")
-        print("[serve] sample:", res.tokens[0][:16].tolist())
+        say(f"[serve] generated {res.tokens.shape} on {engine.device} in "
+            f"{res.seconds:.3f}s ({res.tokens_per_second:.1f} tok/s)")
+        say("[serve] sample:", res.tokens[0][:16].tolist())
         return res
     lens = [max(4, args.prompt_len - 4 * (i % 4)) for i in range(args.batch)]
     ragged = [prompts[i, :n] for i, n in enumerate(lens)]
     res = (_stream(engine, ragged, sampling) if args.stream
            else engine.serve(ragged, sampling))
-    print(f"[serve] {len(ragged)} requests (prompt lens {lens}) on "
-          f"{engine.device} in {res.seconds:.3f}s: {res.steps} steps "
-          f"({res.mixed_steps} mixed), {res.prefill_chunks} prefill chunks, "
-          f"{res.tokens_per_second:.1f} tok/s")
-    print(f"[serve] TTFT p50 {res.ttft_p50 * 1e3:.1f} ms, per-output-token "
-          f"p50 {res.tpot_p50 * 1e3:.2f} ms; {res.stopped_early} stopped "
-          f"early")
+    say(f"[serve] {len(ragged)} requests (prompt lens {lens}) on "
+        f"{engine.device} in {res.seconds:.3f}s: {res.steps} steps "
+        f"({res.mixed_steps} mixed), {res.prefill_chunks} prefill chunks, "
+        f"{res.tokens_per_second:.1f} tok/s")
+    say(f"[serve] TTFT p50 {res.ttft_p50 * 1e3:.1f} ms, per-output-token "
+        f"p50 {res.tpot_p50 * 1e3:.2f} ms; {res.stopped_early} stopped "
+        f"early")
     if res.prefix_cache:
-        print(f"[serve] prefix cache: hit rate {res.cache_hit_rate:.2f} "
-              f"({res.cache_hit_blocks}/{res.cache_lookup_blocks} blocks, "
-              f"{res.cache_hit_tokens} prompt tokens skipped), "
-              f"{res.cache_blocks_saved} blocks saved, "
-              f"{res.cache_cow_blocks} COW")
+        say(f"[serve] prefix cache: hit rate {res.cache_hit_rate:.2f} "
+            f"({res.cache_hit_blocks}/{res.cache_lookup_blocks} blocks, "
+            f"{res.cache_hit_tokens} prompt tokens skipped), "
+            f"{res.cache_blocks_saved} blocks saved, "
+            f"{res.cache_cow_blocks} COW")
     if res.spec_k:
-        print(f"[serve] speculation k={res.spec_k}: {res.accepted}/"
-              f"{res.drafted} drafts accepted ({res.accept_rate:.2f}) over "
-              f"{res.spec_rounds} rounds")
-    print("[serve] sample:", res.outputs[0][:16].tolist())
+        say(f"[serve] speculation k={res.spec_k}: {res.accepted}/"
+            f"{res.drafted} drafts accepted ({res.accept_rate:.2f}) over "
+            f"{res.spec_rounds} rounds")
+    say("[serve] sample:", res.outputs[0][:16].tolist())
     return res
 
 

@@ -32,6 +32,10 @@ then attends over the row's block-table view under the causal mask
 `slot <= ctx + i`, so queries see the pool prefix and the earlier tokens
 of their own span. The attention itself is `kernels.paged_attention`:
 the CUDA kernel on CUDA tensors, the gather oracle on CPU tensors.
+
+Every `wo` is a tensor-parallel reduction site (`apply_linear(...,
+reduce_tp=True)`): on one rank's heads it is a partial sum, all-reduced
+when a TP group is bound and untouched otherwise.
 """
 from __future__ import annotations
 
@@ -126,7 +130,8 @@ def attention(params, x, cfg, *, window=None, positions=None,
         o = _chunked_causal(qg, k, v, positions, window, cfg)
     else:
         raise ValueError(f"attn_impl must be auto|full|chunked, got {impl!r}")
-    y = apply_linear(o.to(x.dtype).reshape(b, s, h * hd), params["wo"])
+    y = apply_linear(o.to(x.dtype).reshape(b, s, h * hd), params["wo"],
+                     reduce_tp=True)
     return (y, kv) if return_kv else y
 
 
@@ -277,7 +282,8 @@ def decode_attention(params, x1, cache, pos, cfg, *, window=None):
     qg = _group_q(_wide(q), hk)
     o = _attend_block(qg, _wide(ck.to(q.dtype)), _wide(cv.to(q.dtype)),
                       valid[None, None, None, None, :], cfg.logit_softcap)
-    y = apply_linear(o.to(x1.dtype).reshape(b, 1, h * hd), params["wo"])
+    y = apply_linear(o.to(x1.dtype).reshape(b, 1, h * hd), params["wo"],
+                     reduce_tp=True)
     return y, cache
 
 
@@ -335,5 +341,5 @@ def span_attention_paged(params, x, pool, block_table, ctx_lens, q_lens,
 
     o = paged_attention(q.contiguous(), pool, block_table, ctx_lens,
                         logit_softcap=cfg.logit_softcap)
-    y = apply_linear(o.reshape(b, w, h * hd), params["wo"])
+    y = apply_linear(o.reshape(b, w, h * hd), params["wo"], reduce_tp=True)
     return y, pool

@@ -37,16 +37,48 @@ import torch.nn.functional as F
 from repro_torch.core.itera import LowRankQ
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
+from repro_torch.runtime import shardctx
 
 
-def apply_linear(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
-    """y = x @ w for w: Tensor | QuantizedTensor | LowRankQ."""
+def apply_linear(x: torch.Tensor, w, out_dtype=None, *,
+                 reduce_tp: bool = False) -> torch.Tensor:
+    """y = x @ w for w: Tensor | QuantizedTensor | LowRankQ.
+
+    reduce_tp marks the tensor-parallel reduction sites (wo, mlp down):
+    on a tensor-parallel engine their input features are sliced across
+    the ranks, so the rank's product is a partial sum. With a group bound
+    (`runtime.shardctx.tp_group`) the partial is taken in float32 (a
+    dense weight through a float32 product, a compressed one through its
+    kernel's float32 output; a compressed K-site quantizes its
+    activations over the rank's own features, as the reference's),
+    all-reduced, and cast once after the reduction, the one rounding the
+    single-device product makes from its float32 accumulator. With no
+    group bound the flag changes nothing."""
     out_dtype = out_dtype or x.dtype
+    if reduce_tp and shardctx.get_tp_group() is not None:
+        if isinstance(w, (LowRankQ, QuantizedTensor)):
+            y = apply_linear(x, w, out_dtype=torch.float32)
+        else:
+            y = _float32_product(x, w)
+        return shardctx.psum_tp(y).to(out_dtype)
     if isinstance(w, LowRankQ):
         return ops.lrmm(x, w, out_dtype=out_dtype)
     if isinstance(w, QuantizedTensor):
         return ops.qmm(x, w, out_dtype=out_dtype)
     return (x @ w.to(x.dtype)).to(out_dtype)
+
+
+def _float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w summed and returned in float32 (the reference's
+    `preferred_element_type=float32`). On the card a bf16 pair goes
+    through `torch.mm(..., out_dtype=float32)`, which accumulates and
+    writes float32 without a float32 copy of the weight; elsewhere both
+    are cast (the CPU has no such kernel; a product of two bf16 values is
+    exact in float32, so the cast pair sums the same products)."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.to(torch.float32) @ w.to(torch.float32)
 
 
 # ----------------------------------------------------------------- norms --
@@ -142,7 +174,7 @@ def mlp_apply(x, p, act: str):
         h = torch.square(F.relu(apply_linear(x, p["up"])))
     else:
         h = gelu(apply_linear(x, p["up"]))
-    return apply_linear(h, p["down"])
+    return apply_linear(h, p["down"], reduce_tp=True)
 
 
 # ------------------------------------------------------------- positions --

@@ -20,6 +20,13 @@ and path names ("layers/attn/wq", "layers/mixer/in_proj",
 along a leading L axis, as the reference's scan-stacked leaves, so
 compression plans and checkpoints address the same paths in both
 packages. The forward pass loops over layers in Python.
+
+On a tensor-parallel engine (`api.engine`, `launch.sharding`) the serving
+and rectangular steps run unchanged on one rank's slice: `cfg` is the
+per-rank config (num_heads / tp query and num_kv_heads / tp KV heads),
+the weights are sliced (the attention and MLP widths come from them),
+the pool or decode cache holds the rank's heads, and each wo and down
+all-reduces its partial (`layers.apply_linear(..., reduce_tp=True)`).
 """
 from __future__ import annotations
 

@@ -223,6 +223,29 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def shard_pool(pool, tp: int, shard: int) -> dict:
+    """The head slice of `pool` that rank `shard` of `tp` holds: every
+    leaf -- the (L, NB, bs, Hk, Dh) codes and the int8 (L, NB, bs, Hk, 1)
+    scale planes -- sliced on its KV-head axis 3. Pure slicing, what the
+    tests hold a rank's pool to: a rank allocates its own slice directly
+    (`init_paged_cache` with the per-rank config), and int8 KV
+    quantization is per (token, head), so rank r's codes and scales equal
+    heads [r*Hk/tp, (r+1)*Hk/tp) of the single-device pool. Block tables,
+    step buffers and the scheduler's state are the same on every rank."""
+    if not 0 <= shard < tp:
+        raise ValueError(f"shard {shard} out of range for tp={tp}")
+    out = {}
+    for key, leaf in pool.items():
+        hk = leaf.shape[3]
+        if hk % tp:
+            raise ValueError(
+                f"pool leaf {key!r} has {hk} KV heads, not divisible by "
+                f"tp={tp}")
+        n = hk // tp
+        out[key] = leaf[:, :, :, shard * n:(shard + 1) * n]
+    return out
+
+
 def valid_block_counts(ctx_lens, q_lens, block_size: int, max_blocks: int):
     """Per-row count of block-table entries holding valid context this
     step, ceil((ctx + q) / block_size), 0 for idle rows (q_lens == 0),

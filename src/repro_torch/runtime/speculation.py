@@ -17,8 +17,12 @@ copy of itself: a draft model with the same resident weights.
      the plain serve's tokens.
 
 Scheduling (per-row clamps, provisional KV blocks and their rollback) is
-`runtime.scheduler`'s; the serve loop is `api.engine`'s. Tensor-parallel
-speculation waits for the port's multi-device serving.
+`runtime.scheduler`'s; the serve loop is `api.engine`'s. On a
+tensor-parallel engine each rank runs the whole round on its slice: the
+draft is derived from the full weights and then sliced by the served
+weights' rules (truncation acts on the rank axis, the slice on heads and
+hidden columns, so they commute), over the rank's head slice of the pool;
+the accept bookkeeping is the same on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from repro_torch.core.compress import flatten, map_with_path
 from repro_torch.core.itera import LowRankQ, truncate
 from repro_torch.core.quant import QuantizedTensor, pack_weights, unpack_weights
+from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import sampling as smp
 
@@ -210,16 +215,23 @@ def speculative_step(params, draft_params, pool, block_tables, step_buf,
 
 class SpeculationController:
     """The engine's draft model: derives and holds the draft tree (and its
-    per-layer views) and runs `speculative_step` with it."""
+    per-layer views) and runs `speculative_step` with it. With a serving
+    `mesh` (`launch.mesh.ServingMesh`), `params` are the full weights:
+    the draft is derived from them and then sliced to this rank, and the
+    steps run with the per-rank config."""
 
-    def __init__(self, spec: DraftSpec, cfg, params, draft_params=None):
+    def __init__(self, spec: DraftSpec, cfg, params, draft_params=None, *,
+                 mesh=None):
         self.spec = spec
+        draft = (derive_draft_params(params, spec) if draft_params is None
+                 else draft_params)
+        self.exact = is_exact_draft(params, draft)
+        if mesh is not None:
+            cfg = shd.tp_local_config(cfg, mesh.size)
+            draft = shd.tp_shard_params(draft, mesh.size, mesh.rank)
         self.cfg = cfg
-        self.draft_params = (derive_draft_params(params, spec)
-                             if draft_params is None else draft_params)
-        self.exact = is_exact_draft(params, self.draft_params)
-        self._draft_step = tfm.split_layers(self.draft_params,
-                                            cfg.num_layers)
+        self.draft_params = draft
+        self._draft_step = tfm.split_layers(draft, cfg.num_layers)
 
     def step(self, step_params, pool, block_tables, step_buf, prev, k: int,
              sample: bool = False):

@@ -291,7 +291,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.chameleon_34b, "
             "repro_torch.configs.musicgen_medium, repro_torch.runtime.prng, "
             "repro_torch.models.mamba, repro_torch.configs.falcon_mamba_7b, "
-            "repro_torch.configs.zamba2_2p7b; "
+            "repro_torch.configs.zamba2_2p7b, repro_torch.runtime.shardctx, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

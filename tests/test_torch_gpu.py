@@ -1288,3 +1288,102 @@ def test_mamba_generate_on_the_card_gives_the_cpu_tokens(cuda, arch):
         assert dict(build.LAUNCHES) == {"lowrank_qmm": per_pass * 6,
                                         "quant_matmul": 6}
         assert np.array_equal(got, cpu.generate(prompts, sp).tokens)
+
+
+# ------------------------------------------------- tensor-parallel serving --
+def _tp_prompts(vocab):
+    rng = np.random.default_rng(28)
+    return [rng.integers(1, vocab, n).astype(np.int32)
+            for n in (5, 40, 17, 23, 9)]
+
+
+def test_tp1_nccl_captured_equals_solo(cuda):
+    """tp 1 over NCCL in this process (a group of one): the mixed smoke
+    engine's captured steps (an all-reduce over one rank launches nothing)
+    give the solo captured engine's tokens and launch counters."""
+    import torch.distributed as dist
+
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    _, solo = _mixed_engines(cuda, 16)
+    prompts = _tp_prompts(solo.cfg.vocab_size)
+    sp = SamplingParams(max_tokens=7)
+    mesh = make_serving_mesh(1)
+    try:
+        assert (mesh.backend, mesh.size) == ("nccl", 1)
+        tp = InferenceEngine(solo.cfg, solo.params, device=mesh.device,
+                             plan=solo.plan, mesh=mesh)
+        runs = []
+        for eng in (solo, tp, tp):
+            build.reset_launches()
+            res = eng.serve(prompts, sp)
+            torch.cuda.synchronize()
+            runs.append((res.outputs, _counts()))
+        assert tp.graph_stats()["graphs"] > 0
+        for outputs, counts in runs[1:]:
+            for a, b in zip(outputs, runs[0][0]):
+                np.testing.assert_array_equal(a, b)
+            assert counts == runs[0][1]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tp1_nccl_bf16_dense_k_site(cuda):
+    """A dense bf16 K-site with a one-rank NCCL group bound: the float32
+    partial (torch.mm's float32 output, no float32 copy of the weight)
+    all-reduced and cast once is the float32 sum of the exact bf16
+    products rounded to bf16: within one bf16 ulp of the float64 sum."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.layers import apply_linear
+    from repro_torch.runtime import shardctx
+
+    g = torch.Generator().manual_seed(28)
+    x = torch.randn(2, 8, 512, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(512, 256, generator=g) / 20).to(cuda, torch.bfloat16)
+    want = (x.double() @ w.double()).to(torch.bfloat16).double()
+    mesh = make_serving_mesh(1)
+    try:
+        with shardctx.tp_group(mesh.group):
+            y = apply_linear(x, w, reduce_tp=True)
+        assert y.dtype == torch.bfloat16 and tuple(y.shape) == (2, 8, 256)
+        torch.testing.assert_close(y.double(), want, rtol=2 ** -7, atol=1e-4)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_serve_rank(mesh, cfg, prompts, sp):
+    """A rank of a gloo mesh on the card: the seed-0 dense engine, eager,
+    serving `prompts`."""
+    from repro_torch.api.engine import InferenceEngine
+
+    eng = InferenceEngine.build(cfg, None, seed=0, mesh=mesh,
+                                cuda_graphs=False)
+    return eng.serve(prompts, sp).outputs
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_tp2_gloo_on_one_card_equals_solo(cuda, kv_bits):
+    """Two gloo rank processes sharing the card (NCCL refuses two ranks on
+    one device), eager: the dense smoke model's tokens equal the solo card
+    engine's; with cuda_graphs left on, a gloo engine refuses to build."""
+    from repro_torch.api.engine import InferenceEngine, SamplingParams
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import ServingMesh, spawn
+
+    cfg = dataclasses.replace(get_config("opus-mt", smoke=True),
+                              num_heads=2, num_kv_heads=2, head_dim=32,
+                              kv_cache_bits=kv_bits)
+    prompts = _tp_prompts(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=7)
+    want = InferenceEngine.build(cfg, None, seed=0,
+                                 device=cuda).serve(prompts, sp).outputs
+    got = spawn(_tp_serve_rank, 2, cfg, prompts, sp,
+                devices=["cuda:0"] * 2, backend="gloo", timeout=300)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    mesh = ServingMesh(None, 0, 2, torch.device("cuda:0"), "gloo")
+    with pytest.raises(ValueError, match="cuda_graphs=False"):
+        InferenceEngine.build(cfg, None, seed=0, mesh=mesh)

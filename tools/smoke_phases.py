@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Run some of chip_smoke.py's checks on one NVIDIA GPU, for quicker turns
 than the whole script: phase 2's bf16 kernel rows, its rows past
-lowrank_qmm's R 1024 and its Mamba linears, then the gemma2, mamba-train,
-mamba, bf16 and nemotron phases (or a subset).
+lowrank_qmm's R 1024, its Mamba linears and the tensor-parallel per-rank
+shapes, then the gemma2, mamba-train, mamba, bf16, nemotron and tp
+phases (or a subset).
 
     python3 tools/smoke_phases.py [--phases bf16-kernels,large-ranks,\
-        mamba-kernels,gemma2,mamba-train,mamba,bf16,nemotron]
+        mamba-kernels,tp-kernels,gemma2,mamba-train,mamba,bf16,nemotron,tp]
 
 Later phases check their lowrank_qmm launches against what the kernel
 phases compared, so keep those first. The mamba phase compresses the
@@ -21,9 +22,10 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels", "gemma2",
-          "mamba-train", "mamba", "bf16", "nemotron")
-KERNEL_PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels")
+PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels", "tp-kernels",
+          "gemma2", "mamba-train", "mamba", "bf16", "nemotron", "tp")
+KERNEL_PHASES = ("bf16-kernels", "large-ranks", "mamba-kernels",
+                 "tp-kernels")
 
 
 def main() -> int:
@@ -45,13 +47,16 @@ def main() -> int:
             "large-ranks": lambda f: cs.check_large_ranks(torch, f),
             "mamba-kernels": lambda f: cs.check_mamba_kernels(torch, timer,
                                                               f),
+            "tp-kernels": lambda f: cs.check_tp_kernels(torch, f),
             "mamba-train": lambda f: trained.update(
-                cs.mamba_train_phase(torch, f)),
+                cs.mamba_train_phase(torch, f, defer=deferred)),
             "mamba": lambda f: cs.mamba_phase(torch, f, trained or None),
             "gemma2": lambda f: cs.gemma2_phase(torch, f),
             "bf16": lambda f: cs.bf16_phase(torch, f),
-            "nemotron": lambda f: cs.nemotron_phase(torch, f)}
+            "nemotron": lambda f: cs.nemotron_phase(torch, f),
+            "tp": lambda f: cs.tp_phase(torch, f)}
     trained: dict = {}
+    deferred: list = []     # mamba-train's CPU steps, joined at the end
     failed = bool(build_failures)
     build.reset_launches()
     for name in args.phases.split(","):
@@ -63,6 +68,11 @@ def main() -> int:
         print(f"[{name}] failures {failures}; "
               f"{time.perf_counter() - t0:.1f} s")
         failed |= bool(failures)
+    failures = []
+    cs.join_cpu_steps(deferred, failures)
+    if deferred:
+        print(f"[mamba-train card vs CPU] failures {failures}")
+    failed |= bool(failures)
     print(f"[timer] {timer.report()}")
     print(cs.card_line())
     return int(failed)
